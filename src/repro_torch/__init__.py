@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the DAE speculation compiler and its runtime.
+
+The paper's main path — a workload from :mod:`repro_torch.bench_irregular`,
+compiled by :func:`repro_torch.core.pipeline.compile_spec`, executed by
+:func:`repro_torch.codegen.run` with ``target="torch"`` — runs its device
+tables through two hand-written CUDA kernels
+(:mod:`repro_torch.kernels.spec_gather`,
+:mod:`repro_torch.kernels.spec_scatter`).  The package imports torch and
+numpy only; the JAX package ``repro`` beside it is the reference it is
+tested against.
+"""

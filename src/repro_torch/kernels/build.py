@@ -1,0 +1,120 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, under ``build/kernels/`` at the
+root of the checkout.  The library's name carries a hash of the source and
+the flags, so an edited source rebuilds and a stale library is never
+loaded.  The library is written under a temporary name and renamed into
+place, so concurrent first uses never load a half-written file.
+
+A failed build raises :class:`RuntimeError` — never a codegen refusal, so
+the degradation ladder cannot quietly finish a run on the interpreter
+because a kernel did not compile.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+#: exported C entry -> argument types; every entry returns the launch's
+#: ``cudaGetLastError()`` as an int
+SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    "spec_gather": {
+        "spec_gather_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        "spec_gather_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+    },
+    "spec_scatter": {
+        "spec_scatter_add_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        "spec_scatter_add_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: compiler output (``-Xptxas -v``: registers, spills) of each build made
+#: by this process
+BUILD_LOG: Dict[str, str] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for this source."""
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; None when the library is built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile every named source that is not built yet, all in parallel."""
+    with _LOCK:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish(n, job)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build((name,))
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry reported a launch error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
