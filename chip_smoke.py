@@ -10,11 +10,16 @@ PyTorch version on the card, runs every workload of
 ``repro_torch.bench_irregular`` through ``repro_torch.codegen.run`` on the
 card and checks it bit for bit against the port's sequential interpreter,
 then runs the full-size codegen path (hist over 2**20 elements, spmv and
-sort at n=1024) and times it.  Phases print as they finish; the last lines
-are one ``{"kernels": [...]}`` JSON object, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before the last line is printed.  Without a CUDA device, or outside a
-checkout, it exits non-zero at once.
+sort at n=1024) and times it.  The kernel API's path follows: the
+grouped GEMM and the two attention kernels against their plain versions
+over an edge sweep in float32 and bfloat16, then each once through
+``repro_torch.kernels.ops`` at full model width (Kimi-K2's expert FFN,
+Mistral-NeMo-12B's prefill and decode), checked against its plain version
+and timed.  Phases print as they finish; the last lines are one
+``{"kernels": [...]}`` JSON object, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
+last line is printed.  Without a CUDA device, or outside a checkout, it
+exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -37,6 +42,16 @@ HBM_BYTES_PER_S = 3.35e12
 #: atomics sum duplicates in run-dependent order, so the last bits may
 #: differ from the plain version's sum
 F32_ATOL = 1e-4
+#: H100 SXM dense bfloat16 tensor-core rate (NVIDIA data sheet), for the
+#: operation bound
+BF16_FLOP_PER_S = 989e12
+#: float32 tolerances of tests/test_kernels.py (rtol = atol)
+GEMM_TOL, ATTN_TOL = 1e-3, 2e-3
+#: bfloat16: another summation order, p and the output rounded to bf16
+#: (GEMM: rtol, and atol as a share of max|want|)
+BF16_ATTN_TOL, BF16_GEMM_RTOL = 2e-2, 1e-2
+#: seconds each timing of the full-width phase aims at
+TIMING_S = 1.0
 
 FULL = {  # the main path at full size: cu_mode="vector", 2e8 AGU steps
     "hist": dict(n=1 << 20, n_bins=1 << 16),
@@ -416,6 +431,302 @@ def phase_line(totals, kernel_ms, shapes, args) -> dict:
         })
     return {"kernels": out}
 
+# ---------------------------------------------------------------------------
+# the kernel API's path: grouped GEMM and attention
+# ---------------------------------------------------------------------------
+
+
+def round_capacity(n_tokens: int, n_experts: int, top_k: int,
+                   factor: float, multiple: int = 8) -> int:
+    """Expert capacity, a copy of ``repro.models.moe.round_capacity``."""
+    cap = int(factor * n_tokens * top_k / n_experts) + 1
+    return max(multiple, ((cap + multiple - 1) // multiple) * multiple)
+
+
+def _dense_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_matmul import ragged_matmul
+    return ragged_matmul, flash_attention, paged_attention
+
+
+def _close(got, want, dtype, gemm: bool) -> float:
+    """Max abs error of ``got`` against ``want``; fails past tolerance."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{tuple(got.shape)} {got.dtype} != {tuple(want.shape)} "
+             f"{want.dtype}")
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail("non-finite output")
+    if dtype == torch.float32:
+        rtol = atol = GEMM_TOL if gemm else ATTN_TOL
+    elif gemm:
+        rtol = BF16_GEMM_RTOL
+        atol = BF16_GEMM_RTOL * max(want.abs().max().item(), 1e-6)
+    else:
+        rtol = atol = BF16_ATTN_TOL
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"max abs error {(got - want).abs().max().item()} past "
+             f"rtol={rtol} atol={atol}")
+    return (got - want).abs().max().item() if got.numel() else 0.0
+
+
+def _paged_edges(rng, b, h, d, p, page, nmax):
+    """Paged inputs with seq_len 0, -1 tail pages, a page id past the pool
+    and a row whose pages are all -1 (numpy, float32)."""
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((p, page, h, d)).astype(np.float32)
+    vp = rng.standard_normal((p, page, h, d)).astype(np.float32)
+    pt = rng.integers(0, p, (b, nmax)).astype(np.int32)
+    seq = rng.integers(1, page * nmax + 1, b).astype(np.int32)
+    used = (seq + page - 1) // page
+    for i in range(b):
+        pt[i, used[i]:] = -1
+    if b > 1:
+        seq[0] = 0
+        pt[1, 0] = p + 3
+    if b > 2:
+        pt[2] = -1
+    return q, kp, vp, pt, seq
+
+
+def phase_kernels_dense() -> None:
+    """The grouped GEMM and both attention kernels against their plain
+    versions over an edge sweep, float32 and bfloat16."""
+    from repro_torch.kernels import ref
+    ragged, flash, paged = _dense_kernels()
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    worst = collections.defaultdict(float)
+    cases = collections.Counter()
+
+    def put(dtype, *arrays):
+        return [torch.from_numpy(a).to(dev).to(dtype) for a in arrays]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        # capacity, F and D off the 64x128 (64x64) tiles
+        for e, c, d, f in ((4, 64, 128, 256), (3, 56, 96, 200),
+                           (2, 13, 37, 45), (5, 70, 128, 136)):
+            x, w = put(dtype, rng.standard_normal((e * c, d), np.float32),
+                       rng.standard_normal((e, d, f), np.float32))
+            err = _close(ragged(x, w, capacity=c), ref.ragged_matmul(x, w, c),
+                         dtype, gemm=True)
+            worst["ragged_matmul", tag] = max(worst["ragged_matmul", tag],
+                                              err)
+            cases["ragged_matmul"] += 1
+        # T off the 64-row query and 32-row key tiles; tq < tk and tq > tk
+        for b, h, tq, tk, d in ((1, 2, 100, 100, 64), (1, 2, 50, 130, 128),
+                                (1, 2, 130, 50, 64), (2, 1, 1, 77, 128),
+                                (1, 2, 256, 256, 128)):
+            q, k, v = put(dtype,
+                          *(rng.standard_normal((b, h, t, d), np.float32)
+                            for t in (tq, tk, tk)))
+            for causal in (True, False):
+                got = flash(q, k, v, causal=causal)
+                err = _close(got, ref.flash_attention(q, k, v, causal=causal),
+                             dtype, gemm=False)
+                if causal and tq > tk and got[:, :, :tq - tk].any():
+                    fail(f"flash_attention {tag}: dead causal rows not zero")
+                worst["flash_attention", tag] = max(
+                    worst["flash_attention", tag], err)
+                cases["flash_attention"] += 1
+        # page 8 and 16, d 64 and 128, splits of 256 tokens crossed
+        for b, h, d, p, page, nmax in ((3, 4, 64, 16, 8, 5),
+                                       (1, 8, 128, 8, 16, 3),
+                                       (5, 8, 128, 64, 16, 40),
+                                       (4, 3, 128, 9, 8, 70)):
+            q, kp, vp, pt, seq = _paged_edges(rng, b, h, d, p, page, nmax)
+            q, kp, vp = put(dtype, q, kp, vp)
+            pt, seq = (torch.from_numpy(a).to(dev) for a in (pt, seq))
+            got = paged(q, kp, vp, pt, seq)
+            err = _close(got, ref.paged_attention(q, kp, vp, pt, seq), dtype,
+                         gemm=False)
+            if b > 2 and (got[0].any() or got[2].any()):
+                fail(f"paged_attention {tag}: dead rows not zero")
+            worst["paged_attention", tag] = max(
+                worst["paged_attention", tag], err)
+            cases["paged_attention"] += 1
+    torch.cuda.synchronize()
+    print(f"[kernels-dense] {dict(cases)} cases agree with the plain "
+          f"versions (float32 rtol=atol {GEMM_TOL} GEMM / {ATTN_TOL} "
+          f"attention; bfloat16 rtol {BF16_GEMM_RTOL} atol "
+          f"{BF16_GEMM_RTOL}*max|want| GEMM / rtol=atol {BF16_ATTN_TOL} "
+          f"attention); max abs error "
+          f"{ {f'{k}/{t}': v for (k, t), v in sorted(worst.items())} } "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _adaptive_reps(fn) -> int:
+    """Calls of ``fn`` that take about TIMING_S / 5 on the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    one = max(start.elapsed_time(stop), 1e-3)
+    return max(1, min(200, int(TIMING_S * 1e3 / 5 / one)))
+
+
+def _full_width_inputs(gen):
+    """Seeded bfloat16 inputs at the three models' widths, made on the
+    card; returns {kernel: (args, work)}."""
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(scale).to(bf)
+
+    # Kimi-K2 expert FFN (repro.configs.kimi_k2_1t_a32b): w_gate (E, D, F)
+    e, d, f, top_k = 384, 7168, 2048, 8
+    cap = round_capacity(2048, e, top_k, 1.25)
+    x = randn(e * cap, d)
+    w = randn(e, d, f, scale=d ** -0.5)
+    ragged = ((x, w, cap), {
+        "flop": 2 * e * cap * d * f,
+        "bytes": 2 * (x.numel() + w.numel() + e * cap * f),
+        "shape": {"E": e, "capacity": cap, "D": d, "F": f,
+                  "dtype": "bfloat16"}})
+
+    # Mistral-NeMo-12B prefill (repro.configs.mistral_nemo_12b): 32 query
+    # heads, head_dim 128, T = 4096, causal
+    b, h, t, hd = 1, 32, 4096, 128
+    q, k, v = (randn(b, h, t, hd) for _ in range(3))
+    pairs = t * (t + 1) // 2  # live (query, key) pairs, tq == tk
+    flash = ((q, k, v), {
+        "flop": 4 * hd * pairs * b * h,
+        "bytes": 2 * 4 * q.numel(),
+        "shape": {"B": b, "H": h, "T": t, "d": hd, "causal": True,
+                  "dtype": "bfloat16"}})
+
+    # Mistral-NeMo-12B decode: 8 KV heads, 32 sequences of up to 4096
+    # tokens in pages of 16, a pool of 8192 pages in shuffled order
+    b, h, page, n_max, pool = 32, 8, 16, 256, 8192
+    rng = np.random.default_rng(12)
+    seq = rng.integers(1, page * n_max + 1, b).astype(np.int32)
+    order = rng.permutation(pool).astype(np.int32)
+    pt = np.full((b, n_max), -1, np.int32)
+    for i in range(b):
+        used = (int(seq[i]) + page - 1) // page
+        pt[i, :used] = order[i * n_max:i * n_max + used]
+    qd = randn(b, h, hd)
+    kp, vp = randn(pool, page, h, hd), randn(pool, page, h, hd)
+    pt_t, seq_t = (torch.from_numpy(a).to(dev) for a in (pt, seq))
+    live = int(seq.sum())
+    paged = ((qd, kp, vp, pt_t, seq_t), {
+        "flop": 4 * hd * live * h,
+        "bytes": 2 * 2 * live * h * hd + 2 * 2 * qd.numel()
+        + 4 * (pt.size + seq.size),
+        "shape": {"B": b, "H": h, "d": hd, "page": page, "n_max": n_max,
+                  "P": pool, "live_slots": live, "dtype": "bfloat16"}})
+    return {"ragged_matmul": ragged, "flash_attention": flash,
+            "paged_attention": paged}
+
+
+def phase_api_full() -> list:
+    """The kernel API's path at full width: each kernel once through
+    ``repro_torch.kernels.ops``, launch counts read around that run, then
+    each held against its plain version and timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g, s = _counters()
+    ragged, flash, paged = _dense_kernels()
+    counters = {"spec_gather": g, "spec_scatter_add": s,
+                "ragged_matmul": ragged, "flash_attention": flash,
+                "paged_attention": paged}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    inputs = _full_width_inputs(gen)
+    torch.cuda.synchronize()
+    print(f"[api] inputs made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the path: the public API, each kernel once
+    for c in counters.values():
+        c.launches = 0
+    outs = {
+        "ragged_matmul": ops.ragged_matmul(*inputs["ragged_matmul"][0]),
+        "flash_attention": ops.flash_attention(*inputs["flash_attention"][0],
+                                               causal=True),
+        "paged_attention": ops.paged_attention(*inputs["paged_attention"][0]),
+    }
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    want = {"spec_gather": 0, "spec_scatter_add": 0, "ragged_matmul": 1,
+            "flash_attention": 1, "paged_attention": 1}
+    if launches != want:
+        fail(f"api path launches {launches} != {want}")
+
+    plain = {"ragged_matmul": lambda x, w, c: ref.ragged_matmul(x, w, c),
+             "flash_attention": lambda q, k, v: ref.flash_attention(q, k, v),
+             "paged_attention": ref.paged_attention}
+    kernel = {"ragged_matmul": lambda x, w, c: ragged(x, w, capacity=c),
+              "flash_attention": lambda q, k, v: flash(q, k, v),
+              "paged_attention": paged}
+    library = {  # yardsticks only; the port never calls them
+        "ragged_matmul": lambda x, w, c: torch.bmm(
+            x.view(w.shape[0], c, w.shape[1]), w),
+        "flash_attention": lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True),
+        "paged_attention": None}
+    sources = {
+        "ragged_matmul": ("src/repro_torch/kernels/csrc/ragged_matmul.cu",
+                          "src/repro/kernels/ragged_matmul.py:65"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:90"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:110")}
+    records = []
+    for name in ("ragged_matmul", "flash_attention", "paged_attention"):
+        args, work = inputs[name]
+        t1 = time.perf_counter()
+        err = _close(outs.pop(name), plain[name](*args), torch.bfloat16,
+                     gemm=name == "ragged_matmul")
+        saved = {n: c.launches for n, c in counters.items()}
+        kern = lambda: kernel[name](*args)
+        ms = device_ms(kern, reps=_adaptive_reps(kern))
+        eager = call_ms(kern, reps=_adaptive_reps(kern))
+        pl = lambda: plain[name](*args)
+        plain_ms = call_ms(pl, reps=_adaptive_reps(pl))
+        lib_ms = None
+        if library[name] is not None:
+            lib = lambda: library[name](*args)
+            lib_ms = device_ms(lib, reps=_adaptive_reps(lib))
+        for n, c in counters.items():
+            c.launches = saved[n]
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = work["flop"] / BF16_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        src, replaces = sources[name]
+        print(f"[api] {name} {work['shape']}: launches {launches[name]}; "
+              f"max abs err vs plain {err}; device {ms:.4f} ms (CUDA graph "
+              f"replay), eager call {eager:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(eager), library "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                 "none (no single PyTorch call computes attention through a "
+                 "page table)")
+              + f"; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({work['flop'] / 1e9:.2f} GFLOP, {work['bytes'] / 1e6:.1f} "
+              f"MB); {ms / bound_ms:.1f}x the bound "
+              f"({time.perf_counter() - t1:.1f} s)")
+        records.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "call_ms": eager, "shape": work["shape"],
+            "flop": work["flop"], "bytes": work["bytes"]})
+        del args
+        inputs.pop(name)
+        torch.cuda.empty_cache()
+    return records
+
 
 def main() -> None:
     """Run every phase; print the result lines only if all passed."""
@@ -426,6 +737,8 @@ def main() -> None:
     phase_kernels()
     phase_parity()
     line = phase_line(*phase_full())
+    phase_kernels_dense()
+    line["kernels"] += phase_api_full()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(smi())

@@ -1,9 +1,12 @@
-"""The hand-written CUDA kernels of the codegen path and their plain versions.
+"""The hand-written CUDA kernels of the port and their plain versions.
 
-:func:`repro_torch.kernels.spec_gather.spec_gather` and
-:func:`repro_torch.kernels.spec_scatter.spec_scatter_add` launch their
-CUDA kernel on CUDA tensors and run the plain PyTorch version
-(:mod:`repro_torch.kernels.ref`) on CPU tensors — see
-:mod:`repro_torch.kernels.ops`.  The attention and grouped-GEMM kernels of
-the JAX package are not ported yet.
+:mod:`repro_torch.kernels.ops` is the public API, the counterpart of
+``repro.kernels.ops``: ``spec_gather`` and ``spec_scatter_add`` (the
+codegen path's speculative gather and scatter), ``ragged_matmul`` (the
+grouped expert GEMM), ``flash_attention`` and ``paged_attention``.  Each
+launches its CUDA kernel (``csrc/*.cu``, built by
+:mod:`repro_torch.kernels.build`) on CUDA tensors and runs the plain
+PyTorch version (:mod:`repro_torch.kernels.ref`) on CPU tensors — see
+:mod:`repro_torch.kernels.dispatch`.  Every Pallas kernel of the JAX
+package has its counterpart here.
 """

@@ -40,6 +40,22 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "spec_scatter_add_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         "spec_scatter_add_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
     },
+    # x, w, out; E, capacity, D, F; stream
+    "ragged_matmul": {
+        f"ragged_matmul_{t}": (_PTR,) * 3 + (_I64,) * 4 + (_PTR,)
+        for t in ("f32", "bf16")
+    },
+    # q, k, v, out; B*H, tq, tk, d, causal; stream
+    "flash_attention": {
+        f"flash_attention_{t}": (_PTR,) * 4 + (_I64,) * 5 + (_PTR,)
+        for t in ("f32", "bf16")
+    },
+    # q, k_pages, v_pages, page_table, seq_lens, out, scratch;
+    # B, H, d, P, page, n_max, pages per split; stream
+    "paged_attention": {
+        f"paged_attention_{t}": (_PTR,) * 7 + (_I64,) * 7 + (_PTR,)
+        for t in ("f32", "bf16")
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,49 +1,48 @@
-"""Dispatch and argument checks shared by the kernel wrappers.
+"""ops — the public kernel API, the counterpart of ``repro.kernels.ops``.
 
-The rule has one input: where the tensors lie.  A CUDA tensor goes to the
-hand-written kernel, which launches or raises; a CPU tensor goes to the
-plain version in :mod:`repro_torch.kernels.ref`.  No environment variable
-or keyword selects the plain version for a CUDA tensor.
+The same five functions with the same signatures.  Each goes to its
+kernel wrapper, which dispatches on where the tensors lie (see
+:mod:`repro_torch.kernels.dispatch`): CUDA tensors launch the
+hand-written kernel or raise, CPU tensors run the plain version in
+:mod:`repro_torch.kernels.ref`.  There is no switch that forces one or
+the other, unlike the reference's ``FORCE_PALLAS_INTERPRET``.
 """
 from __future__ import annotations
 
 import torch
 
-#: element types the kernels are built for
-DTYPES = (torch.int32, torch.float32)
+from .flash_attention import flash_attention as _flash
+from .paged_attention import paged_attention as _paged
+from .ragged_matmul import ragged_matmul as _ragged
+from .spec_gather import spec_gather as _gather
+from .spec_scatter import spec_scatter_add as _scatter
 
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises otherwise."""
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and "
-                             f"{t.device}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {dev}")
+def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``idx``; poisoned (idx<0) rows are zeros."""
+    return _gather(table, idx)
 
 
-def check_table_idx(table: torch.Tensor, idx: torch.Tensor) -> None:
-    """Shape, dtype and layout checks common to both kernels."""
-    if table.dim() != 2:
-        raise ValueError(f"table must be 2-D (rows, d), got "
-                         f"{tuple(table.shape)}")
-    if table.dtype not in DTYPES:
-        raise TypeError(f"table dtype {table.dtype} not supported "
-                        f"(int32 or float32)")
-    if idx.dim() != 1 or idx.dtype != torch.int32:
-        raise TypeError(f"idx must be a 1-D int32 tensor, got "
-                        f"{idx.dtype} {tuple(idx.shape)}")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("table and idx must be contiguous")
-    if idx.shape[0] and table.shape[0] == 0:
-        raise ValueError("cannot index a table with no rows")
+def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
+                     values: torch.Tensor) -> torch.Tensor:
+    """``table[idx] += values`` in place, poisoned stores dropped."""
+    return _scatter(table, idx, values)
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """Handle of the current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def ragged_matmul(x: torch.Tensor, w: torch.Tensor,
+                  capacity: int) -> torch.Tensor:
+    """Grouped GEMM: row ``r`` of ``x`` times ``w[r // capacity]``."""
+    return _ragged(x, w, capacity=capacity)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention, causal masks aligned bottom-right."""
+    return _flash(q, k, v, causal=causal)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention of one token per sequence over a paged KV pool."""
+    return _paged(q, k_pages, v_pages, page_table, seq_lens)

@@ -19,7 +19,7 @@ import torch
 from ..resilience import faults
 from . import ref
 from .build import check, load
-from .ops import check_table_idx, on_cuda, stream_of
+from .dispatch import check_table_idx, on_cuda, stream_of
 
 
 def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,

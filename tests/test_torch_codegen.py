@@ -375,6 +375,7 @@ def test_import_boundary_no_jax_no_repro():
         "repro_torch.kernels\n"
         "import repro_torch.kernels.spec_gather, "
         "repro_torch.kernels.spec_scatter, repro_torch.frontend\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
