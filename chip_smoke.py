@@ -12,10 +12,13 @@ card and checks it bit for bit against the port's sequential interpreter,
 then runs the full-size codegen path (hist over 2**20 elements, spmv and
 sort at n=1024) and times it.  The kernel API's path follows: the
 grouped GEMM and the two attention kernels against their plain versions
-over an edge sweep in float32 and bfloat16, then each once through
+over an edge sweep in float32 and bfloat16, each call checked to take
+the route its wrapper documents (the TMA kernels for aligned bf16, the
+tiled kernels otherwise), then each once through
 ``repro_torch.kernels.ops`` at full model width (Kimi-K2's expert FFN,
 Mistral-NeMo-12B's prefill and decode), checked against its plain version
-and timed.  Phases print as they finish; the last lines are one
+and timed, the tiled bf16 GEMM and flash kernels beside the TMA ones.
+Phases print as they finish; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line is printed.  Without a CUDA device, or outside a checkout, it
@@ -123,8 +126,22 @@ def device_ms(fn, reps: int = 200, replays: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _sass_counts(path) -> dict:
+    """Tensor-core and TMA instructions in a built library's SASS, or {}
+    without ``cuobjdump``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+
+
 def phase_build() -> None:
-    """Build every kernel in parallel and report the compiler's view."""
+    """Build every kernel in parallel and report the compiler's view:
+    registers and spills (``-Xptxas -v``) of each kernel, any compiler
+    warning, and the tensor-core and TMA instructions that shipped."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build()
@@ -132,9 +149,22 @@ def phase_build() -> None:
     print(f"[build] nvcc sm_90a, {len(build.SIGNATURES)} sources in "
           f"{secs:.2f} s -> {build.BUILD_DIR}")
     for name, log in sorted(build.BUILD_LOG.items()):
+        fn = ""
         for line in log.strip().splitlines():
-            if "Used" in line and "registers" in line:
-                print(f"[build] {name}: {line.strip()}")
+            line = line.strip()
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else ""
+            elif "Used" in line and "registers" in line:
+                print(f"[build] {name}: {line} ({fn[-60:]})")
+            elif "spill" in line and " 0 bytes spill stores" not in line:
+                print(f"[build] {name}: {line} ({fn[-60:]})")
+            elif "warning" in line.lower():
+                print(f"[build] {name}: {line}")
+    for name in sorted(build.SIGNATURES):
+        counts = _sass_counts(build.library_path(name))
+        if counts:
+            print(f"[build] {name} SASS: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
     print(f"[build] card: {smi()}")
 
 
@@ -494,6 +524,7 @@ def phase_kernels_dense() -> None:
     """The grouped GEMM and both attention kernels against their plain
     versions over an edge sweep, float32 and bfloat16."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ragged_matmul import plan as ragged_plan
     ragged, flash, paged = _dense_kernels()
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
@@ -504,27 +535,53 @@ def phase_kernels_dense() -> None:
     def put(dtype, *arrays):
         return [torch.from_numpy(a).to(dev).to(dtype) for a in arrays]
 
+    def routed(counter, want_route, call):
+        """``call()``, failing unless it launched once, by ``want_route``."""
+        before = dict(counter.route_launches)
+        got = call()
+        moved = {r: counter.route_launches[r] - before[r] for r in before}
+        if moved != {r: int(r == want_route) for r in before}:
+            fail(f"{counter.__name__}: launches by route {moved}, want one "
+                 f"by {want_route}")
+        routes[counter.__name__, want_route] += 1
+        return got
+
+    routes = collections.Counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        # capacity, F and D off the 64x128 (64x64) tiles
+        # capacity, F and D off the 64x128 (64x64) tiles and off the tma
+        # route's 64-row, 64-K, 128/256-column stages; capacity 56 (the
+        # full-width case) and 200 (four M tiles); D or F not a multiple
+        # of 8 (the tma route's 16-byte strides), which stays on the tiled
+        # kernel
         for e, c, d, f in ((4, 64, 128, 256), (3, 56, 96, 200),
-                           (2, 13, 37, 45), (5, 70, 128, 136)):
+                           (2, 13, 37, 45), (5, 70, 128, 136),
+                           (3, 200, 264, 520), (2, 56, 100, 64),
+                           (2, 24, 64, 70)):
             x, w = put(dtype, rng.standard_normal((e * c, d), np.float32),
                        rng.standard_normal((e, d, f), np.float32))
-            err = _close(ragged(x, w, capacity=c), ref.ragged_matmul(x, w, c),
-                         dtype, gemm=True)
+            route = ragged_plan(e, c, d, f, dtype, True, sms).route
+            got = routed(ragged, route, lambda: ragged(x, w, capacity=c))
+            err = _close(got, ref.ragged_matmul(x, w, c), dtype, gemm=True)
             worst["ragged_matmul", tag] = max(worst["ragged_matmul", tag],
                                               err)
             cases["ragged_matmul"] += 1
-        # T off the 64-row query and 32-row key tiles; tq < tk and tq > tk
+        # T off the 128-row query tile and key stage (and off the tiled kernel's 64 /
+        # 32); tq < tk and tq > tk (dead causal rows exactly zero); d 64
+        # and 128; B*H = 140, past the 132 SMs
         for b, h, tq, tk, d in ((1, 2, 100, 100, 64), (1, 2, 50, 130, 128),
                                 (1, 2, 130, 50, 64), (2, 1, 1, 77, 128),
-                                (1, 2, 256, 256, 128)):
+                                (1, 2, 256, 256, 128), (1, 3, 300, 300, 128),
+                                (1, 2, 200, 333, 64), (1, 2, 333, 200, 128),
+                                (2, 70, 200, 200, 64)):
             q, k, v = put(dtype,
                           *(rng.standard_normal((b, h, t, d), np.float32)
                             for t in (tq, tk, tk)))
+            route = "tma" if dtype == torch.bfloat16 else "tiled"
             for causal in (True, False):
-                got = flash(q, k, v, causal=causal)
+                got = routed(flash, route,
+                             lambda: flash(q, k, v, causal=causal))
                 err = _close(got, ref.flash_attention(q, k, v, causal=causal),
                              dtype, gemm=False)
                 if causal and tq > tk and got[:, :, :tq - tk].any():
@@ -532,6 +589,23 @@ def phase_kernels_dense() -> None:
                 worst["flash_attention", tag] = max(
                     worst["flash_attention", tag], err)
                 cases["flash_attention"] += 1
+        if dtype == torch.bfloat16:
+            # bf16 that TMA cannot address (a base 2 bytes off 16) stays
+            # on the tiled kernels
+            x = put(dtype, rng.standard_normal(2 * 64 * 64 + 1,
+                                               np.float32))[0]
+            w = put(dtype, rng.standard_normal((2, 64, 128), np.float32))[0]
+            x = x[1:].view(2 * 64, 64)
+            got = routed(ragged, "tiled", lambda: ragged(x, w, capacity=64))
+            _close(got, ref.ragged_matmul(x, w, 64), dtype, gemm=True)
+            q = put(dtype, rng.standard_normal(2 * 100 * 64 + 1,
+                                               np.float32))[0]
+            q = q[1:].view(1, 2, 100, 64)
+            k, v = put(dtype, *(rng.standard_normal((1, 2, 100, 64),
+                                                    np.float32)
+                                for _ in range(2)))
+            got = routed(flash, "tiled", lambda: flash(q, k, v))
+            _close(got, ref.flash_attention(q, k, v), dtype, gemm=False)
         # page 8 and 16, d 64 and 128, splits of 256 tokens crossed
         for b, h, d, p, page, nmax in ((3, 4, 64, 16, 8, 5),
                                        (1, 8, 128, 8, 16, 3),
@@ -549,6 +623,7 @@ def phase_kernels_dense() -> None:
                 worst["paged_attention", tag], err)
             cases["paged_attention"] += 1
     torch.cuda.synchronize()
+    print(f"[kernels-dense] launches by route {dict(routes)}")
     print(f"[kernels-dense] {dict(cases)} cases agree with the plain "
           f"versions (float32 rtol=atol {GEMM_TOL} GEMM / {ATTN_TOL} "
           f"attention; bfloat16 rtol {BF16_GEMM_RTOL} atol "
@@ -628,10 +703,42 @@ def _full_width_inputs(gen):
             "paged_attention": paged}
 
 
+def _tiled_call(name: str, args):
+    """A call of the tiled bf16 kernel (``csrc/<name>.cu``, the route of
+    float32 and of bf16 that TMA cannot address) through its C entry, on
+    the same inputs, for the old against new timing; returns (call,
+    output)."""
+    from repro_torch.kernels import build
+    lib = build.load(name)
+    if name == "ragged_matmul":
+        x, w, cap = args
+        out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+                          device=x.device)
+        e, d, f = w.shape
+
+        def call():
+            build.check(lib.ragged_matmul_bf16(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), e, cap, d, f,
+                torch.cuda.current_stream().cuda_stream), name)
+    else:
+        q, k, v = args
+        out = torch.empty_like(q)
+        b, h, tq, d = q.shape
+
+        def call():
+            build.check(lib.flash_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, tq, k.shape[2], d, 1,
+                torch.cuda.current_stream().cuda_stream), name)
+    return call, out
+
+
 def phase_api_full() -> list:
     """The kernel API's path at full width: each kernel once through
-    ``repro_torch.kernels.ops``, launch counts read around that run, then
-    each held against its plain version and timed."""
+    ``repro_torch.kernels.ops``, launch counts (and the GEMM's and flash's
+    routes) read around that run, then each held against its plain
+    version and timed, the tiled kernels of the two redesigned ones
+    beside them."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g, s = _counters()
@@ -649,6 +756,8 @@ def phase_api_full() -> list:
     # the path: the public API, each kernel once
     for c in counters.values():
         c.launches = 0
+    for c in (ragged, flash):
+        c.route_launches = dict.fromkeys(c.route_launches, 0)
     outs = {
         "ragged_matmul": ops.ragged_matmul(*inputs["ragged_matmul"][0]),
         "flash_attention": ops.flash_attention(*inputs["flash_attention"][0],
@@ -657,10 +766,16 @@ def phase_api_full() -> list:
     }
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
+    routes = {"ragged_matmul": dict(ragged.route_launches),
+              "flash_attention": dict(flash.route_launches)}
     want = {"spec_gather": 0, "spec_scatter_add": 0, "ragged_matmul": 1,
             "flash_attention": 1, "paged_attention": 1}
     if launches != want:
         fail(f"api path launches {launches} != {want}")
+    for name, by_route in routes.items():
+        if by_route != {"tma": 1, "tiled": 0}:
+            fail(f"api path: {name} launches by route {by_route}, want one "
+                 f"by tma")
 
     plain = {"ragged_matmul": lambda x, w, c: ref.ragged_matmul(x, w, c),
              "flash_attention": lambda q, k, v: ref.flash_attention(q, k, v),
@@ -675,19 +790,23 @@ def phase_api_full() -> list:
             q, k, v, is_causal=True),
         "paged_attention": None}
     sources = {
-        "ragged_matmul": ("src/repro_torch/kernels/csrc/ragged_matmul.cu",
-                          "src/repro/kernels/ragged_matmul.py:65"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:90"),
+        "ragged_matmul": (
+            "src/repro_torch/kernels/csrc/ragged_matmul_sm90.cu",
+            "src/repro/kernels/ragged_matmul.py:65"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention.py:90"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:110")}
     records = []
     for name in ("ragged_matmul", "flash_attention", "paged_attention"):
         args, work = inputs[name]
         t1 = time.perf_counter()
-        err = _close(outs.pop(name), plain[name](*args), torch.bfloat16,
+        want_out = plain[name](*args)
+        err = _close(outs.pop(name), want_out, torch.bfloat16,
                      gemm=name == "ragged_matmul")
         saved = {n: c.launches for n, c in counters.items()}
+        saved_routes = {n: dict(counters[n].route_launches) for n in routes}
         kern = lambda: kernel[name](*args)
         ms = device_ms(kern, reps=_adaptive_reps(kern))
         eager = call_ms(kern, reps=_adaptive_reps(kern))
@@ -697,29 +816,54 @@ def phase_api_full() -> list:
         if library[name] is not None:
             lib = lambda: library[name](*args)
             lib_ms = device_ms(lib, reps=_adaptive_reps(lib))
+        old = {}
+        if name in routes:
+            call, out = _tiled_call(name, args)
+            call()
+            torch.cuda.synchronize()
+            old = {"tiled_ms": device_ms(call, reps=_adaptive_reps(call)),
+                   "tiled_max_abs_err": _close(
+                       out, want_out, torch.bfloat16,
+                       gemm=name == "ragged_matmul"),
+                   "tiled_source": f"src/repro_torch/kernels/csrc/{name}.cu"}
+            del call, out
+        del want_out
         for n, c in counters.items():
             c.launches = saved[n]
+        for n, r in saved_routes.items():
+            counters[n].route_launches = r
         t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = work["flop"] / BF16_FLOP_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        rate = ({"achieved_tflop_s": work["flop"] / ms / 1e9}
+                if bound_by == "operations" else
+                {"achieved_tb_s": work["bytes"] / ms / 1e9})
         src, replaces = sources[name]
-        print(f"[api] {name} {work['shape']}: launches {launches[name]}; "
-              f"max abs err vs plain {err}; device {ms:.4f} ms (CUDA graph "
-              f"replay), eager call {eager:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(eager), library "
+        print(f"[api] {name} {work['shape']}: launches {launches[name]}"
+              + (f" (by route {routes[name]})" if name in routes else "")
+              + f"; max abs err vs plain {err}; device {ms:.4f} ms (CUDA "
+              f"graph replay), eager call {eager:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (eager), library "
               + (f"{lib_ms:.4f} ms" if lib_ms is not None else
                  "none (no single PyTorch call computes attention through a "
                  "page table)")
               + f"; bound {bound_ms:.4f} ms by {bound_by} "
               f"({work['flop'] / 1e9:.2f} GFLOP, {work['bytes'] / 1e6:.1f} "
-              f"MB); {ms / bound_ms:.1f}x the bound "
-              f"({time.perf_counter() - t1:.1f} s)")
+              f"MB); " + ", ".join(
+                  f"{k.replace('achieved_', '').replace('_', '/')} "
+                  f"{v:.1f}" for k, v in rate.items())
+              + f", {bound_ms / ms:.1%} of the bound"
+              + (f"; tiled kernel {old['tiled_ms']:.4f} ms (max abs err "
+                 f"{old['tiled_max_abs_err']}), {old['tiled_ms'] / ms:.1f}x "
+                 f"the new one" if old else "")
+              + f" ({time.perf_counter() - t1:.1f} s)")
         records.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            **rate, "bound_share": bound_ms / ms, **old,
             "call_ms": eager, "shape": work["shape"],
             "flop": work["flop"], "bytes": work["bytes"]})
         del args

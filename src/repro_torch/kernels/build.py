@@ -50,6 +50,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         f"flash_attention_{t}": (_PTR,) * 4 + (_I64,) * 5 + (_PTR,)
         for t in ("f32", "bf16")
     },
+    # x, w, out; E, capacity, D, F, block_n, grid; stream
+    "ragged_matmul_sm90": {
+        "ragged_matmul_sm90_bf16": (_PTR,) * 3 + (_I64,) * 6 + (_PTR,),
+    },
+    # q, k, v, out; B*H, tq, tk, d, causal, block_q, block_k; stream
+    "flash_attention_sm90": {
+        "flash_attention_sm90_bf16": (_PTR,) * 4 + (_I64,) * 7 + (_PTR,),
+    },
     # q, k_pages, v_pages, page_table, seq_lens, out, scratch;
     # B, H, d, P, page, n_max, pages per split; stream
     "paged_attention": {
@@ -74,8 +82,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for this source."""
+    """Where the library of ``csrc/<name>.cu`` lives for this source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -130,7 +141,15 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+#: the TMA kernels return this plus the driver's CUresult when a TMA
+#: tensor map cannot be encoded (``csrc/hopper.cuh``)
+TENSOR_MAP_ERROR = 100000
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry reported a launch error."""
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: TMA tensor map encoding failed with "
+                           f"CUresult {err - TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -64,6 +64,12 @@ def suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
+def aligned16(t: torch.Tensor) -> bool:
+    """True when ``t``'s first element sits on a 16-byte boundary, as a
+    TMA tensor map needs."""
+    return t.data_ptr() % 16 == 0
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of the current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

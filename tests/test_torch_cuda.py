@@ -4,7 +4,9 @@ and the torch target on the card against the same run on the CPU.
 The grouped-GEMM and attention kernels are held to their plain versions
 over sweeps with ragged edges (capacity, T, F and D off the tile; tq < tk
 and tq > tk under a causal mask; ``-1`` tail pages, page ids past the
-pool, seq_len 0): float32 at ``tests/test_kernels.py``'s tolerances
+pool, seq_len 0), each call checked to take the route its wrapper
+documents (the TMA kernels for aligned bf16, the tiled kernels for
+float32 and for bf16 that TMA cannot address): float32 at ``tests/test_kernels.py``'s tolerances
 (``1e-3`` GEMM, ``2e-3`` attention), bfloat16 at ``2e-2`` for attention
 and ``rtol=1e-2, atol=1e-2 * max|want|`` for the GEMM, because the two
 sides sum in other orders and round p and the output to bfloat16.
@@ -131,27 +133,47 @@ def _close(got, want, dtype, gemm=False):
                                    atol=BF16_ATTN_TOL)
 
 
+def _route_delta(counter, before):
+    return {r: counter.route_launches[r] - before[r] for r in before}
+
+
+# the tma route's stages: 64 rows x 64 K of x, 64 K x 128/256 columns of
+# w; capacity 56 (Kimi-K2's) and 200 (several 64-row tiles), D and F off
+# those widths, and D or F not a multiple of 8 (tiled kernel in bf16)
 @pytest.mark.parametrize("e,c,d,f", [(4, 64, 128, 256), (2, 128, 256, 128),
                                      (8, 32, 64, 64), (3, 56, 96, 200),
-                                     (2, 13, 37, 45), (5, 70, 128, 136)])
+                                     (2, 13, 37, 45), (5, 70, 128, 136),
+                                     (3, 56, 1024, 512), (3, 200, 264, 520),
+                                     (2, 56, 100, 64), (2, 24, 64, 70),
+                                     (1, 8, 8, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ragged_matmul_matches_plain(cuda, e, c, d, f, dtype):
     rng = np.random.default_rng(e * c + d)
     x, w = _dev(cuda, dtype, rng.normal(size=(e * c, d)).astype(np.float32),
                 rng.normal(size=(e, d, f)).astype(np.float32))
     n0 = ragged_matmul.launches
+    r0 = dict(ragged_matmul.route_launches)
     got = ragged_matmul(x, w, capacity=c)
     torch.cuda.synchronize()
     assert ragged_matmul.launches == n0 + 1
+    tma = dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+    assert _route_delta(ragged_matmul, r0) == {"tma": int(tma),
+                                               "tiled": int(not tma)}
     _close(got, ref.ragged_matmul(x, w, c), dtype, gemm=True)
 
 
+# T off the tma route's 128-row query tile and key stage, tq < tk and
+# tq > tk, d 64 and 128, B*H = 140 past the 132 SMs of an H100
 @pytest.mark.parametrize("b,h,tq,tk,d", [(2, 3, 256, 256, 64),
                                          (1, 2, 128, 128, 128),
                                          (1, 1, 100, 100, 64),
                                          (1, 2, 50, 130, 128),
                                          (1, 2, 130, 50, 64),
-                                         (2, 1, 1, 77, 128)])
+                                         (2, 1, 1, 77, 128),
+                                         (1, 3, 300, 300, 128),
+                                         (1, 2, 200, 333, 64),
+                                         (1, 2, 333, 200, 128),
+                                         (2, 70, 200, 200, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(cuda, b, h, tq, tk, d, causal,
@@ -161,12 +183,46 @@ def test_cuda_flash_attention_matches_plain(cuda, b, h, tq, tk, d, causal,
                    *(rng.normal(size=(b, h, t, d)).astype(np.float32)
                      for t in (tq, tk, tk)))
     n0 = flash_attention.launches
+    r0 = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
+    tma = dtype == torch.bfloat16
+    assert _route_delta(flash_attention, r0) == {"tma": int(tma),
+                                                 "tiled": int(not tma)}
     _close(got, ref.flash_attention(q, k, v, causal=causal), dtype)
     if causal and tq > tk:  # rows with no live key are exactly zero
         assert not got[:, :, :tq - tk].any()
+
+
+def _unaligned(dev, shape, rng):
+    """A contiguous bf16 tensor whose first element is 2 bytes off a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32))
+    return flat.to(dev).to(torch.bfloat16)[1:].view(*shape)
+
+
+def test_cuda_unaligned_bf16_takes_the_tiled_kernels(cuda):
+    """bf16 that TMA cannot address stays on the tiled kernels, right."""
+    rng = np.random.default_rng(5)
+    x = _unaligned(cuda, (2 * 64, 64), rng)
+    (w,) = _dev(cuda, torch.bfloat16,
+                rng.normal(size=(2, 64, 128)).astype(np.float32))
+    r0 = dict(ragged_matmul.route_launches)
+    got = ragged_matmul(x, w, capacity=64)
+    torch.cuda.synchronize()
+    assert _route_delta(ragged_matmul, r0) == {"tma": 0, "tiled": 1}
+    _close(got, ref.ragged_matmul(x, w, 64), torch.bfloat16, gemm=True)
+    q = _unaligned(cuda, (1, 2, 100, 64), rng)
+    k, v = _dev(cuda, torch.bfloat16,
+                *(rng.normal(size=(1, 2, 100, 64)).astype(np.float32)
+                  for _ in range(2)))
+    r0 = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _route_delta(flash_attention, r0) == {"tma": 0, "tiled": 1}
+    _close(got, ref.flash_attention(q, k, v), torch.bfloat16)
 
 
 def _paged_inputs(b, h, d, p, page, nmax, seed):

@@ -392,3 +392,77 @@ def test_bf16_plain_within_bf16_tolerance_of_f32():
     got = paged_attention(pq.to(bf), kp.to(bf), vp.to(bf), pt, seq)
     assert got.dtype == bf
     _close(got.float(), paged_attention(*paged).numpy(), BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# host-side planning of the TMA kernels: routes, TMA boxes, tile order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bh,tq,tk,causal,bq,bk", [
+    (3, 300, 300, True, 128, 128), (3, 300, 300, False, 128, 128),
+    (2, 130, 50, True, 128, 128), (2, 50, 130, True, 128, 128),
+    (2, 1, 77, True, 128, 128), (1, 1000, 700, True, 128, 128),
+    (2, 256, 256, True, 128, 128), (2, 333, 200, True, 64, 32),
+    (1, 200, 333, True, 128, 128), (1, 200, 333, False, 128, 128)])
+def test_flash_tile_schedule_visits_exactly_the_live_key_tiles(
+        bh, tq, tk, causal, bq, bk):
+    """Every (head, query tile) once, heaviest first, each visiting the
+    key tiles that hold a live (row, column) pair and no other."""
+    from repro_torch.kernels.flash_attention import tile_schedule
+    rows = np.arange(tq)[:, None]
+    cols = np.arange(tk)[None, :]
+    live = np.broadcast_to(cols < tk, (tq, tk))
+    if causal:
+        live = live & (cols <= rows + tk - tq)
+    sched = tile_schedule(bh, tq, tk, causal, bq, bk)
+    q_tiles = -(-tq // bq)
+    assert sorted((b, qt) for b, qt, _ in sched) == [
+        (b, qt) for b in range(bh) for qt in range(q_tiles)]
+    counts = [n for _, _, n in sched]
+    assert counts == sorted(counts, reverse=True)
+    assert [qt for _, qt, _ in sched[:bh]] == [q_tiles - 1] * bh
+    for _, qt, n in sched:
+        block = live[qt * bq:(qt + 1) * bq]
+        live_tiles = [kt for kt in range(-(-tk // bk))
+                      if block[:, kt * bk:(kt + 1) * bk].any()]
+        assert live_tiles == list(range(n))
+
+
+def test_flash_plan_routes_and_tiles():
+    from repro_torch.kernels.flash_attention import plan
+    bf = torch.bfloat16
+    q, k, v, out = (torch.zeros((1, 2, 100, 64), dtype=bf) for _ in range(4))
+    assert plan(q, k, v, out) == ("tma", 128, 128)
+    f32 = [t.float() for t in (q, k, v, out)]
+    assert plan(*f32) == ("tiled", 0, 0)
+    off = torch.zeros(2 * 100 * 64 + 1, dtype=bf)[1:].view(1, 2, 100, 64)
+    assert off.data_ptr() % 16 == 2
+    assert plan(off, k, v, out).route == "tiled"
+    assert plan(q, k, v, off).route == "tiled"
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,want", [
+    ((384, 56, 7168, 2048), torch.bfloat16, True, ("tma", 256, 132)),
+    ((4, 64, 128, 128), torch.bfloat16, True, ("tma", 128, 4)),
+    ((3, 200, 264, 520), torch.bfloat16, True, ("tma", 256, 36)),
+    ((1, 8, 8, 8), torch.bfloat16, True, ("tma", 128, 1)),
+    ((2, 13, 37, 48), torch.bfloat16, True, ("tiled", 0, 0)),
+    ((2, 24, 64, 70), torch.bfloat16, True, ("tiled", 0, 0)),
+    ((2, 56, 64, 64), torch.bfloat16, False, ("tiled", 0, 0)),
+    ((384, 56, 7168, 2048), torch.float32, True, ("tiled", 0, 0))])
+def test_ragged_plan_routes_tiles_and_grid(shape, dtype, aligned, want):
+    """tma only for aligned bf16 with D and F multiples of 8 (TMA's
+    16-byte strides); its grid is persistent, at most one block an SM."""
+    from repro_torch.kernels.ragged_matmul import plan
+    assert plan(*shape, dtype, aligned, sm_count=132) == want
+
+
+def test_cpu_calls_count_no_route():
+    (x, w), (q, k, v), _ = _small_inputs()
+    before = (dict(ragged_matmul.route_launches),
+              dict(flash_attention.route_launches))
+    ragged_matmul(x.bfloat16(), w.bfloat16(), capacity=24)
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert (ragged_matmul.route_launches,
+            flash_attention.route_launches) == before
