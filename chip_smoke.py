@@ -6,11 +6,19 @@ Run from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (into ``build/kernels/``), holds each kernel against its plain
-PyTorch version on the card, runs every workload of
+PyTorch version on the card (the two speculative kernels by both routes:
+the tensor entries and the staged ones, whose indices, values and rows
+sit in page-locked, mapped host slots), runs every workload of
 ``repro_torch.bench_irregular`` through ``repro_torch.codegen.run`` on the
 card and checks it bit for bit against the port's sequential interpreter,
 then runs the full-size codegen path (hist over 2**20 elements, spmv and
-sort at n=1024) and times it.  The kernel API's path follows: the
+sort at n=1024), times it, and checks that every launch took the staged
+route and that the only copies were the table's upload and download.
+The ``[epoch]`` lines replay hist's first 512 epochs through the
+pageable route (the tensor entries behind pageable copies, as the
+drivers called them before the staged route) and the staged route in turns,
+beside the latency floor of a launch and its wait, and time mapped
+against pinned-copy gathers of 2-16 KB.  The kernel API's path follows: the
 grouped GEMM and the two attention kernels against their plain versions
 over an edge sweep in float32 and bfloat16, each call checked to take
 the route its wrapper documents (the TMA kernels for aligned bf16, the
@@ -169,19 +177,34 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> None:
-    """Both kernels against their plain versions over a shape sweep."""
+    """Both kernels against their plain versions over a shape sweep, by
+    both routes: the tensor entries and the staged ones (indices, values
+    and rows in page-locked, mapped host slots)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.spec_gather import spec_gather
-    from repro_torch.kernels.spec_scatter import spec_scatter_add
+    from repro_torch.kernels.spec_gather import (spec_gather,
+                                                 spec_gather_staged)
+    from repro_torch.kernels.spec_scatter import (spec_scatter_add,
+                                                  spec_scatter_add_staged)
+    from repro_torch.kernels.staging import Ring
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    cases = 0
+    cases = staged = 0
+    ring = Ring(dev, slots=2)
     for dtype in (torch.int32, torch.float32):
         for d in (1, 7, 128):
-            for n in (0, 1, 5, 8, 37, 512, 4099):
+            for n, kind in ((0, "mixed"), (1, "mixed"), (5, "mixed"),
+                            (8, "mixed"), (37, "mixed"), (512, "mixed"),
+                            (4099, "mixed"), (6, "poison"),
+                            (4096, "poison"), (23, "dups"),
+                            (4099, "dups")):
                 rows = 61
-                # -1 poison, in-range rows, and rows past the end (clip)
+                # -1 poison, in-range rows, and rows past the end (clip);
+                # every request poisoned; few destinations, many requests
                 idx_np = rng.integers(-1, rows + 6, n).astype(np.int32)
+                if kind == "poison":
+                    idx_np[:] = -1
+                elif kind == "dups":
+                    idx_np = rng.integers(-1, 3, n).astype(np.int32)
                 if dtype == torch.int32:
                     tab_np = rng.integers(-2 ** 31, 2 ** 31, (rows, d),
                                           dtype=np.int64).astype(np.int32)
@@ -190,6 +213,11 @@ def phase_kernels() -> None:
                 else:
                     tab_np = rng.standard_normal((rows, d)).astype(np.float32)
                     val_np = rng.standard_normal((n, d)).astype(np.float32)
+                    if kind == "dups":
+                        # small integers: a float32 sum of thousands of
+                        # duplicates is then exact in any order
+                        tab_np = np.round(tab_np * 8)
+                        val_np = np.round(val_np * 8)
                 tab = torch.from_numpy(tab_np).to(dev)
                 idx = torch.from_numpy(idx_np).to(dev)
                 val = torch.from_numpy(val_np).to(dev)
@@ -207,9 +235,29 @@ def phase_kernels() -> None:
                 if not ok:
                     fail(f"spec_scatter_add {dtype} n={n} d={d} differs")
                 cases += 1
-    print(f"[kernels] {cases} cases x 2 kernels agree with the plain "
-          f"versions (int32 bitwise, gather float32 bitwise, scatter "
-          f"float32 rtol=0 atol={F32_ATOL})")
+                if dtype != torch.int32 or d != 1:
+                    continue
+                # the staged route (the drivers' int32 rows of one
+                # element) on the same inputs: the values are on the host
+                # when the gather returns, with no synchronize
+                slot = ring.acquire(n)
+                slot.idx[:n] = idx_np
+                slot.val[:n] = val_np[:, 0]
+                got = spec_gather_staged(tab, slot, n)
+                if not np.array_equal(got, ref.spec_gather(tab, idx)[:, 0]
+                                      .cpu().numpy()):
+                    fail(f"spec_gather_staged n={n} {kind} differs")
+                got = spec_scatter_add_staged(tab.clone(), slot, n)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"spec_scatter_add_staged n={n} {kind} differs")
+                staged += 1
+    ring.drain()
+    print(f"[kernels] {cases} cases x 2 kernels by the tensor route and "
+          f"{staged} int32 one-element-row cases by the staged route agree "
+          f"with the plain versions (n off a multiple of 4, n = 0, every "
+          f"request poisoned, clip, duplicates; int32 bitwise, gather "
+          f"float32 bitwise, scatter float32 rtol=0 atol={F32_ATOL})")
 
 
 def _counters():
@@ -219,14 +267,28 @@ def _counters():
 
 
 def _reset() -> None:
-    g, s = _counters()
-    g.launches = 0
-    s.launches = 0
+    for c in _counters():
+        c.launches = 0
+        c.route_launches = dict.fromkeys(c.route_launches, 0)
 
 
 def _launches():
     g, s = _counters()
     return g.launches, s.launches
+
+
+def _routes():
+    """Launches by route of both kernels since the last :func:`_reset`."""
+    g, s = _counters()
+    return dict(g.route_launches), dict(s.route_launches)
+
+
+def _only_staged(tag: str, g: int, s: int) -> None:
+    """Fail unless every launch since the last reset took the staged
+    route."""
+    want = ({"tensor": 0, "staged": g}, {"tensor": 0, "staged": s})
+    if _routes() != want:
+        fail(f"{tag}: launches by route {_routes()}, want {want}")
 
 
 def phase_parity() -> None:
@@ -245,7 +307,7 @@ def phase_parity() -> None:
                                                          case.decoupled)
             for cu_mode in ("vector", "state-machine"):
                 runs = {}
-                for device in ("cuda", "cpu"):
+                for device in ("cpu", "cuda"):
                     mem = {k: v.copy() for k, v in case.memory.items()}
                     _reset()
                     r = codegen.run(comp, mem, case.params, target="torch",
@@ -269,46 +331,74 @@ def phase_parity() -> None:
                         rc.stats.get("scatter_calls", 0))
                 if (g, s) != want:
                     fail(f"{tag}: launches {(g, s)} != calls {want}")
+                _only_staged(tag, g, s)
                 if pname == "spec" and not (g > 0 and s > 0):
                     fail(f"{tag}: the kernels were not launched")
                 legs += 1
     print(f"[parity] {legs} legs (11 workloads x dae/spec x vector/"
           f"state-machine) bit-exact on cuda, stats equal to the cpu run, "
-          f"launch counts equal to gather/scatter calls "
+          f"launch counts equal to gather/scatter calls, all by the staged "
+          f"route "
           f"({time.perf_counter() - t0:.1f} s)")
 
 
-def _census(shapes, args):
-    """Wrap the drivers' kernel entry points to record launch shapes."""
+#: hist epochs whose kernel inputs the census records for the [epoch] A/B
+EPOCH_REPLAY = 512
+
+
+def _census(shapes, args, seq=None):
+    """Wrap the drivers' staged kernel entries to record launch shapes,
+    one argument set per shape, and, into ``seq`` when given, the table
+    at the first call and every call's inputs of the first
+    :data:`EPOCH_REPLAY` epochs (a gather and a scatter each).  Returns
+    the restoring function and the count of table clones the census
+    made (device-to-device copies)."""
     from repro_torch.codegen import torch_backend, vector
-    g0, s0 = _counters()
+    from repro_torch.kernels.spec_gather import spec_gather_staged as g0
+    from repro_torch.kernels.spec_scatter import (
+        spec_scatter_add_staged as s0)
+    count = collections.Counter()
 
-    def g(table, idx):
-        key = ("spec_gather", table.shape[0], idx.shape[0], table.shape[1])
+    def record(name, table, slot, n):
+        key = (name, table.shape[0], n, table.shape[1])
         shapes[key] += 1
-        args.setdefault(key, (table.clone(), idx.clone()))
-        return g0(table, idx)
+        idx = slot.idx[:n].copy()
+        val = slot.val[:n].copy() if name == "spec_scatter_add" else None
+        if key not in args:
+            args[key] = (table.clone(), idx, val)
+            count["clones"] += 1
+        if seq is not None and count[name] < EPOCH_REPLAY:
+            if not seq:
+                seq.append(table.clone())
+                count["clones"] += 1
+            seq.append((name, idx, val))
+        count[name] += 1
 
-    def s(table, idx, values):
-        key = ("spec_scatter_add", table.shape[0], idx.shape[0],
-               table.shape[1])
-        shapes[key] += 1
-        args.setdefault(key, (table.clone(), idx.clone(), values.clone()))
-        return s0(table, idx, values)
+    def g(table, slot, n):
+        record("spec_gather", table, slot, n)
+        return g0(table, slot, n)
 
-    saved = (vector.spec_gather, vector.spec_scatter_add,
-             torch_backend.spec_gather, torch_backend.spec_scatter_add)
-    vector.spec_gather = torch_backend.spec_gather = g
-    vector.spec_scatter_add = torch_backend.spec_scatter_add = s
+    def s(table, slot, n):
+        record("spec_scatter_add", table, slot, n)
+        return s0(table, slot, n)
+
+    saved = (vector.spec_gather_staged, vector.spec_scatter_add_staged,
+             torch_backend.spec_gather_staged,
+             torch_backend.spec_scatter_add_staged)
+    vector.spec_gather_staged = torch_backend.spec_gather_staged = g
+    vector.spec_scatter_add_staged = torch_backend.spec_scatter_add_staged = s
 
     def restore():
-        (vector.spec_gather, vector.spec_scatter_add,
-         torch_backend.spec_gather, torch_backend.spec_scatter_add) = saved
-    return restore
+        (vector.spec_gather_staged, vector.spec_scatter_add_staged,
+         torch_backend.spec_gather_staged,
+         torch_backend.spec_scatter_add_staged) = saved
+    return restore, count
 
 
 def phase_full():
-    """The main path at full size; returns launches, shapes and args."""
+    """The main path at full size; returns launches, device ms of each
+    kernel, the launch shapes with one argument set each, and the
+    recorded first epochs of hist."""
     from repro_torch import codegen
     from repro_torch.bench_irregular import ALL
     from repro_torch.codegen.emit import compile_mode
@@ -317,6 +407,7 @@ def phase_full():
     kernel_ms = [0.0, 0.0]
     shapes: collections.Counter = collections.Counter()
     args: dict = {}
+    seq: list = []
     for name, kw in FULL.items():
         case = ALL[name](**kw)
         comp = pipeline.compile_spec(case.fn, case.decoupled)
@@ -345,6 +436,7 @@ def phase_full():
                  f"{(r.stats['gather_calls'], r.stats['scatter_calls'])}")
         if not (g > 0 and s > 0):
             fail(f"full {name}: the kernels were not launched")
+        _only_staged(f"full {name}", g, s)
         totals[0] += g
         totals[1] += s
 
@@ -358,7 +450,8 @@ def phase_full():
         # second, profiled run: device time by kernel and copy, and the
         # census of launch shapes (these launches are not counted above)
         mem2 = {k: v.copy() for k, v in case.memory.items()}
-        restore = _census(shapes, args)
+        restore, census = _census(shapes, args,
+                                  seq if name == "hist" else None)
         try:
             act = [torch.profiler.ProfilerActivity.CPU,
                    torch.profiler.ProfilerActivity.CUDA]
@@ -371,69 +464,317 @@ def phase_full():
         for k in ref:
             if not np.array_equal(ref[k], mem2[k]):
                 fail(f"full {name} (profiled): array {k} differs")
-        parts = ("spec_gather_kernel", "spec_scatter_add_kernel", "Memcpy")
+        # device time by kernel; the staged route's kernels only (the
+        # tensor route's are spec_gather_kernel / spec_scatter_add_kernel)
+        parts = ("spec_gather_staged_kernel", "spec_scatter_add_staged_kernel",
+                 "spec_gather_kernel", "spec_scatter_add_kernel")
         dev_us = collections.Counter()
+        copies = collections.Counter()
+        copy_us = 0.0
+        copy_ops = 0
         for ev in prof.key_averages():
             for part in parts:
                 if part in ev.key:
                     dev_us[part] += ev.self_device_time_total
-        for part in parts:
+            if ev.key.startswith("Memcpy"):
+                kind = ev.key.split()[1]
+                copies[kind] += ev.count
+                if kind != "DtoD":
+                    copy_us += ev.self_device_time_total
+            elif ev.key == "aten::copy_":
+                copy_ops += ev.count
+        for part in parts[:2]:
             if not dev_us[part]:
                 fail(f"full {name}: the profiler saw no {part} device time")
-        gk = dev_us["spec_gather_kernel"] / 1e3
-        sk = dev_us["spec_scatter_add_kernel"] / 1e3
-        cp = dev_us["Memcpy"] / 1e3
+        for part in parts[2:]:
+            if dev_us[part]:
+                fail(f"full {name}: the tensor route's {part} ran")
+        # the only copies the run makes: the table's upload at the start
+        # and its download at the end, none per epoch, besides the
+        # census's own table clones (device to device).  Counted as
+        # PyTorch copy ops, which the profiler records on the host for
+        # certain; on the device timeline a small upload can go
+        # unrecorded, so there each direction is held to at most one.
+        if copy_ops != 2 + census["clones"]:
+            fail(f"full {name}: {copy_ops} copy ops, want 2 (the table's "
+                 f"upload and download) + {census['clones']} census clones")
+        if copies["HtoD"] > 1 or copies["DtoH"] > 1:
+            fail(f"full {name}: device copies {dict(copies)}, want at most "
+                 f"one HtoD (the table's upload) and one DtoH (its "
+                 f"download)")
+        gk = dev_us["spec_gather_staged_kernel"] / 1e3
+        sk = dev_us["spec_scatter_add_staged_kernel"] / 1e3
+        cp = copy_us / 1e3
         kernel_ms[0] += gk
         kernel_ms[1] += sk
         host = wall * 1e3 - t_agu * 1e3 - gk - sk - cp
         print(f"[full] {name} {kw}: bit-exact; epochs={r.stats['epochs']} "
-              f"launches gather={g} scatter={s}; wall={wall * 1e3:.1f} ms "
-              f"= AGU streams {t_agu * 1e3:.1f} ms (host) + gather kernel "
-              f"{gk:.3f} ms + scatter kernel {sk:.3f} ms + H2D/D2H copies "
-              f"{cp:.3f} ms (device, profiler) + CU host and launch "
+              f"launches gather={g} scatter={s}, all staged; wall="
+              f"{wall * 1e3:.1f} ms = AGU streams {t_agu * 1e3:.1f} ms (host) "
+              f"+ gather kernel {gk:.3f} ms + scatter kernel {sk:.3f} ms + "
+              f"table upload and download {cp:.3f} ms (device, profiler; "
+              f"{copy_ops - census['clones']} copy ops) + CU host, launch "
+              f"and wait "
               f"{host:.1f} ms; per launch gather {gk / g * 1e3:.2f} us, "
               f"scatter {sk / s * 1e3:.2f} us; interpreter "
               f"{t_interp * 1e3:.1f} ms")
-    return totals, kernel_ms, shapes, args
+    return totals, kernel_ms, shapes, args, seq
 
 
-def phase_line(totals, kernel_ms, shapes, args) -> dict:
-    """Time each kernel at the main path's most frequent launch shape."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.spec_gather import spec_gather
-    from repro_torch.kernels.spec_scatter import spec_scatter_add
+def _us(ts) -> dict:
+    """Mean and median of per-call host seconds, in microseconds."""
+    a = np.asarray(ts) * 1e6
+    return {"mean": float(a.mean()), "p50": float(np.median(a)),
+            "calls": int(a.size)}
+
+
+def _floor_call(mapped):
+    """One latency-floor call: an empty kernel (``mapped`` None), or one
+    4-byte read and write of mapped host memory, launched and waited for
+    through the staged route's ctypes path."""
+    from repro_torch.kernels import build
+    fn = build.load("spec_gather").spec_staging_floor
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    return lambda: build.check(fn(mapped, stream, dev), "spec_staging_floor")
+
+
+def phase_epoch(seq) -> dict:
+    """The epoch round trip on hist's own first epochs, old route against
+    new in turns (old, new, new, old), each turn a pass without and a
+    pass with a stream sync after each scatter; the latency floor; and
+    mapped against pinned-copy gathers at 2-16 KB requests."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.spec_gather import (spec_gather,
+                                                 spec_gather_staged)
+    from repro_torch.kernels.spec_scatter import (spec_scatter_add,
+                                                  spec_scatter_add_staged)
+    from repro_torch.kernels.staging import Ring
+    dev = torch.device("cuda")
+    table0, calls = seq[0], seq[1:]
+    counters = _counters()
+    saved = [(c.launches, dict(c.route_launches)) for c in counters]
+    sync = torch.cuda.current_stream().synchronize
+
+    # what every route must give: the plain versions' replay
+    t = table0.clone()
+    want = []
+    for name, idx, val in calls:
+        ti = torch.from_numpy(idx).to(dev)
+        if name == "spec_gather":
+            want.append(ref.spec_gather(t, ti)[:, 0].cpu().numpy())
+        else:
+            ref.spec_scatter_add(t, ti,
+                                 torch.from_numpy(val).to(dev)[:, None])
+    want_table = t
+
+    def old(t, g_us, s_us, synced):
+        """The drivers' code before the staged route: pad with poison to a
+        power of two of at least 8, pageable copies, the tensor entries, a
+        read-back through ``.cpu()``."""
+        got = []
+        for name, idx, val in calls:
+            n = len(idx)
+            b = max(8, 1 << (n - 1).bit_length())
+            t0 = time.perf_counter()
+            if name == "spec_gather":
+                pad = np.full(b, -1, np.int32)
+                pad[:n] = idx
+                v = spec_gather(t, torch.from_numpy(pad).to(dev))
+                got.append(v[:n, 0].cpu().numpy())
+                g_us.append(time.perf_counter() - t0)
+                continue
+            ip = np.full(b, -1, np.int32)
+            ip[:n] = idx
+            dp = np.zeros((b, 1), np.int32)
+            dp[:n, 0] = val
+            spec_scatter_add(t, torch.from_numpy(ip).to(dev),
+                             torch.from_numpy(dp).to(dev))
+            if synced:
+                sync()
+            s_us.append(time.perf_counter() - t0)
+        return got
+
+    ring = Ring(dev)
+
+    def new(t, g_us, s_us, synced):
+        """The staged route, as the drivers call it."""
+        got = []
+        for name, idx, val in calls:
+            n = len(idx)
+            t0 = time.perf_counter()
+            slot = ring.acquire(n)
+            slot.idx[:n] = idx
+            if name == "spec_gather":
+                got.append(spec_gather_staged(t, slot, n).copy())
+                g_us.append(time.perf_counter() - t0)
+                continue
+            slot.val[:n] = val
+            spec_scatter_add_staged(t, slot, n)
+            if synced:
+                sync()
+            s_us.append(time.perf_counter() - t0)
+        return got
+
+    times = {r: collections.defaultdict(list) for r in ("old", "new")}
+    for route in ("old", "new", "new", "old"):
+        for synced in (False, True):
+            t = table0.clone()
+            torch.cuda.synchronize()
+            tm = times[route]
+            got = (old if route == "old" else new)(
+                t, tm["gather"] if not synced else [],
+                tm["scatter_sync" if synced else "scatter_issue"], synced)
+            torch.cuda.synchronize()
+            if not torch.equal(t, want_table) or not all(
+                    np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"epoch replay: the {route} route's rows or table "
+                     f"differ from the plain versions'")
+    rows = {r: {k: _us(v) for k, v in tm.items()} for r, tm in times.items()}
+
+    # the latency floor, in turns
+    slot = ring.acquire(4)
+    floor = collections.defaultdict(list)
+    for kind in ("empty", "mapped", "mapped", "empty"):
+        call = _floor_call(slot.idx_ptr if kind == "mapped" else None)
+        for _ in range(50):
+            call()
+        for _ in range(1000):
+            t0 = time.perf_counter()
+            call()
+            floor[kind].append(time.perf_counter() - t0)
+    floor = {k: _us(v) for k, v in floor.items()}
+
+    # mapped against pinned cudaMemcpyAsync for 2-16 KB requests, one C
+    # call each: indices from and rows to the same page-locked slot
+    lib = build.load("spec_gather")
+    stream = torch.cuda.current_stream().cuda_stream
+    index = torch.cuda.current_device()
+    rng = np.random.default_rng(14)
+    rows_n = table0.shape[0]
+    sweep = {}
+    for n in (512, 1024, 2048, 4096):
+        idx = rng.integers(-1, rows_n, n).astype(np.int32)
+        want_n = ref.spec_gather(table0, torch.from_numpy(idx).to(dev))
+        want_n = want_n[:, 0].cpu().numpy()
+        dev_idx = torch.empty(n, dtype=torch.int32, device=dev)
+        dev_out = torch.empty(n, dtype=torch.int32, device=dev)
+        ts = collections.defaultdict(list)
+        for kind in ("mapped", "copied", "copied", "mapped"):
+            for rep in range(550):
+                t0 = time.perf_counter()
+                slot = ring.acquire(n)
+                slot.idx[:n] = idx
+                if kind == "mapped":
+                    got = spec_gather_staged(table0, slot, n).copy()
+                else:
+                    build.check(lib.spec_gather_copied_i32(
+                        table0.data_ptr(), slot.idx.ctypes.data,
+                        slot.out.ctypes.data, dev_idx.data_ptr(),
+                        dev_out.data_ptr(), rows_n, n, stream, index),
+                        "spec_gather_copied_i32")
+                    got = slot.out[:n].copy()
+                if rep >= 50:
+                    ts[kind].append(time.perf_counter() - t0)
+            if not np.array_equal(got, want_n):
+                fail(f"epoch sweep: the {kind} gather of {n} rows differs")
+        sweep[n] = {k: _us(v) for k, v in ts.items()}
+    ring.drain()
+    for c, (launches, by_route) in zip(counters, saved):
+        c.launches, c.route_launches = launches, by_route
+
+    n_g = sum(1 for c in calls if c[0] == "spec_gather")
+    sizes = [len(c[1]) for c in calls]
+    print(f"[epoch] hist's first {n_g} epochs replayed ({len(calls)} calls, "
+          f"{min(sizes)}-{max(sizes)} requests a call), host clock per "
+          f"call in turns old, new, new, old; bit-exact against the plain "
+          f"versions every turn")
+    for route, what in (("old", "pageable route: pad, pageable H2D copies, "
+                                "tensor entries, .cpu() read-back"),
+                        ("new", "staged route: page-locked mapped slot, one "
+                                "C call")):
+        r = rows[route]
+        print(f"[epoch] {route} ({what}): gather round trip mean "
+              f"{r['gather']['mean']:.2f} us (p50 {r['gather']['p50']:.2f}); "
+              f"scatter issue {r['scatter_issue']['mean']:.2f} us (p50 "
+              f"{r['scatter_issue']['p50']:.2f}); scatter + stream sync "
+              f"{r['scatter_sync']['mean']:.2f} us (p50 "
+              f"{r['scatter_sync']['p50']:.2f})")
+    print(f"[epoch] latency floor (launch + wait through the same ctypes "
+          f"path): empty kernel {floor['empty']['mean']:.2f} us (p50 "
+          f"{floor['empty']['p50']:.2f}); one 4-byte mapped read and write "
+          f"{floor['mapped']['mean']:.2f} us (p50 "
+          f"{floor['mapped']['p50']:.2f})")
+    for n, r in sweep.items():
+        print(f"[epoch] gather round trip at {n} rows ({4 * n} B): mapped "
+              f"{r['mapped']['mean']:.2f} us (p50 {r['mapped']['p50']:.2f}), "
+              f"pinned cudaMemcpyAsync {r['copied']['mean']:.2f} us (p50 "
+              f"{r['copied']['p50']:.2f})")
+    return {"replay": rows, "floor": floor,
+            "mapped_vs_copied": {str(n): r for n, r in sweep.items()},
+            "epochs": n_g}
+
+
+def phase_line(totals, kernel_ms, shapes, args, seq) -> dict:
+    """Each kernel at the main path's most frequent launch shape: the
+    staged kernel (the main path's) and the tensor entry's kernel by
+    CUDA-graph replay, against the plain version, one library call and
+    the byte bound; then the epoch A/B of :func:`phase_epoch`."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.spec_gather import (spec_gather,
+                                                 spec_gather_staged)
+    from repro_torch.kernels.spec_scatter import (spec_scatter_add,
+                                                  spec_scatter_add_staged)
+    from repro_torch.kernels.staging import Ring
+    epoch = phase_epoch(seq)
+    dev = torch.device("cuda")
+    index = torch.cuda.current_device()
     out = []
-    for i, (name, src, replaces) in enumerate((
-            ("spec_gather", "src/repro_torch/kernels/csrc/spec_gather.cu",
+    for i, (name, lib, src, replaces) in enumerate((
+            ("spec_gather", "spec_gather",
+             "src/repro_torch/kernels/csrc/spec_gather.cu",
              "src/repro/kernels/spec_gather.py:114"),
-            ("spec_scatter_add",
+            ("spec_scatter_add", "spec_scatter",
              "src/repro_torch/kernels/csrc/spec_scatter.cu",
              "src/repro/kernels/spec_scatter.py:124"))):
         key = max((k for k in shapes if k[0] == name), key=shapes.get)
-        a = args[key]
-        table, idx = a[0], a[1]
+        table, idx_np, val_np = args[key]
         rows, n, d = key[1], key[2], key[3]
+        idx = torch.from_numpy(idx_np).to(dev)
         live = idx >= 0
         n_live = int(live.sum())
         safe = idx.clamp(0, rows - 1).long()
+        ring = Ring(dev, slots=1)
+        slot = ring.acquire(n)
+        slot.idx[:n] = idx_np
+        g0 = [(c.launches, dict(c.route_launches)) for c in _counters()]
+        staged_fn = getattr(build.load(lib), f"{name}_staged_i32")
         if name == "spec_gather":
-            got = spec_gather(table, idx)
-            want = ref.spec_gather(table, idx)
-            kern = lambda: spec_gather(table, idx)
+            got = torch.from_numpy(spec_gather_staged(table, slot, n).copy())
+            want = ref.spec_gather(table, idx)[:, 0].cpu()
+            # the staged kernel alone, without its wait, for graph capture
+            kern = lambda: build.check(staged_fn(
+                table.data_ptr(), slot.idx_ptr, slot.out_ptr, rows, n,
+                torch.cuda.current_stream().cuda_stream, index, 0), name)
+            tensor = lambda: spec_gather(table, idx)
             plain = lambda: ref.spec_gather(table, idx)
-            lib = lambda: table.index_select(0, safe)
+            lib_call = lambda: table.index_select(0, safe)
             # index read, live rows read, every output row written
             nbytes = 4 * n + 4 * d * n_live + 4 * d * n
         else:
-            values = a[2]
-            got = spec_scatter_add(table.clone(), idx, values)
-            want = ref.spec_scatter_add(table.clone(), idx, values)
+            values = torch.from_numpy(val_np).to(dev)[:, None]
+            slot.val[:n] = val_np
+            got = spec_scatter_add_staged(table.clone(), slot, n).cpu()
+            want = ref.spec_scatter_add(table.clone(), idx, values).cpu()
             t2 = table.clone()
             vmask = torch.where(live[:, None], values,
                                 torch.zeros_like(values))
-            kern = lambda: spec_scatter_add(t2, idx, values)
+            kern = lambda: build.check(staged_fn(
+                t2.data_ptr(), slot.idx_ptr, slot.val_ptr, rows, n,
+                torch.cuda.current_stream().cuda_stream, None, index), name)
+            tensor = lambda: spec_scatter_add(t2, idx, values)
             plain = lambda: ref.spec_scatter_add(t2, idx, values)
-            lib = lambda: t2.index_add_(0, safe, vmask)
+            lib_call = lambda: t2.index_add_(0, safe, vmask)
             uniq = int(torch.unique(safe[live]).numel())
             # index and live values read, each live destination row read
             # and written once
@@ -442,23 +783,39 @@ def phase_line(totals, kernel_ms, shapes, args) -> dict:
         err = (got.double() - want.double()).abs().max().item() if n else 0.0
         if err != 0.0:
             fail(f"{name} at the main path's shape differs by {err}")
-        g0 = spec_gather.launches, spec_scatter_add.launches
-        ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain), \
-            device_ms(lib)
-        eager = call_ms(kern)
-        spec_gather.launches, spec_scatter_add.launches = g0
+        ms, tensor_ms = device_ms(kern), device_ms(tensor)
+        plain_ms, lib_ms = device_ms(plain), device_ms(lib_call)
+        eager = call_ms(tensor)
+        for c, (launches, by_route) in zip(_counters(), g0):
+            c.launches, c.route_launches = launches, by_route
+        ring.drain()
+        floor = epoch["floor"]["empty"]["mean"]
+        replay = {r: epoch["replay"][r]["gather" if i == 0 else
+                                      "scatter_issue"]["mean"]
+                  for r in ("old", "new")}
+        print(f"[line] {name} rows={rows} n={n} d={d}: staged kernel "
+              f"{ms * 1e3:.4f} us, tensor-entry kernel {tensor_ms * 1e3:.4f} "
+              f"us (device, CUDA-graph replay); plain {plain_ms * 1e3:.4f} "
+              f"us, library {lib_ms * 1e3:.4f} us; byte bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e9:.4f} us, latency floor "
+              f"{floor:.2f} us (host); per call on hist's epochs: new "
+              f"{replay['new']:.2f} us, old {replay['old']:.2f} us "
+              f"({'round trip' if i == 0 else 'issue'})")
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": totals[i],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": lib_ms,
-            "call_ms": eager, "main_path_kernel_ms": kernel_ms[i],
+            "launch_route": "staged", "tensor_route_ms": tensor_ms,
+            "tensor_route_call_ms": eager, "floor_ms": floor / 1e3,
+            "epoch_call_us": replay, "main_path_kernel_ms": kernel_ms[i],
             "shape": {"rows": rows, "n": n, "d": d, "n_live": n_live,
                       "dtype": str(table.dtype).replace("torch.", ""),
                       "share_of_launches": shapes[key] / sum(
                           v for k, v in shapes.items() if k[0] == name)},
         })
+    out[0]["epoch"] = epoch
     return {"kernels": out}
 
 # ---------------------------------------------------------------------------

@@ -166,7 +166,7 @@ def _resolve_device(target: str, device) -> Optional[torch.device]:
 
 def run(compiled, memory: Dict[str, np.ndarray],
         params: Optional[Dict[str, Any]] = None, target: str = "torch", *,
-        device=None, strict: bool = False, block_n: int = 8,
+        device=None, strict: bool = False,
         cu_mode: str = "auto", max_steps: int = 2_000_000,
         max_retries: int = 1, backoff: float = 0.0,
         forward: bool = True) -> CodegenRun:
@@ -178,8 +178,9 @@ def run(compiled, memory: Dict[str, np.ndarray],
     ``device`` places the torch
     target's tables: None means ``cuda``, and with no card that raises
     :class:`RuntimeError` instead of carrying on on the CPU; tests pass
-    ``device="cpu"``.  ``block_n`` only floors the power-of-two batch
-    padding (:func:`repro_torch.codegen.epochs.bucket`).
+    ``device="cpu"``.  The reference's ``block_n`` (the floor of its
+    power-of-two batch padding) is not taken: the torch target's staged
+    kernels take each request unpadded.
 
     ``cu_mode`` picks how the CU half runs once the stream schedule is
     legal: ``"auto"`` resolves per target — the torch target takes the
@@ -255,8 +256,8 @@ def run(compiled, memory: Dict[str, np.ndarray],
         if rung == "vector":
             from .vector import run_vector
             return run_vector(compiled, memory, params, streams, info,
-                              target, device=dev, block_n=block_n,
-                              max_steps=max_steps, forward=forward)
+                              target, device=dev, max_steps=max_steps,
+                              forward=forward)
         if target == "numpy":
             cu_make = compile_mode(compiled.cu, "cu-numpy")
             if cu_make is None:
@@ -265,7 +266,7 @@ def run(compiled, memory: Dict[str, np.ndarray],
                            streams.st_addrs, max_steps)
         from .torch_backend import run_torch
         return run_torch(compiled, memory, params, streams, info,
-                         device=dev, block_n=block_n, max_steps=max_steps)
+                         device=dev, max_steps=max_steps)
 
     ladder = Ladder(rungs, max_retries=max_retries, backoff=backoff,
                     catch=(CodegenError, FaultError))

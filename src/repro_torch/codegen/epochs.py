@@ -38,10 +38,6 @@ the per-element state machine and the vectorised path — plan identically:
   older committed store to each in-window load.  The vector drivers
   (:mod:`repro.codegen.vector`) iterate this to a fixpoint; soundness of
   the fixpoint is argued on :func:`segment_forward`.
-
-* :func:`bucket` — the power-of-two batch padding shared by every kernel
-  call, floored at ``max(8, block_n)`` so a caller-chosen ``block_n``
-  never receives a grid smaller than one block.
 """
 from __future__ import annotations
 
@@ -73,23 +69,6 @@ MAX_FWD_PASSES = 6
 #: MAX_BATCH int64 terms, negligible against this bound) and the scan
 #: refuses past it.
 FWD_SUM_BOUND = float(2 ** 61)
-
-
-def bucket(n: int, block_n: int = 8) -> int:
-    """Power-of-two batch size >= n, floored at ``max(8, block_n)``.
-
-    The floor tracks ``block_n`` so the padded batch always covers at
-    least one kernel block: with the old fixed floor of 8, ``block_n=32``
-    handed the Pallas kernels an 8-wide grid and relied on their internal
-    ``min(block_n, n)`` clamp; clamping here keeps the grid/block contract
-    explicit and the retrace variety bounded per ``block_n``.
-    """
-    b = 8
-    if block_n > 8:
-        b = 1 << (int(block_n) - 1).bit_length()  # pow2 ceiling of block_n
-    while b < n:
-        b <<= 1
-    return b
 
 
 def gather_limit(ld_raw: Sequence[int], ld_pos: Sequence[int],

@@ -9,19 +9,21 @@ buffer runs dry.  On each yield the driver
 
 1. **flushes** every store value the CU has produced for that array —
    poisoned slots become ``-1`` indices, which
-   :func:`repro_torch.kernels.spec_scatter.spec_scatter_add` drops at
-   commit; an overwrite store lowers to gather-current + scatter-add of
-   the delta, computed in int32 on the device, which is bit-exact in
-   two's-complement arithmetic; write-after-write collisions split the
-   flush so in-order commit is preserved;
+   :func:`repro_torch.kernels.spec_scatter.spec_scatter_add_staged` drops
+   at commit; an overwrite store lowers to gather-current + scatter-add of
+   the delta, computed in int32 on the host from the gathered rows, which
+   is bit-exact in two's-complement arithmetic; write-after-write
+   collisions split the flush so in-order commit is preserved;
 2. **refills** the buffer with the next *epoch* of load values via
-   :func:`repro_torch.kernels.spec_gather.spec_gather`: the epoch extends
-   from the next unconsumed load up to (but excluding) the first load
-   whose raw address aliases a still-unflushed store request.
+   :func:`repro_torch.kernels.spec_gather.spec_gather_staged`: the epoch
+   extends from the next unconsumed load up to (but excluding) the first
+   load whose raw address aliases a still-unflushed store request.
 
-Batches are padded with poison to the shared power-of-two buckets
-(:func:`repro_torch.codegen.epochs.bucket`), so the kernel calls — and
-what an armed fault plan sees — match the reference call for call.
+Both kernels go by the staged route: the requests are written straight
+into a slot of one :class:`~repro_torch.kernels.staging.Ring` per run,
+with no per-call copy or device tensor, and unpadded (the reference pads
+each batch to a power of two to bound JAX retraces).  The kernel calls —
+and what an armed fault plan sees — match the reference call for call.
 
 Subset rules (anything else raises ``CodegenError`` and the caller falls
 back): decoupled arrays must be integer-typed with all values — initial
@@ -37,15 +39,16 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..kernels.spec_gather import spec_gather
-from ..kernels.spec_scatter import spec_scatter_add
+from ..kernels.spec_gather import spec_gather_staged
+from ..kernels.spec_scatter import spec_scatter_add_staged
+from ..kernels.staging import Ring
 from ..resilience import faults
 from ..resilience.faults import FaultDetected
 from .analysis import CodegenError
 from .emit import compile_mode
 from .epochs import I32_MAX as _I32_MAX
 from .epochs import I32_MIN as _I32_MIN
-from .epochs import MAX_BATCH, bucket, gather_limit
+from .epochs import MAX_BATCH, gather_limit
 from .streams import Streams
 
 
@@ -64,10 +67,10 @@ class _ArrayDriver:
     """Epoch scheduler for one decoupled array."""
 
     def __init__(self, name: str, mem: np.ndarray, streams: Streams,
-                 block_n: int, device: torch.device):
+                 device: torch.device, ring: Ring):
         self.name = name
         self.hi = len(mem) - 1
-        self.device = device
+        self.ring = ring
         self.table = torch.from_numpy(
             mem.astype(np.int32).reshape(-1, 1)).to(device)
         # shadow replica of the device table, kept only when the armed
@@ -83,7 +86,6 @@ class _ArrayDriver:
         self.st_pos = streams.st_pos.get(name, [])
         self.lp = 0          # next unconsumed load index
         self.fp = 0          # flushed store count
-        self.block_n = block_n
         self.gather_calls = 0
         self.scatter_calls = 0
 
@@ -127,19 +129,19 @@ class _ArrayDriver:
 
     def _scatter(self, idx_list: list, val_list: list) -> None:
         n = len(idx_list)
-        b = bucket(n, self.block_n)
-        idx = np.full(b, -1, np.int32)
-        idx[:n] = idx_list
-        vals = np.zeros((b, 1), np.int32)
-        vals[:n, 0] = val_list
-        tidx = torch.from_numpy(idx).to(self.device)
-        cur = spec_gather(self.table, tidx)
+        idx = np.asarray(idx_list, np.int32)
+        slot = self.ring.acquire(n)
+        slot.idx[:n] = idx
+        cur = spec_gather_staged(self.table, slot, n)
         # int32 - int32 stays int32 and wraps: the scatter-add re-wraps,
         # so the committed value is exact in two's-complement
-        delta = torch.where(tidx[:, None] >= 0,
-                            torch.from_numpy(vals).to(self.device) - cur,
-                            0)
-        self.table = spec_scatter_add(self.table, tidx, delta)
+        delta = slot.val[:n]
+        np.subtract(np.asarray(val_list, np.int32), cur, out=delta)
+        delta[idx < 0] = 0
+        # the gather's allpoison fault may have overwritten the indices;
+        # the scatter commits the flush's own
+        slot.idx[:n] = idx
+        self.table = spec_scatter_add_staged(self.table, slot, n)
         self.gather_calls += 1
         self.scatter_calls += 1
         if self.shadow is not None:
@@ -166,12 +168,10 @@ class _ArrayDriver:
         if not take:
             return 0
         n = len(take)
-        b = bucket(n, self.block_n)
-        idx = np.full(b, -1, np.int32)
-        idx[:n] = take
-        vals = spec_gather(self.table, torch.from_numpy(idx).to(self.device))
+        slot = self.ring.acquire(n)
+        slot.idx[:n] = take
+        got = spec_gather_staged(self.table, slot, n)
         self.gather_calls += 1
-        got = vals[:n, 0].cpu().numpy()
         if self.shadow is not None:
             exp = self.shadow[np.asarray(take, dtype=np.int64)]
             if not np.array_equal(got, exp):
@@ -186,7 +186,7 @@ class _ArrayDriver:
 
 def run_torch(compiled, memory: Dict[str, np.ndarray],
               params: Dict[str, Any], streams: Streams, analysis,
-              *, device: torch.device, block_n: int = 8,
+              *, device: torch.device,
               max_steps: int = 2_000_000) -> Dict[str, Any]:
     """Execute the CU against device tables; mutates ``memory`` on success.
 
@@ -201,7 +201,8 @@ def run_torch(compiled, memory: Dict[str, np.ndarray],
     for a in dec:
         _check_i32(a, memory[a])
 
-    drivers = {a: _ArrayDriver(a, memory[a], streams, block_n, device)
+    ring = Ring(device)
+    drivers = {a: _ArrayDriver(a, memory[a], streams, device, ring)
                for a in dec}
     bufs: Dict[str, deque] = {a: deque() for a in dec}
     outs: Dict[str, list] = {a: [] for a in dec}

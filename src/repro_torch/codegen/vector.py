@@ -36,9 +36,11 @@ Two drivers implement the memory operations:
   succeeds; forwarded commits use the ``np.add.reduceat`` combine.
 * :class:`_TorchVectorDriver` — the decoupled arrays live on device as
   **one fused** ``(n_total, 1)`` int32 table behind per-array base
-  offsets, so every epoch is **one** ``spec_gather`` plus at most one
-  WAW/RAW-resolved ``spec_scatter_add`` serving *all* arrays: poisoned
-  slots are ``-1`` indices (the kernels' pad-with-poison path),
+  offsets, so every epoch is **one** staged ``spec_gather`` plus at most
+  one WAW/RAW-resolved staged ``spec_scatter_add`` serving *all* arrays
+  (:mod:`repro_torch.kernels.staging`: the requests are written straight
+  into a page-locked host slot that the kernels read, and the gathered
+  rows come back into it): poisoned slots are ``-1`` indices,
   superseded WAW slots are masked to ``-1`` instead of splitting the
   batch, forwarded same-address runs become a single delta-total row,
   and every add-delta is computed against a fused host mirror of the
@@ -60,14 +62,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.spec_gather import spec_gather
-from ..kernels.spec_scatter import spec_scatter_add
+from ..kernels.spec_gather import spec_gather_staged
+from ..kernels.spec_scatter import spec_scatter_add_staged
+from ..kernels.staging import Ring
 from ..resilience import faults
 from ..resilience.faults import FaultDetected
 from ..verify.rules import detail_of, tag
 from .analysis import CodegenError, UniformLoop, uniform_loops
 from .epochs import (I32_MAX as _I32_MAX, I32_MIN as _I32_MIN,
-                     MAX_FWD_PASSES, bucket, combine_runs, first_violation,
+                     MAX_FWD_PASSES, combine_runs, first_violation,
                      last_writer_keep, plan_iters, segment_forward)
 from .streams import Streams
 
@@ -698,11 +701,13 @@ class _TorchVectorDriver(_VectorDriver):
     ``(n_total, 1)`` ``torch.int32`` table at a per-array base offset, so
     one ``spec_gather`` serves every load of an epoch and one
     ``spec_scatter_add`` serves every store — kernel-call counts are per
-    *epoch*, not per array.  An exact int64 host mirror of the table
+    *epoch*, not per array.  Both go by the staged route through one
+    :class:`~repro_torch.kernels.staging.Ring`: no per-epoch copy and no
+    per-epoch device tensor.  An exact int64 host mirror of the table
     supplies every add-delta, so the device never computes one.
     """
 
-    def __init__(self, loops, streams, memory, arrays, block_n, device,
+    def __init__(self, loops, streams, memory, arrays, device,
                  forward=True):
         super().__init__(loops, streams, memory, arrays, forward)
         self.base: Dict[str, int] = {}
@@ -715,10 +720,9 @@ class _TorchVectorDriver(_VectorDriver):
         self.n_total = off
         self.mirror = (np.concatenate(parts) if parts
                        else np.zeros(0, np.int64))
-        self.device = device
         self.table = torch.from_numpy(
             self.mirror.astype(np.int32).reshape(-1, 1)).to(device)
-        self.block_n = block_n
+        self.ring = Ring(device)
         self.gather_calls = 0
         self.scatter_calls = 0
 
@@ -728,25 +732,26 @@ class _TorchVectorDriver(_VectorDriver):
         if not req:
             return {}
         names = sorted(req)
-        gidx = np.concatenate(
-            [self.base[a] + req[a] for a in names])
-        n = len(gidx)
-        b = bucket(n, self.block_n)
-        pad = np.full(b, -1, np.int32)
-        pad[:n] = gidx
-        vals = spec_gather(self.table, torch.from_numpy(pad).to(self.device))
+        n = sum(len(req[a]) for a in names)
+        slot = self.ring.acquire(n)
+        gidx = slot.idx[:n]
+        o = 0
+        for a in names:
+            k = len(req[a])
+            np.add(req[a], self.base[a], out=gidx[o:o + k],
+                   casting="unsafe")
+            o += k
+        # the host mirror is exact by induction — a gather that disagrees
+        # with it returned corrupted rows; catch it before the CU computes
+        # (and later commits) anything from it.  Read before the gather:
+        # an armed allpoison fault overwrites the slot's indices.
+        exp = self.mirror[gidx] if faults.corrupting() else None
+        flat = spec_gather_staged(self.table, slot, n).astype(np.int64)
         self.gather_calls += 1
-        flat = vals[:n, 0].cpu().numpy().astype(np.int64)
-        if faults.corrupting():
-            # the host mirror is exact by induction — a gather that
-            # disagrees with it returned corrupted rows; catch it before
-            # the CU computes (and later commits) anything from it
-            exp = self.mirror[gidx]
-            if not np.array_equal(flat, exp):
-                raise FaultDetected(
-                    "codegen.vector.gather",
-                    "gather verify failed: device rows differ from host "
-                    "mirror")
+        if exp is not None and not np.array_equal(flat, exp):
+            raise FaultDetected(
+                "codegen.vector.gather",
+                "gather verify failed: device rows differ from host mirror")
         out: Dict[str, np.ndarray] = {}
         o = 0
         for a in names:
@@ -806,17 +811,11 @@ class _TorchVectorDriver(_VectorDriver):
                 post.append(("add", gi, tot))
         if not rows_i:
             return
-        gidx = np.concatenate(rows_i)
-        gdel = np.concatenate(rows_d)
-        n = len(gidx)
-        b = bucket(n, self.block_n)
-        idx = np.full(b, -1, np.int32)
-        idx[:n] = gidx
-        delta = np.zeros((b, 1), np.int32)
-        delta[:n, 0] = gdel
-        self.table = spec_scatter_add(
-            self.table, torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(delta).to(self.device))
+        n = sum(len(r) for r in rows_i)
+        slot = self.ring.acquire(n)
+        np.concatenate(rows_i, out=slot.idx[:n], casting="unsafe")
+        np.concatenate(rows_d, out=slot.val[:n], casting="unsafe")
+        self.table = spec_scatter_add_staged(self.table, slot, n)
         self.scatter_calls += 1
         for kind, gi, v in post:
             if kind == "set":
@@ -858,7 +857,7 @@ class _TorchVectorDriver(_VectorDriver):
 def run_vector(compiled, memory: Dict[str, np.ndarray],
                params: Dict[str, Any], streams: Streams, analysis,
                target: str, *, device: Optional[torch.device] = None,
-               block_n: int = 8, max_steps: int = 2_000_000,
+               max_steps: int = 2_000_000,
                forward: bool = True) -> Dict[str, Any]:
     """Execute the vectorised CU; mutates ``memory`` only on success.
 
@@ -890,8 +889,7 @@ def run_vector(compiled, memory: Dict[str, np.ndarray],
         for a in dec:
             _check_i32(a, memory[a])
         drv: _VectorDriver = _TorchVectorDriver(loops, streams, memory, dec,
-                                                block_n, device,
-                                                forward=forward)
+                                                device, forward=forward)
     else:
         drv = _NumpyVectorDriver(loops, streams, memory, dec,
                                  forward=forward)

@@ -29,16 +29,32 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
-#: exported C entry -> argument types; every entry returns the launch's
-#: ``cudaGetLastError()`` as an int
+_INT = ctypes.c_int
+#: exported C entry -> argument types; every entry returns a CUDA error
+#: code as an int (0 on success)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
+    # table, idx, out; rows, n, d; stream
     "spec_gather": {
         "spec_gather_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         "spec_gather_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        # table, idx, out (mapped); rows, n; stream, device, wait
+        "spec_gather_staged_i32": (_PTR,) * 3 + (_I64,) * 2 + (_PTR, _INT,
+                                                               _INT),
+        # host address, where to write its device address
+        "spec_staging_device_ptr": (_PTR, _PTR),
+        # measurement only: table, idx, out (pinned), idx, out (device);
+        # rows, n; stream, device
+        "spec_gather_copied_i32": (_PTR,) * 5 + (_I64,) * 2 + (_PTR, _INT),
+        # measurement only: mapped int32 or null; stream, device
+        "spec_staging_floor": (_PTR, _PTR, _INT),
     },
+    # table, idx, values; rows, n, d; stream
     "spec_scatter": {
         "spec_scatter_add_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         "spec_scatter_add_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        # table, idx, values (mapped); rows, n; stream, event, device
+        "spec_scatter_add_staged_i32": (_PTR,) * 3 + (_I64,) * 2 + (
+            _PTR, _PTR, _INT),
     },
     # x, w, out; E, capacity, D, F; stream
     "ragged_matmul": {

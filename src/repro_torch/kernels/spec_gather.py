@@ -1,22 +1,42 @@
 """spec_gather — speculative row gather with poison (CUDA, sm_90a).
 
 Replaces the Pallas TPU kernel ``_spec_gather`` of the JAX package's
-``kernels/spec_gather.py``.  The CUDA source is ``csrc/spec_gather.cu``:
-one thread per output element, a poisoned row issues no load.  Per call
-the kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen path's
-epoch sizes (``d = 1``, at most a few thousand rows) that is nanoseconds
-at 3.35 TB/s, so launch latency bounds it.
+``kernels/spec_gather.py``.  The CUDA source is ``csrc/spec_gather.cu``.
+Two routes, chosen by the caller's entry point, never by a switch:
+
+* ``"tensor"`` — :func:`spec_gather`, the kernel API: a device index
+  tensor in, a device tensor out; one thread per output element, a
+  poisoned row issues no load.
+* ``"staged"`` — :func:`spec_gather_staged`, the codegen drivers' epoch
+  round trip on their int32 table of one-element rows: indices in a slot
+  of a :class:`~repro_torch.kernels.staging.Ring`, values back in the
+  same slot.  On CUDA the slot is page-locked, mapped host memory that
+  the kernel reads and writes over PCIe, and the one C call returns once
+  the values are there: one host call and one crossing each way a
+  request, every load of the request in flight at once.
+
+Per call the kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen
+path's epoch sizes (``d = 1``, at most a few thousand rows) that is
+nanoseconds at 3.35 TB/s, so launch latency and the round trip bound it.
+``spec_gather.launches`` counts both routes' launches,
+``spec_gather.route_launches`` each route's.
 
 ``block_n`` / ``block_d`` were TPU tiling and are not taken here.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..resilience import faults
 from . import ref
 from .build import check, load
 from .dispatch import check_table_idx, on_cuda, stream_of
+from .staging import Slot, check_staged
+
+ROUTES = ("tensor", "staged")
 
 
 def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -52,10 +72,51 @@ def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          table.shape[0], n, d, stream_of(table))
             check(err, "spec_gather")
             spec_gather.launches += 1
+            spec_gather.route_launches["tensor"] += 1
     if faults.ACTIVE and faults.fire("kernels.gather.rows"):
         out[::2] += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+@functools.cache
+def _staged_entry():
+    """The staged C entry, bound once."""
+    return load("spec_gather").spec_gather_staged_i32
+
+
+def spec_gather_staged(table: torch.Tensor, slot: Slot,
+                       n: int) -> np.ndarray:
+    """Gather the rows of ``table`` at the first ``n`` indices of ``slot``.
+
+    ``table`` is the codegen drivers' contiguous ``(rows, 1)`` int32
+    table.  Returns the ``n`` gathered values as a numpy view of the
+    slot's output buffer, valid until the slot is handed out again; the
+    semantics are :func:`spec_gather`'s.  On a CUDA table the staged kernel
+    launches and the call returns once the values are in the slot; on a
+    CPU table the plain version runs on the slot's indices.  The fault
+    sites fire where :func:`spec_gather`'s do: ``kernels.gather.allpoison``
+    overwrites the slot's indices with ``-1`` before the kernel,
+    ``kernels.gather.rows`` corrupts alternate output rows after it.
+    """
+    check_staged(table, slot, n)
+    idx = slot.idx[:n]
+    out = slot.out[:n]
+    if faults.ACTIVE and faults.fire("kernels.gather.allpoison"):
+        idx[:] = -1
+    if slot.out_ptr is None:
+        out[:] = ref.spec_gather(table, torch.from_numpy(idx))[:, 0].numpy()
+    elif n:
+        err = _staged_entry()(table.data_ptr(), slot.idx_ptr, slot.out_ptr,
+                              len(table), n, slot.stream, slot.device, 1)
+        check(err, "spec_gather")
+        spec_gather.launches += 1
+        spec_gather.route_launches["staged"] += 1
+    if faults.ACTIVE and faults.fire("kernels.gather.rows"):
+        out[::2] += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0, both routes
 spec_gather.launches = 0
+#: the same launches by route
+spec_gather.route_launches = dict.fromkeys(ROUTES, 0)

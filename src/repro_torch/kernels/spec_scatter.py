@@ -2,10 +2,23 @@
 
 Replaces the Pallas TPU kernel ``_spec_scatter_add`` of the JAX package's
 ``kernels/spec_scatter.py``.  The CUDA source is ``csrc/spec_scatter.cu``:
-one thread per element, ``atomicAdd`` in place of the TPU kernel's
-destination sort, a poisoned request touches nothing.  Per call the
-kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen path's epoch
-sizes launch latency bounds it.
+``atomicAdd`` in place of the TPU kernel's destination sort, a poisoned
+request touches nothing.  Two routes, chosen by the caller's entry point,
+never by a switch:
+
+* ``"tensor"`` — :func:`spec_scatter_add`, the kernel API: device index
+  and value tensors, one thread per element.
+* ``"staged"`` — :func:`spec_scatter_add_staged`, the codegen drivers'
+  commit into their int32 table of one-element rows: indices and values
+  in a slot of a :class:`~repro_torch.kernels.staging.Ring`.  On CUDA
+  the kernel reads the page-locked, mapped slot over PCIe; the one C
+  call records the slot's event and returns without waiting, and the
+  ring waits for that event before it hands the slot out again.
+
+Per call the kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen
+path's epoch sizes launch latency bounds it.
+``spec_scatter_add.launches`` counts both routes' launches,
+``spec_scatter_add.route_launches`` each route's.
 
 int32 sums are exact in any order; float32 sums meet in an order that
 varies from run to run, so float results agree with the plain version
@@ -14,12 +27,17 @@ package's float32 scatter tolerance).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..resilience import faults
 from . import ref
 from .build import check, load
 from .dispatch import check_table_idx, on_cuda, stream_of
+from .staging import Slot, check_staged
+
+ROUTES = ("tensor", "staged")
 
 
 def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
@@ -63,8 +81,52 @@ def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
                      table.shape[0], n, d, stream_of(table))
         check(err, "spec_scatter_add")
         spec_scatter_add.launches += 1
+        spec_scatter_add.route_launches["tensor"] += 1
     return table
 
 
-#: kernel launches since the count was last set to 0
+@functools.cache
+def _staged_entry():
+    """The staged C entry, bound once."""
+    return load("spec_scatter").spec_scatter_add_staged_i32
+
+
+def spec_scatter_add_staged(table: torch.Tensor, slot: Slot,
+                            n: int) -> torch.Tensor:
+    """Add the first ``n`` values of ``slot`` into ``table`` at its first
+    ``n`` indices, in place; returns ``table``.
+
+    ``table`` is the codegen drivers' contiguous ``(rows, 1)`` int32
+    table; the semantics are :func:`spec_scatter_add`'s.  On a CUDA table
+    the staged kernel launches and the call returns without waiting (the
+    slot stays pending until its event completes); on a CPU table the
+    plain version runs on the slot's arrays.  Fault sites fire where
+    :func:`spec_scatter_add`'s do: ``kernels.scatter.raise`` raises before
+    the kernel, ``kernels.scatter.allpoison`` overwrites the slot's
+    indices with ``-1``.
+    """
+    check_staged(table, slot, n)
+    idx = slot.idx[:n]
+    if faults.ACTIVE:
+        faults.inject("kernels.scatter.raise")
+        if faults.fire("kernels.scatter.allpoison"):
+            idx[:] = -1
+    if slot.val_ptr is None:
+        ref.spec_scatter_add(table, torch.from_numpy(idx),
+                             torch.from_numpy(slot.val[:n])[:, None])
+        slot.launched()
+    elif n:
+        err = _staged_entry()(table.data_ptr(), slot.idx_ptr, slot.val_ptr,
+                              len(table), n, slot.stream, slot.event_ptr,
+                              slot.device)
+        check(err, "spec_scatter_add")
+        slot.launched()
+        spec_scatter_add.launches += 1
+        spec_scatter_add.route_launches["staged"] += 1
+    return table
+
+
+#: kernel launches since the count was last set to 0, both routes
 spec_scatter_add.launches = 0
+#: the same launches by route
+spec_scatter_add.route_launches = dict.fromkeys(ROUTES, 0)

@@ -28,8 +28,11 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ragged_matmul import ragged_matmul
-from repro_torch.kernels.spec_gather import spec_gather
-from repro_torch.kernels.spec_scatter import spec_scatter_add
+from repro_torch.kernels.spec_gather import spec_gather, spec_gather_staged
+from repro_torch.kernels.spec_scatter import (spec_scatter_add,
+                                              spec_scatter_add_staged)
+from repro_torch.kernels import staging
+from repro_torch.kernels.staging import Ring
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +115,135 @@ def test_cuda_run_matches_cpu_and_counts_launches(cuda, name, cu_mode):
     assert rc.stats == rp.stats
     assert lc == (rc.stats["gather_calls"], rc.stats["scatter_calls"])
     assert lc[0] > 0 and lc[1] > 0
+
+
+#: the staged route's edge cases, as in tests/test_torch_staging.py:
+#: (rows, n, kind) with n off a multiple of 4 (the 16-byte loads' tail),
+#: n = 0, every request poisoned, indices past the last row, duplicate
+#: destinations, n past a new slot (growth)
+STAGED_CASES = [(61, 37, "mixed"), (61, 4, "mixed"), (61, 1, "mixed"),
+                (61, 0, "mixed"), (61, 6, "mixed"), (8, 5, "poison"),
+                (8, 4096, "poison"), (3, 23, "dups"), (7, 4099, "dups"),
+                (65536, 512, "mixed"), (1 << 20, 4096, "mixed"),
+                (40, 1030, "mixed")]
+
+
+def _staged_inputs(rows, n, kind, seed=11):
+    rng = np.random.default_rng(seed + rows + n)
+    if kind == "poison":
+        idx = np.full(n, -1, np.int32)
+    elif kind == "dups":
+        idx = rng.integers(-1, min(rows, 3), n).astype(np.int32)
+    else:
+        idx = rng.integers(-3, rows + 4, n).astype(np.int32)
+    tab = rng.integers(-2 ** 31, 2 ** 31, (rows, 1),
+                       dtype=np.int64).astype(np.int32)
+    val = rng.integers(-2 ** 31, 2 ** 31, (n, 1),
+                       dtype=np.int64).astype(np.int32)
+    return tab, idx, val
+
+
+def _stage(ring, idx, val):
+    n = len(idx)
+    slot = ring.acquire(n)
+    slot.idx[:n] = idx
+    slot.val[:n] = val[:, 0]
+    return slot
+
+
+def _route_counts():
+    return (dict(spec_gather.route_launches),
+            dict(spec_scatter_add.route_launches))
+
+
+@pytest.mark.parametrize("rows,n,kind", STAGED_CASES)
+def test_cuda_staged_matches_plain(cuda, rows, n, kind):
+    tab, idx, val = _staged_inputs(rows, n, kind)
+    t = torch.from_numpy(tab).to(cuda)
+    ring = Ring(cuda)
+    slot = _stage(ring, idx, val)
+    (g0, s0), l0 = _route_counts(), (spec_gather.launches,
+                                     spec_scatter_add.launches)
+    # the values are on the host when the call returns: no synchronize
+    got = spec_gather_staged(t, slot, n).copy()
+    ti, tv = torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda)
+    np.testing.assert_array_equal(got, ref.spec_gather(t, ti)[:, 0].cpu())
+    out = spec_scatter_add_staged(t, slot, n)
+    assert out is t
+    torch.cuda.synchronize()
+    want = ref.spec_scatter_add(torch.from_numpy(tab).to(cuda), ti, tv)
+    assert torch.equal(t, want)
+    launched = int(n > 0)
+    g1, s1 = _route_counts()
+    assert (g1["staged"] - g0["staged"], s1["staged"] - s0["staged"]) == \
+        (launched, launched)
+    assert (g1["tensor"], s1["tensor"]) == (g0["tensor"], s0["tensor"])
+    assert (spec_gather.launches - l0[0], spec_scatter_add.launches - l0[1]) \
+        == (launched, launched)
+    ring.drain()
+
+
+def test_cuda_staging_takes_only_page_locked_memory(cuda):
+    ring = Ring(cuda)
+    for slot in ring.slots:
+        assert slot.idx_ptr and slot.val_ptr and slot.out_ptr
+        assert slot.event_ptr and slot.stream is not None
+    # pageable host memory has no device address
+    pageable = np.zeros(64, np.int32)
+    with pytest.raises(RuntimeError, match="page-locked"):
+        staging.device_ptr(pageable.ctypes.data)
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_cuda_staged_scatters_back_to_back(cuda, slots):
+    """Scatters with no gather between them: each refills a slot that an
+    earlier scatter may still be reading, so the ring must wait for that
+    scatter's event first.  Large requests on a small table make each
+    kernel long enough for an early overwrite to show."""
+    rng = np.random.default_rng(5)
+    rows, n, calls = 97, 1 << 18, 12
+    tab = rng.integers(-1000, 1000, (rows, 1)).astype(np.int32)
+    t = torch.from_numpy(tab).to(cuda)
+    want = torch.from_numpy(tab.astype(np.int64))
+    ring = Ring(cuda, slots=slots, capacity=n)
+    for k in range(calls):
+        idx = rng.integers(-1, rows + 2, n).astype(np.int32)
+        val = np.full((n, 1), k + 1, np.int32)
+        spec_scatter_add_staged(t, _stage(ring, idx, val), n)
+        live = idx >= 0
+        np.add.at(want.numpy()[:, 0], np.minimum(idx[live], rows - 1), k + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(t.cpu().long(), want)
+    # a gather after them sees every scatter: its wait covers the stream
+    slot = _stage(ring, np.arange(rows, dtype=np.int32),
+                  np.zeros((rows, 1), np.int32))
+    got = spec_gather_staged(t, slot, rows)
+    np.testing.assert_array_equal(got, want.numpy()[:, 0])
+
+
+@pytest.mark.parametrize("cu_mode", ["vector", "state-machine"])
+def test_cuda_codegen_launches_only_by_the_staged_route(cuda, cu_mode):
+    """A codegen run launches the spec kernels by the staged route only,
+    once per gather and scatter call, bit-exact against the CPU run."""
+    case = ALL["hist"](n=1 << 14, n_bins=1 << 10)
+    comp = pipeline.compile_spec(case.fn, case.decoupled)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        mem = {k: v.copy() for k, v in case.memory.items()}
+        before = _route_counts()
+        r = codegen.run(comp, mem, case.params, target="torch",
+                        device=device, cu_mode=cu_mode)
+        after = _route_counts()
+        runs[device] = (r, mem, [{k: a[k] - b[k] for k in a}
+                                 for a, b in zip(after, before)])
+    (rc, mc, (g, s)), (rp, mp, _) = runs["cuda"], runs["cpu"]
+    for k in mp:
+        assert np.array_equal(mp[k], mc[k]), k
+    assert rc.target_used == "torch" and rc.cu_mode == cu_mode
+    assert rc.stats == rp.stats
+    assert g == {"tensor": 0, "staged": rc.stats["gather_calls"]}
+    assert s == {"tensor": 0, "staged": rc.stats["scatter_calls"]}
+    assert g["staged"] > 0 and s["staged"] > 0
 
 
 def _dev(dev, dtype, *arrays):
