@@ -26,6 +26,16 @@ tiled kernels otherwise), then each once through
 ``repro_torch.kernels.ops`` at full model width (Kimi-K2's expert FFN,
 Mistral-NeMo-12B's prefill and decode), checked against its plain version
 and timed, the tiled bf16 GEMM and flash kernels beside the TMA ones.
+The serving path follows (``[serve]`` lines): the engine on the card
+against the same engine on the CPU at a small float32 size, the bf16
+entries of the two speculative kernels over an edge sweep, then
+Kimi-K2 at full width with one layer group (38.8 GB of bf16 weights
+drawn on the card) serving 8 requests through
+``repro_torch.serve.engine.Engine`` with ``dispatch="spec-kernel"``,
+checked to launch each bf16 entry once per MoE forward and to commit
+the tokens and poison counts of ``dispatch="spec"``, profiled for the
+device's busy and idle time, and the two bf16 entries held against
+their plain versions at the prefill and decode shapes and timed.
 Phases print as they finish; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -270,6 +280,7 @@ def _reset() -> None:
     for c in _counters():
         c.launches = 0
         c.route_launches = dict.fromkeys(c.route_launches, 0)
+        c.entry_launches = dict.fromkeys(c.entry_launches, 0)
 
 
 def _launches():
@@ -1228,6 +1239,481 @@ def phase_api_full() -> list:
         torch.cuda.empty_cache()
     return records
 
+# ---------------------------------------------------------------------------
+# the serving path: the model stack and Engine at Kimi-K2's width
+# ---------------------------------------------------------------------------
+
+#: the serving phase's traffic: 8 requests of seeded length in [128, 512]
+#: (the longest pinned to 512, so the one wave's prefill dispatches
+#: 8 x 512 rows), 16 new tokens each, 8 slots, a cache of 544
+SERVE = dict(requests=8, prompt=(128, 512), max_new=16, slots=8,
+             max_len=544, seed=15)
+
+
+class _TimedModel:
+    """The engine's model with a host clock around each call (each call
+    ends in a device sync: the engine reads its poison count), a check
+    that its logits are finite, and the calls' times kept."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefill_s: list = []
+        self.decode_s: list = []
+
+    def _timed(self, fn, into, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"serve.{fn.__name__}"):
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        if not torch.isfinite(out[0]).all():
+            fail("serve: non-finite logits")
+        return out
+
+    def prefill(self, *args, **kw):
+        return self._timed(self.model.prefill, self.prefill_s, *args, **kw)
+
+    def decode_step(self, *args, **kw):
+        return self._timed(self.model.decode_step, self.decode_s, *args,
+                           **kw)
+
+
+#: kernel-name fragments of each device-time category of the profile
+KERNEL_KINDS = (
+    ("spec kernels", ("spec_gather", "spec_scatter")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "splitK")),
+    ("softmax", ("softmax",)),
+    ("indexing", ("index", "scatter", "gather", "cumsum", "scan",
+                  "topk", "sort", "radix", "one_hot")),
+)
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, parts in KERNEL_KINDS:
+        if any(p.lower() in low for p in parts):
+            return kind
+    return "other"
+
+
+def _serve_profile(serve) -> dict:
+    """One more ``spec-kernel`` wave under ``torch.profiler``: for the
+    prefill call and the decode steps, the host window, the device's busy
+    time in it (the union of kernel and copy intervals), the idle share,
+    busy time by kind of kernel, and the top kernels."""
+    from torch.autograd import DeviceType
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        serve("spec-kernel")
+        torch.cuda.synchronize()
+    events = prof.events()
+    windows = {"prefill": [], "decode_step": []}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.name in (
+                "serve.prefill", "serve.decode_step"):
+            windows[ev.name.split(".")[1]].append(
+                (ev.time_range.start, ev.time_range.end))
+    # device work: kernels and copies, not the ranges' own annotations
+    kernels = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                     for ev in events if ev.device_type != DeviceType.CPU
+                     and not ev.name.startswith("serve."))
+    out = {}
+    for phase, spans in windows.items():
+        window = sum(e - b for b, e in spans)
+        busy = 0.0
+        kinds = collections.Counter()
+        names = collections.Counter()
+        for b, e in spans:
+            end = b
+            for kb, ke, name in kernels:
+                kb, ke = max(kb, b), min(ke, e)
+                if ke <= kb:
+                    continue
+                kinds[_kind(name)] += ke - kb
+                names[name[:70]] += ke - kb
+                busy += max(0.0, ke - max(kb, end))
+                end = max(end, ke)
+        out[phase] = {
+            "calls": len(spans), "window_ms": window / 1e3,
+            "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / window if window else None,
+            "by_kind_ms": {k: v / 1e3 for k, v in kinds.most_common()},
+            "top_kernels_ms": {k: v / 1e3 for k, v in names.most_common(8)}}
+    return out
+
+
+def _serve_small_agrees() -> None:
+    """The engine on the card against the same engine on the CPU, on a
+    small float32 input (Kimi-K2's smoke config): the same tokens."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import base as cbase
+    from repro_torch.serve.engine import Engine, Request
+    cfg = cbase.smoke(cbase.get("kimi_k2_1t_a32b"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 7)]
+    params = Engine(cfg, slots=3, max_len=24, device="cpu").params
+    got = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, tree_map(lambda t: t.to(dev), params), slots=3,
+                     max_len=24,
+                     dispatch="spec-kernel", device=dev)
+        got[dev] = eng.run([Request(rid=i, prompt=p, max_new=6)
+                            for i, p in enumerate(prompts)])
+        got[dev, "poison"] = [w.moe_poison for w in eng.wave_stats]
+    if got["cpu"] != got["cuda"] or got["cpu", "poison"] != \
+            got["cuda", "poison"]:
+        fail(f"serve: small float32 run differs cuda/cpu: {got}")
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose base sits 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bf16_sweep() -> int:
+    """The bf16 entries against their plain versions over edge cases: d
+    odd and even, bases 16-byte aligned and 2 bytes off (the gather's 16-,
+    4- and 2-byte copies, the scatter's paired and single atomics),
+    poisoned rows, indices past the table, n = 0, duplicates.  Gather and
+    unique-destination scatter bitwise, duplicates within
+    ``ref.bf16_sum_bound`` of the float32 sum."""
+    from repro_torch.kernels import ref
+    g, s = _counters()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).bfloat16()
+
+    cases = 0
+    for rows, d, n in ((1, 1, 1), (61, 7, 100), (384, 8, 37),
+                       (40, 7168, 64), (96, 33, 0), (3000, 130, 4099)):
+        idx = torch.from_numpy(rng.integers(-3, rows + 4, n).astype(
+            np.int32)).to(dev)
+        vals = bf16(n, d)
+        uniq = torch.from_numpy(rng.permutation(max(rows, n))[:n].astype(
+            np.int32)).to(dev)
+        uniq[::3] = -1
+        table = bf16(rows, d)
+        for place in (lambda t: t.clone(), _unaligned):
+            tab = place(table)
+            if not torch.equal(g(tab, idx), ref.spec_gather(tab, idx)):
+                fail(f"spec_gather bf16 rows={rows} d={d} n={n} differs")
+            zero = place(torch.zeros((max(rows, n), d), dtype=torch.bfloat16,
+                                     device=dev))
+            got = s(zero, uniq, place(vals))
+            want = ref.spec_scatter_add(torch.zeros_like(zero), uniq, vals)
+            if not torch.equal(got, want):
+                fail(f"spec_scatter_add bf16 unique rows={rows} d={d} n={n} "
+                     f"differs")
+            got = s(place(table), idx, place(vals)).float()
+            want = ref.spec_scatter_add(table.float(), idx, vals.float())
+            if not ((got - want).abs() <= ref.bf16_sum_bound(
+                    table, idx, vals)).all():
+                fail(f"spec_scatter_add bf16 duplicates rows={rows} d={d} "
+                     f"n={n} past the bound")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def _moe_kernel_inputs(n_tok, cap, gen, d=7168, n_experts=384, top_k=8):
+    """The MoE dispatch's kernel inputs at ``n_tok`` tokens: each token's
+    8 experts drawn at random, slots from the port's own assignment
+    (poisoned past ``cap``), bf16 rows of width ``d`` made on the card."""
+    from repro_torch.models.moe import spec_dispatch_indices
+    dev = torch.device("cuda")
+    probs = torch.rand((n_tok, n_experts), generator=gen, device=dev)
+    gates, experts = probs.topk(top_k, dim=-1)
+    slot, _ = spec_dispatch_indices(gates, experts, cap, n_experts)
+    idx = slot.reshape(-1).contiguous()
+    x = torch.randn((n_tok, d), generator=gen, device=dev).bfloat16()
+    src = x.repeat_interleave(top_k, dim=0)
+    h = torch.randn((n_experts * cap, d), generator=gen,
+                    device=dev).bfloat16()
+    return idx, src, h
+
+
+def _bf16_line(name, idx, table, values):
+    """One bf16 entry at one shape: bitwise against its plain version,
+    then device ms by CUDA-graph replay of the kernel alone (its C entry
+    into a preallocated output), the plain version and one library call,
+    and the byte bound from these inputs."""
+    from repro_torch.kernels import build, ref
+    g, s = _counters()
+    saved = {c: (c.launches, dict(c.route_launches), dict(c.entry_launches))
+             for c in (g, s)}
+    n, d, rows = idx.shape[0], table.shape[1], table.shape[0]
+    live = idx >= 0
+    n_live = int(live.sum())
+    safe = idx.clamp(0, rows - 1).long()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    if name == "spec_gather":
+        got, want = g(table, idx), ref.spec_gather(table, idx)
+        out = torch.empty_like(got)
+        fn = build.load("spec_gather").spec_gather_bf16
+        kern = lambda: build.check(fn(table.data_ptr(), idx.data_ptr(),
+                                      out.data_ptr(), rows, n, d, stream()),
+                                   name)
+        plain = lambda: ref.spec_gather(table, idx)
+        lib_call = lambda: table.index_select(0, safe)
+        # index read, live rows read, every output row written
+        nbytes = 4 * n + 2 * d * n_live + 2 * d * n
+    else:
+        got = s(table.clone(), idx, values)
+        want = ref.spec_scatter_add(table.clone(), idx, values)
+        t2 = table.clone()
+        fn = build.load("spec_scatter").spec_scatter_add_bf16
+        kern = lambda: build.check(fn(t2.data_ptr(), idx.data_ptr(),
+                                      values.data_ptr(), rows, n, d,
+                                      stream()), name)
+        plain = lambda: ref.spec_scatter_add(t2, idx, values)
+        vmask = torch.where(live[:, None], values, torch.zeros_like(values))
+        lib_call = lambda: t2.index_add_(0, safe, vmask)
+        uniq = int(torch.unique(safe[live]).numel())
+        # index and live values read, each live destination row read and
+        # written once
+        nbytes = 4 * n + 2 * d * n_live + 2 * 2 * d * uniq
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{name} bf16 at n={n} d={d} differs from its plain version")
+    err = (got.float() - want.float()).abs().max().item() if n else 0.0
+    del got, want
+    reps = 20 if n * d > 1e7 else 200
+    ms = device_ms(kern, reps=reps)
+    plain_ms = device_ms(plain, reps=reps)
+    lib_ms = device_ms(lib_call, reps=reps)
+    for c, (launches, routes, entries) in saved.items():
+        c.launches, c.route_launches, c.entry_launches = (launches, routes,
+                                                          entries)
+    return {"n": n, "d": d, "rows": rows, "n_live": n_live,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_serve_full() -> list:
+    """The serving path at Kimi-K2's full width, one layer group: the
+    engine serves the same requests through dispatch="spec-kernel" (the
+    main path, its launches counted) and dispatch="spec" on the same
+    parameters, which must commit the same tokens with the same poison
+    counts; then the two bf16 entries are held against their plain
+    versions at the prefill and decode shapes and timed."""
+    import dataclasses
+    import gc
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import base as cbase
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import round_capacity as moe_capacity
+    from repro_torch.serve.engine import Engine, Request
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _serve_small_agrees()
+    cases = _bf16_sweep()
+    print(f"[serve] small float32 engine run equal cuda/cpu; {cases} bf16 "
+          f"edge cases x 2 entries agree with the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    cfg = dataclasses.replace(cbase.get("kimi_k2_1t_a32b"), n_layers=1)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    params = build_model(cfg).init(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serve] {cfg.name} at full width, n_layers cut to 1 (one "
+          f"[attn, moe] group): d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"of {cfg.hd}, {cfg.n_kv_heads} KV heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of ff {cfg.moe_d_ff} + {cfg.n_shared_experts} "
+          f"shared, vocab {cfg.vocab}, {cfg.dtype}; {n_params / 1e9:.2f}e9 "
+          f"parameters, {(torch.cuda.memory_allocated() - before) / 1e9:.2f} "
+          f"GB, drawn on the card in {time.perf_counter() - t0:.1f} s "
+          f"(device memory in use before: {before / 1e9:.2f} GB)")
+
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    lens = rng.integers(lo, hi + 1, SERVE["requests"])
+    lens[int(np.argmax(lens))] = hi
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+
+    def serve(dispatch):
+        eng = Engine(cfg, params, slots=SERVE["slots"],
+                     max_len=SERVE["max_len"], dispatch=dispatch, device=dev)
+        eng.model = timed = _TimedModel(eng.model)
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE["max_new"])
+                for i, p in enumerate(prompts)]
+        res = eng.run(reqs)
+        if any(r.failed or r.truncated for r in reqs) or eng.events:
+            fail(f"serve {dispatch}: events {eng.events}")
+        if sorted(res) != list(range(len(prompts))) or any(
+                len(v) != SERVE["max_new"] or not all(
+                    0 <= t < cfg.vocab for t in v) for v in res.values()):
+            fail(f"serve {dispatch}: results {res}")
+        return res, eng.wave_stats, timed
+
+    serve("spec-kernel")  # warm-up: cuBLAS handles, the kernels' build
+    g, s = _counters()
+    _reset()
+    res_k, waves_k, timed_k = serve("spec-kernel")
+    torch.cuda.synchronize()
+    launches = {"spec_gather": (g.launches, dict(g.route_launches),
+                                g.entry_launches["spec_gather_bf16"]),
+                "spec_scatter_add": (s.launches, dict(s.route_launches),
+                                     s.entry_launches[
+                                         "spec_scatter_add_bf16"])}
+    peak = torch.cuda.max_memory_allocated()
+    res_s, waves_s, timed_s = serve("spec")
+    torch.cuda.synchronize()
+    if (g.launches, s.launches) != (launches["spec_gather"][0],
+                                    launches["spec_scatter_add"][0]):
+        fail("serve: dispatch='spec' launched a spec kernel")
+    forwards = 1 + SERVE["max_new"]
+    for name, (n, routes, bf16) in launches.items():
+        if n != forwards or bf16 != forwards or routes != {
+                "tensor": forwards, "staged": 0}:
+            fail(f"serve: {name} launched {n} times (by route {routes}, "
+                 f"bf16 entry {bf16}), want {forwards}: once per MoE "
+                 f"forward (1 prefill + {SERVE['max_new']} decode steps)")
+    if res_k != res_s:
+        fail(f"serve: spec-kernel tokens {res_k} != spec tokens {res_s}")
+    pk = [(w.moe_poison, w.moe_requests) for w in waves_k]
+    if pk != [(w.moe_poison, w.moe_requests) for w in waves_s]:
+        fail(f"serve: poison counts differ: {pk} vs "
+             f"{[(w.moe_poison, w.moe_requests) for w in waves_s]}")
+    if len(waves_k) != 1:
+        fail(f"serve: {len(waves_k)} waves, want 1")
+    wave = waves_k[0]
+    plen = int(lens.max())
+    cap_p = moe_capacity(SERVE["requests"] * plen, cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    cap_d = moe_capacity(SERVE["requests"], cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    stats = {
+        dispatch: {"wall_s": w[0].wall_s,
+                   "prefill_ms": t.prefill_s[0] * 1e3,
+                   "decode_ms_per_step": float(np.mean(t.decode_s)) * 1e3,
+                   "decode_steps": len(t.decode_s),
+                   "tok_s": w[0].tokens / w[0].wall_s}
+        for dispatch, w, t in (("spec-kernel", waves_k, timed_k),
+                               ("spec", waves_s, timed_s))}
+    for dispatch, st in stats.items():
+        print(f"[serve] dispatch={dispatch}: prefill {st['prefill_ms']:.2f} "
+              f"ms ({SERVE['requests']} x {plen} rows, capacity {cap_p}); "
+              f"decode {st['decode_ms_per_step']:.3f} ms a step "
+              f"({st['decode_steps']} steps, capacity {cap_d}); wave "
+              f"{st['wall_s'] * 1e3:.1f} ms, {wave.tokens} tokens, "
+              f"{st['tok_s']:.1f} tokens/s")
+    profile = _serve_profile(serve)
+    for phase, pr in profile.items():
+        if not pr["busy_ms"]:
+            fail(f"serve: the profiler saw no device work in {phase}")
+        print(f"[serve-profile] {phase} ({pr['calls']} calls, profiled): "
+              f"window {pr['window_ms']:.2f} ms, device busy "
+              f"{pr['busy_ms']:.2f} ms, idle {pr['idle_share']:.1%}; by "
+              f"kind " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                   pr["by_kind_ms"].items())
+              + " ms; top kernels " + "; ".join(
+                  f"{k} {v:.2f}" for k, v in pr["top_kernels_ms"].items())
+              + " ms")
+    print(f"[serve] same tokens for all {len(res_k)} requests and same "
+          f"poison under both dispatches: {wave.moe_poison} of "
+          f"{wave.moe_requests} dispatch requests poisoned "
+          f"({wave.moe_poison / wave.moe_requests:.4%}); launches "
+          f"{ {k: v[0] for k, v in launches.items()} } (all by the bf16 "
+          f"entry); peak device memory {peak / 1e9:.2f} GB; prompt lengths "
+          f"{sorted(int(n) for n in lens)}")
+
+    # the two bf16 entries at the path's shapes, against their plain
+    # versions, timed
+    t0 = time.perf_counter()
+    kgen = torch.Generator(device=dev).manual_seed(17)
+    shapes = {}
+    for tag, n_tok, cap in (("prefill", SERVE["requests"] * plen, cap_p),
+                            ("decode", SERVE["requests"], cap_d)):
+        idx, src, h = _moe_kernel_inputs(n_tok, cap, kgen, d=cfg.d_model,
+                                         n_experts=cfg.n_experts,
+                                         top_k=cfg.top_k)
+        zeros = torch.zeros_like(h)
+        shapes[tag] = {
+            "spec_scatter_add": _bf16_line("spec_scatter_add", idx, zeros,
+                                           src),
+            "spec_gather": _bf16_line("spec_gather", idx, h, None)}
+        del idx, src, h, zeros
+        torch.cuda.empty_cache()
+    # duplicates at the prefill shape: many requests into few rows
+    n = SERVE["requests"] * plen * cfg.top_k
+    rows = 4096
+    dup = torch.randint(-1, rows, (n,), generator=kgen, device=dev,
+                        dtype=torch.int32)
+    vals = torch.randn((n, cfg.d_model), generator=kgen,
+                       device=dev).bfloat16()
+    table = torch.randn((rows, cfg.d_model), generator=kgen,
+                        device=dev).bfloat16()
+    got = s(table.clone(), dup, vals).float()
+    want = ref.spec_scatter_add(table.float(), dup, vals.float())
+    bound = ref.bf16_sum_bound(table, dup, vals)
+    dup_err = (got - want).abs()
+    if not (dup_err <= bound).all():
+        fail("spec_scatter_add bf16 duplicates past bf16_sum_bound")
+    dup_err, dup_bound = dup_err.max().item(), bound.max().item()
+    del dup, vals, table, got, want, bound
+    for name in ("spec_gather", "spec_scatter_add"):
+        for tag, r in ((t, shapes[t][name]) for t in ("prefill", "decode")):
+            print(f"[serve-kernels] {name} bf16 {tag} n={r['n']} d={r['d']} "
+                  f"rows={r['rows']} live={r['n_live']}: bitwise equal to "
+                  f"the plain version; device {r['ms'] * 1e3:.2f} us "
+                  f"(CUDA-graph replay), plain {r['plain_ms'] * 1e3:.2f} us, "
+                  f"library {r['library_ms'] * 1e3:.2f} us "
+                  f"({'index_select' if name == 'spec_gather' else 'index_add_'}"
+                  f"); byte bound {r['bound_ms'] * 1e3:.2f} us "
+                  f"({r['bytes'] / 1e9:.3f} GB), "
+                  f"{r['bound_ms'] / r['ms']:.1%} of it")
+    print(f"[serve-kernels] spec_scatter_add bf16 duplicates n={n} into "
+          f"{rows} rows: max |got - float32 sum| {dup_err:.4g}, within "
+          f"bf16_sum_bound (max {dup_bound:.4g}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    records = []
+    for name, lib, replaces in (
+            ("spec_gather", "index_select",
+             "src/repro/kernels/spec_gather.py:114"),
+            ("spec_scatter_add", "index_add_",
+             "src/repro/kernels/spec_scatter.py:124")):
+        r = shapes["prefill"][name]
+        records.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{name.replace('_add', '')}.cu",
+            "replaces": replaces, "launches": launches[name][0],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "library": lib, "shape": {k: r[k] for k in ("n", "d", "rows",
+                                                        "n_live")},
+            "decode": shapes["decode"][name],
+            **({"duplicates_max_abs_err": dup_err,
+                "duplicates_max_bound": dup_bound}
+               if name == "spec_scatter_add" else {}),
+            "serve": {"stats": stats, "profile": profile,
+                      "moe_poison": wave.moe_poison,
+                      "moe_requests": wave.moe_requests,
+                      "peak_bytes": peak, "prompt_lens": lens.tolist()}})
+    del params, timed_k, timed_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
 
 def main() -> None:
     """Run every phase; print the result lines only if all passed."""
@@ -1240,6 +1726,7 @@ def main() -> None:
     line = phase_line(*phase_full())
     phase_kernels_dense()
     line["kernels"] += phase_api_full()
+    line["kernels"] += phase_serve_full()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(smi())

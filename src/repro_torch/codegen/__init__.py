@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.dispatch import resolve_device
 from ..resilience import faults
 from ..resilience.faults import FaultError
 from ..resilience.ladder import FailureEvent, Ladder
@@ -156,12 +157,7 @@ def _resolve_device(target: str, device) -> Optional[torch.device]:
         if device is not None:
             raise ValueError(f"target {target!r} takes no device")
         return None
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "torch target: no CUDA device is available (pass device='cpu' "
-            "to run the kernels' plain versions on the CPU)")
-    return dev
+    return resolve_device(device, "torch target")
 
 
 def run(compiled, memory: Dict[str, np.ndarray],

@@ -1,0 +1,11 @@
+"""Mistral-Nemo 12B — 128k ctx [hf:mistralai/Mistral-Nemo-Base-2407; hf].
+
+40L d_model=5120 32H (GQA kv=8) d_ff=14336 vocab=131072, head_dim=128.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-nemo-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=131072, head_dim=128, rope_theta=1e6,
+)

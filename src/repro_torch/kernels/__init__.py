@@ -2,7 +2,8 @@
 
 :mod:`repro_torch.kernels.ops` is the public API, the counterpart of
 ``repro.kernels.ops``: ``spec_gather`` and ``spec_scatter_add`` (the
-codegen path's speculative gather and scatter), ``ragged_matmul`` (the
+codegen path's speculative gather and scatter, and the MoE dispatch's
+buffer fill and combine), ``ragged_matmul`` (the
 grouped expert GEMM), ``flash_attention`` and ``paged_attention``.  Each
 launches its CUDA kernel (``csrc/*.cu``, built by
 :mod:`repro_torch.kernels.build`) on CUDA tensors and runs the plain

@@ -37,6 +37,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "spec_gather": {
         "spec_gather_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         "spec_gather_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        "spec_gather_bf16": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         # table, idx, out (mapped); rows, n; stream, device, wait
         "spec_gather_staged_i32": (_PTR,) * 3 + (_I64,) * 2 + (_PTR, _INT,
                                                                _INT),
@@ -52,6 +53,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "spec_scatter": {
         "spec_scatter_add_i32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
         "spec_scatter_add_f32": (_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR),
+        "spec_scatter_add_bf16": (_PTR, _PTR, _PTR, _I64, _I64, _I64,
+                                  _PTR),
         # table, idx, values (mapped); rows, n; stream, event, device
         "spec_scatter_add_staged_i32": (_PTR,) * 3 + (_I64,) * 2 + (
             _PTR, _PTR, _INT),

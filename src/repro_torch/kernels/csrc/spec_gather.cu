@@ -11,11 +11,18 @@
 // last row, as the reference oracle does; the TPU kernel clamped only
 // at 0.
 //
-// Two entries share these semantics.
+// Three kinds of entry share these semantics.
 //
 // * The tensor entries (`spec_gather_i32/f32`): device pointers, one
 //   thread per output element (i, c), grid-stride.  The kernel API
 //   (`repro_torch.kernels.ops`) calls them.
+// * The bf16 tensor entry (`spec_gather_bf16`): the MoE combine's gather
+//   (src/repro/models/moe.py, `_moe_spec_flat`), rows of d = 7168 bf16 at
+//   Kimi-K2's width.  One block per output row (grid-stride over rows):
+//   the block reads its index once and copies the row as raw bytes, 16 at
+//   a time where the row's byte width and both bases allow it, else 4 or
+//   2; a poisoned row is written as zeros with no load.  The copy is
+//   bitwise, so the gather is exact in any dtype of 2 bytes.
 // * The staged entry (`spec_gather_staged_i32`): the codegen drivers'
 //   epoch round trip on their int32 table of one-element rows.  Indices
 //   sit in a page-locked, mapped host slot and the rows go back into
@@ -29,7 +36,10 @@
 //   a warp costs one PCIe round trip, not one per element.
 //
 // Bound: the call moves about n * (4 + 8 d) bytes (index, row read, row
-// write).  On the codegen path d = 1 and n is at most a few thousand, so
+// write; n * (4 + 4 d) for bf16).  At the MoE prefill's 32768 requests of
+// 7168 bf16 that is 0.94 GB, 0.28 ms at 3.35 TB/s: the bf16 entry is
+// byte-bound, and its 16-byte copies by whole rows are what it does about
+// that.  On the codegen path d = 1 and n is at most a few thousand, so
 // the bytes take nanoseconds at 3.35 TB/s; the launch, the PCIe round
 // trip and the host's wait bound the call.
 //
@@ -106,6 +116,26 @@ __global__ void spec_gather_staged_kernel(const int32_t* __restrict__ table,
   }
 }
 
+// bf16: row i of `out` is row idx[i] of `table` (clipped), or zeros for a
+// poisoned idx[i]; rows are `w` words of type V (uint4, uint32_t or
+// uint16_t), the widest that the row's bytes and both bases divide.
+template <typename V>
+__global__ void spec_gather_rows_kernel(const V* __restrict__ table,
+                                        const int32_t* __restrict__ idx,
+                                        V* __restrict__ out, int64_t rows,
+                                        int64_t n, int64_t w) {
+  for (int64_t i = blockIdx.x; i < n; i += gridDim.x) {
+    const int64_t r = idx[i];
+    V* dst = out + i * w;
+    if (r < 0) {
+      for (int64_t c = threadIdx.x; c < w; c += blockDim.x) dst[c] = V{};
+    } else {
+      const V* src = table + (r < rows ? r : rows - 1) * w;
+      for (int64_t c = threadIdx.x; c < w; c += blockDim.x) dst[c] = src[c];
+    }
+  }
+}
+
 unsigned blocks_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   return unsigned(blocks > kMaxBlocks ? kMaxBlocks : blocks);
@@ -119,6 +149,30 @@ int launch(const void* table, const void* idx, void* out, int64_t rows,
       static_cast<const T*>(table), static_cast<const int32_t*>(idx),
       static_cast<T*>(out), rows, n, d);
   return int(cudaGetLastError());
+}
+
+template <typename V>
+int launch_rows(const void* table, const void* idx, void* out, int64_t rows,
+                int64_t n, int64_t row_bytes, void* stream) {
+  const unsigned blocks = unsigned(n < kMaxBlocks ? n : kMaxBlocks);
+  spec_gather_rows_kernel<V><<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(table), static_cast<const int32_t*>(idx),
+      static_cast<V*>(out), rows, n, row_bytes / int64_t(sizeof(V)));
+  return int(cudaGetLastError());
+}
+
+// The widest word that divides the row's bytes and both base addresses.
+int gather_rows(const void* table, const void* idx, void* out, int64_t rows,
+                int64_t n, int64_t row_bytes, void* stream) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(table) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (row_bytes % 16 == 0 && bases % 16 == 0)
+    return launch_rows<uint4>(table, idx, out, rows, n, row_bytes, stream);
+  if (row_bytes % 4 == 0 && bases % 4 == 0)
+    return launch_rows<uint32_t>(table, idx, out, rows, n, row_bytes,
+                                 stream);
+  return launch_rows<uint16_t>(table, idx, out, rows, n, row_bytes, stream);
 }
 
 int staged(const void* table, const void* idx, void* out, int64_t rows,
@@ -150,6 +204,12 @@ extern "C" int spec_gather_f32(const void* table, const void* idx, void* out,
                                long long rows, long long n, long long d,
                                void* stream) {
   return launch<float>(table, idx, out, rows, n, d, stream);
+}
+
+extern "C" int spec_gather_bf16(const void* table, const void* idx,
+                                void* out, long long rows, long long n,
+                                long long d, void* stream) {
+  return gather_rows(table, idx, out, rows, n, 2 * d, stream);
 }
 
 // `idx` and `out` are mapped host addresses (spec_staging_device_ptr);

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import torch
 
-#: element types the two speculative kernels are built for
-DTYPES = (torch.int32, torch.float32)
+#: element types the two speculative kernels' tensor route is built for
+#: (bfloat16 for the MoE dispatch; the staged route is int32 only)
+DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 #: element types the grouped-GEMM and attention kernels are built for
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -29,6 +30,17 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``device``, or ``cuda`` when None; raises when a CUDA device is
+    asked for and there is none, so an entry point never falls back to
+    the CPU unasked.  ``who`` names the entry point in the error."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device is available (pass "
+                           f"device='cpu' to run on the CPU)")
+    return dev
+
+
 def check_table_idx(table: torch.Tensor, idx: torch.Tensor) -> None:
     """Shape, dtype and layout checks common to both kernels."""
     if table.dim() != 2:
@@ -36,7 +48,7 @@ def check_table_idx(table: torch.Tensor, idx: torch.Tensor) -> None:
                          f"{tuple(table.shape)}")
     if table.dtype not in DTYPES:
         raise TypeError(f"table dtype {table.dtype} not supported "
-                        f"(int32 or float32)")
+                        f"(int32, float32 or bfloat16)")
     if idx.dim() != 1 or idx.dtype != torch.int32:
         raise TypeError(f"idx must be a 1-D int32 tensor, got "
                         f"{idx.dtype} {tuple(idx.shape)}")
@@ -60,8 +72,8 @@ def check_float(name: str, *tensors: torch.Tensor) -> None:
 
 
 def suffix(dtype: torch.dtype) -> str:
-    """The C entry's dtype suffix: ``f32`` or ``bf16``."""
-    return "bf16" if dtype == torch.bfloat16 else "f32"
+    """The C entry's dtype suffix: ``i32``, ``f32`` or ``bf16``."""
+    return {torch.int32: "i32", torch.bfloat16: "bf16"}.get(dtype, "f32")
 
 
 def aligned16(t: torch.Tensor) -> bool:

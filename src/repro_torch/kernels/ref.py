@@ -32,6 +32,28 @@ def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
                             accumulate=True)
 
 
+def bf16_sum_bound(table: torch.Tensor, idx: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on how far a bfloat16 scatter-add of ``values``
+    into ``table`` at ``idx`` may lie from the float32 sum, in float32.
+
+    Each add rounds its sum to bfloat16, a relative error of at most
+    ``2**-8``; a destination that receives ``k`` live requests rounds
+    ``k`` times, each time at most ``2**-8`` of ``|table| + sum |v|``.
+    The bound is ``(k + 1) * 2**-8 * (|table| + sum |v|)``: one rounding
+    more than the adds, for the float32 sum's own rounding.  A
+    destination that receives one request from a zero table is exact.
+    """
+    live = (idx >= 0)[:, None]
+    safe = _safe(idx, table.shape[0])
+    mag = torch.where(live, values.float().abs(), torch.zeros(()))
+    absum = table.float().abs().index_add(0, safe, mag)
+    hits = torch.zeros(table.shape[0], dtype=torch.float32,
+                       device=table.device).index_add(
+        0, safe, live[:, 0].float())
+    return (hits[:, None] + 1) * 2.0 ** -8 * absum
+
+
 def ragged_matmul(x: torch.Tensor, w: torch.Tensor,
                   capacity: int) -> torch.Tensor:
     """Grouped GEMM: row ``r`` of ``x`` (E*capacity, D), expert-contiguous,

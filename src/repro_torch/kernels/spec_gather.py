@@ -4,9 +4,11 @@ Replaces the Pallas TPU kernel ``_spec_gather`` of the JAX package's
 ``kernels/spec_gather.py``.  The CUDA source is ``csrc/spec_gather.cu``.
 Two routes, chosen by the caller's entry point, never by a switch:
 
-* ``"tensor"`` — :func:`spec_gather`, the kernel API: a device index
-  tensor in, a device tensor out; one thread per output element, a
-  poisoned row issues no load.
+* ``"tensor"`` — :func:`spec_gather`, the kernel API and the MoE
+  combine: a device index tensor in, a device tensor out.  int32 and
+  float32 take one thread per output element; bfloat16 (the MoE
+  dispatch's rows) one block per output row, copied in 16-byte words
+  where the row allows.  A poisoned row issues no load.
 * ``"staged"`` — :func:`spec_gather_staged`, the codegen drivers' epoch
   round trip on their int32 table of one-element rows: indices in a slot
   of a :class:`~repro_torch.kernels.staging.Ring`, values back in the
@@ -19,7 +21,9 @@ Per call the kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen
 path's epoch sizes (``d = 1``, at most a few thousand rows) that is
 nanoseconds at 3.35 TB/s, so launch latency and the round trip bound it.
 ``spec_gather.launches`` counts both routes' launches,
-``spec_gather.route_launches`` each route's.
+``spec_gather.route_launches`` each route's, and
+``spec_gather.entry_launches`` each C entry's (``spec_gather_bf16`` is
+the MoE path's).
 
 ``block_n`` / ``block_d`` were TPU tiling and are not taken here.
 """
@@ -33,7 +37,7 @@ import torch
 from ..resilience import faults
 from . import ref
 from .build import check, load
-from .dispatch import check_table_idx, on_cuda, stream_of
+from .dispatch import check_table_idx, on_cuda, stream_of, suffix
 from .staging import Slot, check_staged
 
 ROUTES = ("tensor", "staged")
@@ -42,7 +46,7 @@ ROUTES = ("tensor", "staged")
 def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather ``table[idx]`` with poisoned (negative) indices zeroed.
 
-    ``table`` is ``(rows, d)`` int32 or float32, ``idx`` is ``(n,)``
+    ``table`` is ``(rows, d)`` int32, float32 or bfloat16, ``idx`` is ``(n,)``
     int32; an index of at least ``rows`` clips to the last row.  On CUDA
     tensors the kernel launches (and ``spec_gather.launches`` counts it);
     on CPU tensors the plain version in :mod:`repro_torch.kernels.ref`
@@ -64,15 +68,15 @@ def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         n, d = idx.shape[0], table.shape[1]
         out = torch.empty((n, d), dtype=table.dtype, device=table.device)
         if n and d:
-            fn = (load("spec_gather").spec_gather_i32
-                  if table.dtype == torch.int32
-                  else load("spec_gather").spec_gather_f32)
+            entry = f"spec_gather_{suffix(table.dtype)}"
             with torch.cuda.device(table.device):
-                err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                         table.shape[0], n, d, stream_of(table))
+                err = getattr(load("spec_gather"), entry)(
+                    table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                    table.shape[0], n, d, stream_of(table))
             check(err, "spec_gather")
             spec_gather.launches += 1
             spec_gather.route_launches["tensor"] += 1
+            spec_gather.entry_launches[entry] += 1
     if faults.ACTIVE and faults.fire("kernels.gather.rows"):
         out[::2] += 1
     return out
@@ -111,6 +115,7 @@ def spec_gather_staged(table: torch.Tensor, slot: Slot,
         check(err, "spec_gather")
         spec_gather.launches += 1
         spec_gather.route_launches["staged"] += 1
+        spec_gather.entry_launches["spec_gather_staged_i32"] += 1
     if faults.ACTIVE and faults.fire("kernels.gather.rows"):
         out[::2] += 1
     return out
@@ -120,3 +125,7 @@ def spec_gather_staged(table: torch.Tensor, slot: Slot,
 spec_gather.launches = 0
 #: the same launches by route
 spec_gather.route_launches = dict.fromkeys(ROUTES, 0)
+#: the same launches by C entry
+spec_gather.entry_launches = dict.fromkeys(
+    ("spec_gather_i32", "spec_gather_f32", "spec_gather_bf16",
+     "spec_gather_staged_i32"), 0)

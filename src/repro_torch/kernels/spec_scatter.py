@@ -6,8 +6,11 @@ Replaces the Pallas TPU kernel ``_spec_scatter_add`` of the JAX package's
 request touches nothing.  Two routes, chosen by the caller's entry point,
 never by a switch:
 
-* ``"tensor"`` — :func:`spec_scatter_add`, the kernel API: device index
-  and value tensors, one thread per element.
+* ``"tensor"`` — :func:`spec_scatter_add`, the kernel API and the MoE
+  buffer fill: device index and value tensors.  int32 and float32 take
+  one thread per element; bfloat16 (the MoE dispatch's rows) one block
+  per request row, ``atomicAdd`` on ``__nv_bfloat162`` pairs where the
+  row width is even.
 * ``"staged"`` — :func:`spec_scatter_add_staged`, the codegen drivers'
   commit into their int32 table of one-element rows: indices and values
   in a slot of a :class:`~repro_torch.kernels.staging.Ring`.  On CUDA
@@ -18,12 +21,17 @@ never by a switch:
 Per call the kernel moves about ``n * (4 + 8 d)`` bytes; at the codegen
 path's epoch sizes launch latency bounds it.
 ``spec_scatter_add.launches`` counts both routes' launches,
-``spec_scatter_add.route_launches`` each route's.
+``spec_scatter_add.route_launches`` each route's, and
+``spec_scatter_add.entry_launches`` each C entry's
+(``spec_scatter_add_bf16`` is the MoE path's).
 
 int32 sums are exact in any order; float32 sums meet in an order that
 varies from run to run, so float results agree with the plain version
 to rounding only (the tests hold them to ``atol=1e-4``, the JAX
-package's float32 scatter tolerance).
+package's float32 scatter tolerance).  bfloat16 rounds at every add: a
+destination that receives one request is exact (``0 + v``, the MoE
+fill's unique slots), duplicates are held to the float32 sum within
+:func:`~repro_torch.kernels.ref.bf16_sum_bound`.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ import torch
 from ..resilience import faults
 from . import ref
 from .build import check, load
-from .dispatch import check_table_idx, on_cuda, stream_of
+from .dispatch import check_table_idx, on_cuda, stream_of, suffix
 from .staging import Slot, check_staged
 
 ROUTES = ("tensor", "staged")
@@ -73,15 +81,15 @@ def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
         return ref.spec_scatter_add(table, idx, values)
     n, d = idx.shape[0], table.shape[1]
     if n and d:
-        fn = (load("spec_scatter").spec_scatter_add_i32
-              if table.dtype == torch.int32
-              else load("spec_scatter").spec_scatter_add_f32)
+        entry = f"spec_scatter_add_{suffix(table.dtype)}"
         with torch.cuda.device(table.device):
-            err = fn(table.data_ptr(), idx.data_ptr(), values.data_ptr(),
-                     table.shape[0], n, d, stream_of(table))
+            err = getattr(load("spec_scatter"), entry)(
+                table.data_ptr(), idx.data_ptr(), values.data_ptr(),
+                table.shape[0], n, d, stream_of(table))
         check(err, "spec_scatter_add")
         spec_scatter_add.launches += 1
         spec_scatter_add.route_launches["tensor"] += 1
+        spec_scatter_add.entry_launches[entry] += 1
     return table
 
 
@@ -123,6 +131,7 @@ def spec_scatter_add_staged(table: torch.Tensor, slot: Slot,
         slot.launched()
         spec_scatter_add.launches += 1
         spec_scatter_add.route_launches["staged"] += 1
+        spec_scatter_add.entry_launches["spec_scatter_add_staged_i32"] += 1
     return table
 
 
@@ -130,3 +139,7 @@ def spec_scatter_add_staged(table: torch.Tensor, slot: Slot,
 spec_scatter_add.launches = 0
 #: the same launches by route
 spec_scatter_add.route_launches = dict.fromkeys(ROUTES, 0)
+#: the same launches by C entry
+spec_scatter_add.entry_launches = dict.fromkeys(
+    ("spec_scatter_add_i32", "spec_scatter_add_f32", "spec_scatter_add_bf16",
+     "spec_scatter_add_staged_i32"), 0)

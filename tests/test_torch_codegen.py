@@ -376,6 +376,10 @@ def test_import_boundary_no_jax_no_repro():
         "import repro_torch.kernels.spec_gather, "
         "repro_torch.kernels.spec_scatter, repro_torch.frontend\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.configs, repro_torch.models.model, "
+        "repro_torch.models.convert\n"
+        "import repro_torch.serve.engine, repro_torch.serve.traffic, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -429,3 +429,120 @@ def test_cuda_ops_reach_the_kernels(cuda):
     _close(got[0], ref.ragged_matmul(x, w, 24), torch.bfloat16, gemm=True)
     _close(got[1], ref.flash_attention(q, k, v), torch.float32)
     _close(got[2], ref.paged_attention(pq, kp, vp, pt, seq), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# bf16 spec kernels (the MoE dispatch) and the serving engine
+# ---------------------------------------------------------------------------
+
+
+def _bf16_on(dev, rng, *shape, offset=False):
+    """Seeded bf16 on the card; ``offset`` puts the base 2 bytes past a
+    16-byte boundary (the gather's narrower copies, the scatter's single
+    atomics)."""
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if not offset:
+        return a.to(dev).bfloat16()
+    buf = torch.empty(a.numel() + 1, dtype=torch.bfloat16, device=dev)
+    out = buf[1:].view(shape)
+    out.copy_(a)
+    return out
+
+
+#: (rows, d, n): d odd and even, n = 0, the MoE widths (7168, 64 requests
+#: into 384 x 8 slots at decode)
+BF16_CASES = [(1, 1, 1), (61, 7, 100), (384, 8, 37), (16, 128, 24),
+              (40, 33, 0), (3072, 7168, 64), (3000, 130, 4099)]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("rows,d,n", BF16_CASES)
+def test_cuda_bf16_gather_matches_plain_bitwise(cuda, rows, d, n, offset):
+    rng = np.random.default_rng(rows + d + n)
+    # -3..-1 poison, in range, and up to 4 past the last row (clip)
+    idx = torch.from_numpy(rng.integers(-3, rows + 4, n).astype(
+        np.int32)).to(cuda)
+    table = _bf16_on(cuda, rng, rows, d, offset=offset)
+    e0 = spec_gather.entry_launches["spec_gather_bf16"]
+    got = spec_gather(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.spec_gather(table, idx))
+    assert not got[idx < 0].any()  # poisoned rows are zeros
+    if n:
+        assert torch.equal(got[idx >= rows], table[-1].expand(
+            int((idx >= rows).sum()), d))  # past the table: the last row
+    assert spec_gather.entry_launches["spec_gather_bf16"] - e0 == int(n > 0)
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("rows,d,n", BF16_CASES)
+def test_cuda_bf16_scatter_matches_plain(cuda, rows, d, n, offset):
+    """Unique destinations into a zero table (the MoE fill) bitwise;
+    duplicates, poison and clipped indices within bf16_sum_bound of the
+    float32 sum."""
+    rng = np.random.default_rng(rows + d + n + 1)
+    vals = _bf16_on(cuda, rng, n, d, offset=offset)
+    uniq = torch.from_numpy(rng.permutation(max(rows, n))[:n].astype(
+        np.int32)).to(cuda)
+    uniq[::3] = -1
+    zero = torch.zeros((max(rows, n), d), dtype=torch.bfloat16, device=cuda)
+    e0 = spec_scatter_add.entry_launches["spec_scatter_add_bf16"]
+    got = spec_scatter_add(zero.clone(), uniq, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.spec_scatter_add(zero.clone(), uniq, vals))
+    assert spec_scatter_add.entry_launches["spec_scatter_add_bf16"] - e0 \
+        == int(n > 0)
+
+    idx = torch.from_numpy(rng.integers(-3, rows + 4, n).astype(
+        np.int32)).to(cuda)
+    table = _bf16_on(cuda, rng, rows, d, offset=offset)
+    want = ref.spec_scatter_add(table.float(), idx, vals.float())
+    bound = ref.bf16_sum_bound(table, idx, vals)
+    got = spec_scatter_add(table.clone(), idx, vals).float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= bound).all()
+
+
+def test_cuda_bf16_reaches_the_kernel_or_raises(cuda):
+    """A bf16 CUDA tensor goes to the bf16 entry; the staged route takes
+    no bf16 table."""
+    t = torch.zeros((8, 4), dtype=torch.bfloat16, device=cuda)
+    i = torch.tensor([1, -1, 9], dtype=torch.int32, device=cuda)
+    before = (spec_gather.route_launches["tensor"],
+              spec_gather.entry_launches["spec_gather_bf16"])
+    spec_gather(t, i)
+    assert (spec_gather.route_launches["tensor"],
+            spec_gather.entry_launches["spec_gather_bf16"]) == \
+        (before[0] + 1, before[1] + 1)
+    ring = Ring(cuda, slots=1)
+    with pytest.raises(TypeError):
+        spec_gather_staged(t[:, :1].contiguous(), ring.acquire(2), 2)
+    ring.drain()
+
+
+def test_cuda_engine_matches_cpu(cuda):
+    """One small float32 engine run on the card commits the tokens and
+    poison counts of the same run on the CPU, its MoE dispatch through the
+    float32 kernels."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import base
+    from repro_torch.serve.engine import Engine, Request
+    cfg = base.smoke(base.get("kimi_k2_1t_a32b"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 7, 4)]
+    params = Engine(cfg, slots=3, max_len=24, device="cpu").params
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, tree_map(lambda t: t.to(dev), params), slots=3,
+                     max_len=24, dispatch="spec-kernel", device=dev)
+        g0 = spec_gather.entry_launches["spec_gather_f32"]
+        res = eng.run([Request(rid=i, prompt=p, max_new=6)
+                       for i, p in enumerate(prompts)])
+        runs[dev] = (res, [(w.moe_poison, w.moe_requests)
+                           for w in eng.wave_stats],
+                     spec_gather.entry_launches["spec_gather_f32"] - g0)
+    assert runs["cuda"][:2] == runs["cpu"][:2]
+    assert runs["cpu"][2] == 0
+    # two waves: (1 prefill + 6 decode steps) x 2 moe layers each
+    assert runs["cuda"][2] == 2 * 7 * cfg.n_layers
