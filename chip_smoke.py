@@ -34,8 +34,18 @@ drawn on the card) serving 8 requests through
 ``repro_torch.serve.engine.Engine`` with ``dispatch="spec-kernel"``,
 checked to launch each bf16 entry once per MoE forward and to commit
 the tokens and poison counts of ``dispatch="spec"``, profiled for the
-device's busy and idle time, and the two bf16 entries held against
+device's busy and idle time, its router's top-k (a stable sort, so ties
+keep the reference's order) timed beside ``torch.topk``, and the two
+bf16 entries held against
 their plain versions at the prefill and decode shapes and timed.
+After the parity phase, the ``[sim]`` lines run the paper's evaluation
+path: each workload at its default size through
+``repro_torch.core.pipeline.run_all`` (STA, DAE, SPEC and ORACLE cycles
+of the model machine, not times on any chip), its SPEC pair through the
+card, whose final memory must equal the simulated SPEC variant's bit for
+bit; pagerank and join compiled cold and warm through the frontend's
+compile cache with ``verify=True``, the warm objects run on the card
+bitwise; and the soundness verifier's sweeps with mutants, in-process.
 Phases print as they finish; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -351,6 +361,155 @@ def phase_parity() -> None:
           f"launch counts equal to gather/scatter calls, all by the staged "
           f"route "
           f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _sim_against_card(card: str) -> None:
+    """Each workload at its ``build`` defaults through ``run_all`` (the
+    model machine's cycles) and its SPEC pair through the card."""
+    from repro_torch import codegen
+    from repro_torch.bench_irregular import ALL
+    from repro_torch.core import pipeline
+    for name in sorted(ALL):
+        case = ALL[name]()
+        t0 = time.perf_counter()
+        runs = pipeline.run_all(case.fn, case.decoupled, case.memory,
+                                params=case.params)
+        sim_s = time.perf_counter() - t0
+        ref = runs["ref"].memory
+        for v in ("sta", "dae", "spec"):
+            for k in ref:
+                if not np.array_equal(runs[v].memory[k], ref[k]):
+                    fail(f"[sim] {name}/{v}: array {k} differs from the "
+                         f"sequential interpreter")
+        spec = runs["spec"]
+        comp = spec.compiled
+        mem = {k: v.copy() for k, v in case.memory.items()}
+        _reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = codegen.run(comp, mem, case.params, target="torch",
+                        device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        g, s = _launches()
+        for k in spec.memory:
+            if not (mem[k].dtype == spec.memory[k].dtype
+                    and np.array_equal(mem[k], spec.memory[k])):
+                fail(f"[sim] {name}: the card's array {k} differs from the "
+                     f"simulated spec variant's")
+        if r.target_used != "torch" or r.fell_back:
+            fail(f"[sim] {name}: the card run fell back "
+                 f"({r.fallback_reason})")
+        want = (r.stats.get("gather_calls", 0), r.stats.get("scatter_calls", 0))
+        if (g, s) != want or not g:
+            fail(f"[sim] {name}: launches {(g, s)} != calls {want}")
+        _only_staged(f"[sim] {name}", g, s)
+        cyc = {v: runs[v].cycles for v in ("sta", "dae", "spec", "oracle")}
+        print(f"[sim] {name}: model-machine cycles sta {cyc['sta']} dae "
+              f"{cyc['dae']} spec {cyc['spec']} oracle {cyc['oracle']}, "
+              f"spec/sta speedup {cyc['sta'] / cyc['spec']:.2f}, misspec "
+              f"{spec.result.misspec_rate:.3f}, poison blocks "
+              f"{comp.poison_stats.poison_blocks} calls "
+              f"{comp.poison_stats.poison_calls}; simulator {sim_s:.3f} s "
+              f"host; card run {wall_ms:.1f} ms wall, {g} gathers + {s} "
+              f"scatters, {r.cu_mode}, memory = simulated spec bitwise "
+              f"({card})")
+
+
+def _cache_on_card(card: str) -> None:
+    """pagerank and join through the frontend's compile cache: one cold
+    and one warm compile each, the warm object run on the card."""
+    import shutil
+    import tempfile
+    from repro_torch import codegen
+    from repro_torch.bench_irregular import ALL, join, pagerank
+    from repro_torch.core import interp
+    from repro_torch.frontend import CompileCache
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="compile_cache.",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        cc = CompileCache(root)
+        for name, factory in (("pagerank", pagerank.program),
+                              ("join", join.program)):
+            case = ALL[name]()
+            ms = {}
+            for want in ("cold", "warm"):
+                t0 = time.perf_counter()
+                comp = factory().compile(case.decoupled, cache=cc,
+                                         verify=True)
+                ms[want] = (time.perf_counter() - t0) * 1e3
+                if comp.cache_stats["outcome"] != want:
+                    fail(f"[sim] cache {name}: outcome "
+                         f"{comp.cache_stats['outcome']}, want {want}")
+            ref = {k: v.copy() for k, v in case.memory.items()}
+            interp.run(case.fn, ref, case.params)
+            for cu_mode in ("vector", "state-machine"):
+                mem = {k: v.copy() for k, v in case.memory.items()}
+                _reset()
+                r = codegen.run(comp, mem, case.params, target="torch",
+                                device="cuda", cu_mode=cu_mode)
+                torch.cuda.synchronize()
+                g, s = _launches()
+                if r.cache["outcome"] != "warm" or r.cu_mode != cu_mode:
+                    fail(f"[sim] cache {name}/{cu_mode}: {r.cache} "
+                         f"{r.cu_mode}")
+                if not g:
+                    fail(f"[sim] cache {name}/{cu_mode}: no launch")
+                _only_staged(f"[sim] cache {name}/{cu_mode}", g, s)
+                for k in ref:
+                    if not np.array_equal(ref[k], mem[k]):
+                        fail(f"[sim] cache {name}/{cu_mode}: array {k} "
+                             f"differs from the interpreter")
+            print(f"[sim] cache {name}: cold compile {ms['cold']:.2f} ms, "
+                  f"warm {ms['warm']:.2f} ms (host, verify=True); warm "
+                  f"object bitwise on the card, vector and state-machine "
+                  f"({card})")
+        if (cc.misses, cc.hits, cc.stale) != (2, 2, 0):
+            fail(f"[sim] cache: misses/hits/stale {cc.misses}/{cc.hits}/"
+                 f"{cc.stale}, want 2/2/0")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _verifier() -> None:
+    """``python -m repro_torch.verify``'s sweeps, in-process."""
+    import contextlib
+    import io
+    from repro_torch.verify.__main__ import main as verify_main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = verify_main(["--all", "--mutants", "--randprog", "8",
+                          "--negative", "4"])
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    if rc != 0:
+        fail("[sim] verifier: " + " | ".join(lines[-8:]))
+    clean = sum(line.startswith("ok   workload/") for line in lines)
+    mutants = caught = 0
+    for line in lines:
+        parts = line.split()
+        if len(parts) == 4 and parts[1] == "mutants,":
+            mutants += int(parts[0])
+            caught += int(parts[2])
+    if clean != 11 or caught != mutants or not mutants:
+        fail(f"[sim] verifier: {clean} clean workloads, {caught} of "
+             f"{mutants} mutants caught")
+    print(f"[sim] verifier: exit 0, {clean} workloads clean, {caught} of "
+          f"{mutants} mutants caught, {lines[-3].strip()}; "
+          f"{lines[-2].strip()}; {lines[-1].strip()} ({secs:.2f} s host)")
+
+
+def phase_sim() -> None:
+    """The paper's evaluation path on the port: the cycle simulator
+    against the card, the compile cache, the soundness verifier."""
+    t0 = time.perf_counter()
+    card = smi()
+    _sim_against_card(card)
+    _cache_on_card(card)
+    _verifier()
+    print(f"[sim] phase {time.perf_counter() - t0:.1f} s")
 
 
 #: hist epochs whose kernel inputs the census records for the [epoch] A/B
@@ -1499,6 +1658,22 @@ def _bf16_line(name, idx, table, values):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
+def _router_topk_line(n_tok: int, n_experts: int, top_k: int) -> None:
+    """The router's top-k at the prefill shape: the stable descending
+    sort ``_route`` takes (ties in ``jax.lax.top_k``'s order) beside the
+    ``torch.topk`` it replaced, device time by graph replay."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    logits = torch.randn(n_tok, n_experts, device="cuda", generator=gen)
+    probs = torch.softmax(logits.bfloat16().float(), dim=-1)
+    sort_ms = device_ms(lambda: torch.sort(probs, dim=-1, descending=True,
+                                           stable=True))
+    topk_ms = device_ms(lambda: torch.topk(probs, top_k, dim=-1,
+                                           sorted=True))
+    print(f"[serve] router top-{top_k} of ({n_tok}, {n_experts}) float32: "
+          f"stable sort {sort_ms * 1e3:.2f} us, torch.topk "
+          f"{topk_ms * 1e3:.2f} us (device, graph replay; {smi()})")
+
+
 def phase_serve_full() -> list:
     """The serving path at Kimi-K2's full width, one layer group: the
     engine serves the same requests through dispatch="spec-kernel" (the
@@ -1634,6 +1809,8 @@ def phase_serve_full() -> list:
           f"{ {k: v[0] for k, v in launches.items()} } (all by the bf16 "
           f"entry); peak device memory {peak / 1e9:.2f} GB; prompt lengths "
           f"{sorted(int(n) for n in lens)}")
+    for n_tok in (SERVE["requests"] * plen, SERVE["slots"]):
+        _router_topk_line(n_tok, cfg.n_experts, cfg.top_k)
 
     # the two bf16 entries at the path's shapes, against their plain
     # versions, timed
@@ -1723,6 +1900,7 @@ def main() -> None:
     phase_build()
     phase_kernels()
     phase_parity()
+    phase_sim()
     line = phase_line(*phase_full())
     phase_kernels_dense()
     line["kernels"] += phase_api_full()

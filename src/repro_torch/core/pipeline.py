@@ -14,13 +14,17 @@ Mirrors the paper's §8.1.1 baselines:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Set
+from typing import Any, Dict, Optional, Set, Tuple
+
+import numpy as np
 
 from . import decouple as dec
 from . import lod as lod_mod
+from . import machine
 from . import poison as poison_mod
 from . import speculation as spec_mod
 from .cfg import CFGInfo
+from .interp import run as interp_run
 from .ir import Function
 
 
@@ -34,7 +38,7 @@ class CompiledDAE:
     #: arrays served by a DU/LSQ (recorded so executable backends need not
     #: re-derive the set from the slices)
     decoupled: Set[str] = None  # type: ignore[assignment]
-    #: populated by the frontend compile cache (repro.frontend.cache):
+    #: populated by the frontend compile cache (repro_torch.frontend.cache):
     #: {"outcome": "cold"|"warm"|"stale", "key": ..., counters...}
     cache_stats: Optional[Dict[str, Any]] = None
 
@@ -117,3 +121,50 @@ def _reachable_requests(fn: Function, cfg: CFGInfo, start: str,
                 seen.add(s)
                 stack.append(s)
     return n
+
+
+# ---------------------------------------------------------------------------
+# Running
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class VariantRun:
+    name: str
+    cycles: int
+    memory: Dict[str, np.ndarray]
+    result: Any = None
+
+
+def run_all(fn: Function, decoupled: Set[str],
+            memory: Dict[str, np.ndarray],
+            params: Optional[Dict[str, Any]] = None,
+            cfg: Optional[machine.MachineConfig] = None,
+            variants: Tuple[str, ...] = ("ref", "sta", "dae", "spec",
+                                         "oracle"),
+            ) -> Dict[str, VariantRun]:
+    """Compile and simulate the requested variants on copies of ``memory``."""
+    cfg = cfg or machine.MachineConfig()
+    out: Dict[str, VariantRun] = {}
+
+    if "ref" in variants:  # the oracle-of-oracles: pure interpreter
+        mem = {k: v.copy() for k, v in memory.items()}
+        tr = interp_run(fn, mem, params)
+        out["ref"] = VariantRun("ref", tr.instr_count, mem, tr)
+
+    if "sta" in variants:
+        mem = {k: v.copy() for k, v in memory.items()}
+        r = machine.run_sta(fn, mem, params, cfg)
+        out["sta"] = VariantRun("sta", r.cycles, mem, r)
+
+    for name in ("dae", "spec", "oracle"):
+        if name not in variants:
+            continue
+        comp = {"dae": compile_dae, "spec": compile_spec,
+                "oracle": compile_oracle}[name](fn, decoupled)
+        mem = {k: v.copy() for k, v in memory.items()}
+        r = machine.run_dae(comp.agu, comp.cu, mem, decoupled, params, cfg)
+        run = VariantRun(name, r.cycles, mem, r)
+        run.compiled = comp  # type: ignore[attr-defined]
+        out[name] = run
+    return out

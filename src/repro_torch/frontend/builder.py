@@ -133,11 +133,13 @@ class Program:
         return _CondCtx(self, pred, then, join)
 
     # -- lowering ------------------------------------------------------------
-    def build(self) -> Function:
+    def build(self, verify: bool = False) -> Function:
         """Replay the recording through LoopNest; memoised.
 
-        The reference's ``verify=True`` pass (the standalone verifier) is
-        not part of this package yet.
+        ``verify=True`` additionally runs the source-level
+        :func:`repro_torch.verify.verify_function` pass (IR
+        well-formedness, reducible CFG) on the lowered nest and raises
+        :class:`repro_torch.verify.VerifyError` on any finding.
         """
         if self._fn is None:
             if len(self._seq) != 1:
@@ -149,6 +151,11 @@ class Program:
             self._lower_seq(self._top, nest, nest.entry, "exit")
             nest.finish()
             self._fn = f
+        if verify:
+            from .. import verify as verify_mod
+            diags = verify_mod.verify_function(self._fn)
+            if diags:
+                raise verify_mod.VerifyError(diags)
         return self._fn
 
     def _lower_seq(self, stmts: List[tuple], nest: LoopNest,
@@ -249,22 +256,42 @@ class Program:
                      self.params, enc(self._top)))
 
     # -- compilation ---------------------------------------------------------
-    def compile(self, decoupled: Set[str], mode: str = "spec"
-                ) -> CompiledDAE:
+    def compile(self, decoupled: Set[str], mode: str = "spec",
+                cache: Any = None, verify: bool = False) -> CompiledDAE:
         """Lower and compile to a :class:`CompiledDAE`.
 
         ``mode`` is ``"spec"`` (decouple + speculate + poison, the
         paper's contribution), ``"dae"`` (plain decoupling) or
-        ``"oracle"``.  The reference's persistent compile cache and its
-        ``verify=True`` soundness pass are not part of this package yet:
-        every call compiles afresh.
+        ``"oracle"``.  ``cache``: a
+        :class:`repro_torch.frontend.cache.CompileCache`, ``None`` for the
+        ambient default (persistent iff ``DAE_CACHE_DIR`` is set), or
+        ``False`` to force cache-off.
+
+        ``verify=True`` runs the standalone soundness verifier
+        (:func:`repro_torch.verify.verify_compiled`) on the compiled pair
+        and raises :class:`repro_torch.verify.VerifyError` on any
+        soundness finding.  Cached compiles store the verdict in the
+        payload (keyed on the rule-registry version), so warm hits replay
+        it without re-running the pass.
         """
         comps = {"spec": compile_spec, "dae": compile_dae,
                  "oracle": compile_oracle}
         if mode not in comps:
             raise FrontendError(f"unknown mode {mode!r} "
                                 f"(expected one of {sorted(comps)})")
-        return comps[mode](self.build(), set(decoupled))
+        from .cache import resolve_cache
+        cc = resolve_cache(cache)
+        fn = self.build()
+        if cc is None:
+            comp = comps[mode](fn, set(decoupled))
+            if verify:
+                from .. import verify as verify_mod
+                bad = verify_mod.soundness(verify_mod.verify_compiled(comp))
+                if bad:
+                    raise verify_mod.VerifyError(bad)
+            return comp
+        return cc.compile(self, fn, set(decoupled), mode, comps[mode],
+                          verify=verify)
 
 
 class _LoopCtx:

@@ -14,6 +14,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .model import CROSS_ITEM
+
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy
@@ -33,8 +35,8 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     """The port's parameters from the reference's numpy parameter tree,
     on ``device``; values and dtypes unchanged."""
     if "enc_groups" in tree:
-        raise NotImplementedError("the enc-dec encoder is not ported yet: "
-                                  "ROADMAP §1 item 2")
+        raise NotImplementedError(
+            f"the enc-dec encoder is not ported yet: {CROSS_ITEM}")
     out = {k: _tree(v, device) for k, v in tree.items() if k != "groups"}
     stacked = tree["groups"]
     n_groups = len(np.asarray(next(iter(next(iter(

@@ -37,14 +37,18 @@ from . import moe as moe_mod
 #: 5.6e9 elements each) are drawn in slices of at most this many
 INIT_SLICE = 1 << 25
 
+#: ROADMAP.md §1 items, by title, that bring the missing families
+SSM_ITEM = "ROADMAP §1, 'RWKV-6 and Mamba: the ssm and hybrid families'"
+CROSS_ITEM = ("ROADMAP §1, 'Cross-attention and enc-dec: the vlm and "
+              "encdec families'")
+
 _MISSING = {
-    "rwkv": "RWKV-6 sublayers (repro.models.ssm) are not ported yet: "
-            "ROADMAP §1 item 1",
-    "mamba": "Mamba sublayers (repro.models.ssm) are not ported yet: "
-             "ROADMAP §1 item 1",
-    "cross": "cross-attention sublayers are not ported yet: ROADMAP §1 "
-             "item 2",
-    "encoder": "the enc-dec encoder is not ported yet: ROADMAP §1 item 2",
+    "rwkv": f"RWKV-6 sublayers (repro.models.ssm) are not ported yet: "
+            f"{SSM_ITEM}",
+    "mamba": f"Mamba sublayers (repro.models.ssm) are not ported yet: "
+             f"{SSM_ITEM}",
+    "cross": f"cross-attention sublayers are not ported yet: {CROSS_ITEM}",
+    "encoder": f"the enc-dec encoder is not ported yet: {CROSS_ITEM}",
 }
 
 

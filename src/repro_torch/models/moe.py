@@ -74,11 +74,13 @@ def spec_dispatch_indices(gates: torch.Tensor, experts: torch.Tensor,
 
 
 def _route(params: Dict, x: torch.Tensor, top_k: int):
-    """Router probabilities (float32) and their top-k, descending."""
+    """Router probabilities (float32) and their top-k, descending, the
+    lower expert first among equal probabilities (``jax.lax.top_k``'s
+    order, which ``torch.topk`` does not promise)."""
     logits = x @ params["router"]
     probs = torch.softmax(logits.float(), dim=-1)
-    gates, experts = torch.topk(probs, top_k, dim=-1, sorted=True)
-    return probs, gates, experts
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, gates[..., :top_k], experts[..., :top_k]
 
 
 def _shared(params: Dict, x: torch.Tensor, out: torch.Tensor):

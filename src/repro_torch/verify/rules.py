@@ -1,4 +1,4 @@
-"""Stable rule registry and structured diagnostic type for ``repro.verify``.
+"""Stable rule registry and structured diagnostic type for ``repro_torch.verify``.
 
 Every finding the verifier (or the codegen classifier, via the tagging
 helpers below) can produce is a :class:`Diag` carrying a *rule ID* from
@@ -25,7 +25,7 @@ import re
 from dataclasses import dataclass
 
 #: bumped whenever rule semantics change — cached verdicts keyed on an
-#: older version are stale (see ``repro.frontend.cache``)
+#: older version are stale (see ``repro_torch.frontend.cache``)
 REGISTRY_VERSION = 1
 
 #: rule ID -> one-line precondition it checks (the human contract;

@@ -380,6 +380,9 @@ def test_import_boundary_no_jax_no_repro():
         "repro_torch.models.convert\n"
         "import repro_torch.serve.engine, repro_torch.serve.traffic, "
         "repro_torch.launch.serve\n"
+        "import repro_torch.core.machine, repro_torch.core.sim, "
+        "repro_torch.verify, repro_torch.verify.__main__, "
+        "repro_torch.frontend.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

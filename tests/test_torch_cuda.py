@@ -546,3 +546,62 @@ def test_cuda_engine_matches_cpu(cuda):
     assert runs["cpu"][2] == 0
     # two waves: (1 prefill + 6 decode steps) x 2 moe layers each
     assert runs["cuda"][2] == 2 * 7 * cfg.n_layers
+
+
+@pytest.mark.parametrize("case", ["zero", "bf16-integer", "bf16-normal"])
+def test_cuda_route_ties_match_stable_argsort(cuda, case):
+    """The router's top-k on the card puts the lower expert first among
+    equal probabilities: its experts equal a numpy stable argsort of the
+    card's own probabilities, at Kimi-K2's router width (d_model 7168,
+    384 experts, top-8) where bf16 logits tie often."""
+    from repro_torch.models import moe
+    d, e, k = 7168, 384, 8
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    if case == "zero":
+        x = torch.randn(4096, 64, generator=gen)
+        router = torch.zeros(64, e)
+    elif case == "bf16-integer":
+        x = torch.randint(-3, 4, (1024, d), generator=gen).bfloat16()
+        router = (torch.randint(-4, 5, (d, e), generator=gen) / 256
+                  ).bfloat16()
+    else:
+        x = torch.randn(4096, d, generator=gen).bfloat16()
+        router = (torch.randn(d, e, generator=gen) * 0.02).bfloat16()
+    probs, gates, experts = moe._route({"router": router.to(cuda)},
+                                       x.to(cuda), k)
+    assert probs.is_cuda and experts.is_cuda
+    p = probs.cpu().numpy()
+    want = np.argsort(-p, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(experts.cpu().numpy(), want)
+    np.testing.assert_array_equal(gates.cpu().numpy(),
+                                  np.take_along_axis(p, want, axis=1))
+    top = -np.sort(-p, axis=1)[:, :k + 1]
+    assert (np.diff(top, axis=1) == 0).any(axis=1).sum() > 0
+    if case == "zero":
+        assert (want == np.arange(k)).all()
+
+
+def test_cuda_warm_cached_compile_runs_bitwise(cuda, tmp_path):
+    """A warm compile-cache object runs on the card bitwise equal to the
+    sequential interpreter, through the staged kernels."""
+    from repro_torch.bench_irregular import join
+    from repro_torch.core import interp
+    from repro_torch.frontend import CompileCache
+    cc = CompileCache(str(tmp_path))
+    case = ALL["join"]()
+    assert join.program().compile(case.decoupled, cache=cc, verify=True
+                                  ).cache_stats["outcome"] == "cold"
+    warm = join.program().compile(case.decoupled, cache=cc, verify=True)
+    assert warm.cache_stats["outcome"] == "warm"
+    want = {k: v.copy() for k, v in case.memory.items()}
+    interp.run(case.fn, want, case.params)
+    for cu_mode in ("vector", "state-machine"):
+        mem = {k: v.copy() for k, v in case.memory.items()}
+        g0 = spec_gather.launches
+        r = codegen.run(warm, mem, case.params, target="torch",
+                        device=cuda, cu_mode=cu_mode)
+        torch.cuda.synchronize()
+        assert r.cache["outcome"] == "warm" and r.cu_mode == cu_mode
+        assert spec_gather.launches > g0
+        for k in want:
+            assert np.array_equal(mem[k], want[k]), (cu_mode, k)

@@ -7,6 +7,9 @@ against the JAX reference, on the CPU.
 * MoE (flat path): slot assignment and gates bitwise, ``kernel`` on and
   off bitwise within the port, outputs against the reference at
   ``atol = rtol = 1e-4``, poison counts equal;
+* router ties: with a zero router and with a bf16 router at Kimi-K2's
+  width, expert order, slots and poison counts bitwise equal to
+  ``jax.lax.top_k``'s (the lower expert first among equal gates);
 * the model: prefill and decode logits at ``atol = rtol = 1e-4`` and poison
   counts equal, on the reference's own parameters (``params_from_numpy``),
   for the Kimi-K2 (moe) and Granite-34B (dense) smoke configs, float32.
@@ -276,6 +279,125 @@ def test_moe_kernel_path_launches_nothing_on_cpu(moe_case):
 
 
 # ---------------------------------------------------------------------------
+# router ties: the lower expert first, as jax.lax.top_k
+# ---------------------------------------------------------------------------
+
+#: Kimi-K2's router: d_model 7168, 384 experts, top-8
+KIMI_D, KIMI_E, KIMI_K = 7168, 384, 8
+
+
+def _ref_route(router, x, top_k):
+    """The reference's routing (``_moe_spec_flat``'s first lines)."""
+    logits = jnp.einsum("nd,de->ne", x, router)
+    probs = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
+    gates, experts = jax.lax.top_k(probs, top_k)
+    return np.asarray(logits), np.asarray(gates), np.asarray(experts)
+
+
+#: softmax's float32 rounding differs between the packages by an ulp
+GATE_TOL = dict(rtol=1e-6, atol=0)
+
+
+def _assert_route_matches(router, x, top_k, n_experts, cf):
+    """Expert order, slots and poison count bitwise; gates at
+    ``GATE_TOL``."""
+    _, rgates, rexperts = _ref_route(router, x, top_k)
+    tr = _t(router) if router.dtype == np.float32 else _bf16(router)
+    tx = _t(x) if x.dtype == np.float32 else _bf16(x)
+    _, gates, experts = moe._route({"router": tr}, tx, top_k)
+    np.testing.assert_array_equal(experts.numpy(), rexperts)
+    np.testing.assert_allclose(gates.numpy(), rgates, **GATE_TOL)
+    cap = moe.round_capacity(x.shape[0], n_experts, top_k, cf)
+    slot, g = moe.spec_dispatch_indices(gates, experts, cap, n_experts)
+    rslot, rg = rmoe.spec_dispatch_indices(rgates, rexperts, cap, n_experts)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(rslot))
+    np.testing.assert_allclose(g.numpy(), np.asarray(rg), **GATE_TOL)
+    return int((slot < 0).sum())
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def test_route_zero_router_takes_lowest_experts():
+    """Every probability equal: the reference picks experts 0..k-1 in
+    order on every row, and so must the port (torch.topk need not)."""
+    x = _randn(_rng(6), 96, 64)
+    router = np.zeros((64, KIMI_E), np.float32)
+    n_poison = _assert_route_matches(router, x, KIMI_K, KIMI_E, 1.25)
+    _, _, experts = moe._route({"router": _t(router)}, _t(x), KIMI_K)
+    assert (experts.numpy() == np.arange(KIMI_K)).all()
+    # 96 rows all on experts 0..7 at capacity 8: most requests poisoned
+    assert n_poison == 96 * KIMI_K - KIMI_K * 8
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_spec_zero_router_matches_reference(moe_case, cf):
+    """The smoke MoE with its router zeroed (every gate tied): outputs at
+    1e-4, poison counts bitwise, kernel on and off alike."""
+    p, x = moe_case
+    p = dict(p, router=np.zeros_like(p["router"]))
+    tp = {k: _t(v) for k, v in p.items()}
+    kw = dict(n_experts=CFG.n_experts, top_k=CFG.top_k, capacity_factor=cf)
+    n_poison = _assert_route_matches(p["router"], x, CFG.top_k,
+                                     CFG.n_experts, cf)
+    want, n_want = rmoe._moe_spec_flat(p, x, stats=True, **kw)
+    for kernel in (False, True):
+        got, n_got = moe.moe_spec(tp, _t(x), kernel=kernel, stats=True, **kw)
+        assert int(n_got) == int(n_want) == n_poison > 0
+        _close(got, want)
+
+
+@pytest.fixture(scope="module")
+def kimi_bf16_router():
+    """A bf16 router at Kimi-K2's width where ties are common: x in
+    {-3..3} and router weights in {-4..4}/256, so every product is a
+    multiple of 2**-8 and every float32 partial sum is exact; both
+    packages then round the same sum to the same bf16 logit whatever
+    their summation order, and the test holds the tie order alone."""
+    import ml_dtypes
+    rng = _rng(7)
+    x = rng.integers(-3, 4, (256, KIMI_D)).astype(ml_dtypes.bfloat16)
+    router = (rng.integers(-4, 5, (KIMI_D, KIMI_E)) / 256).astype(
+        ml_dtypes.bfloat16)
+    return router, x
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_route_bf16_kimi_width_ties_match_reference(kimi_bf16_router, cf):
+    router, x = kimi_bf16_router
+    logits, _, _ = _ref_route(router, x, KIMI_K)
+    tlogits = (_bf16(x) @ _bf16(router)).float().numpy()
+    np.testing.assert_array_equal(tlogits, logits.astype(np.float32))
+    # ties inside the top-k are common at this width: the test has teeth
+    top = -np.sort(-logits.astype(np.float32), axis=1)[:, :KIMI_K]
+    assert (np.diff(top, axis=1) == 0).any(axis=1).sum() > 64
+    n_poison = _assert_route_matches(router, x, KIMI_K, KIMI_E, cf)
+    assert n_poison > 0
+
+
+def test_moe_spec_bf16_kimi_width_poison_matches_reference(kimi_bf16_router):
+    """moe_spec on the tied bf16 router, with narrow experts (d_ff 8):
+    the poison count equals the reference's, kernel on and off."""
+    router, x = kimi_bf16_router
+    import ml_dtypes
+    rng = _rng(8)
+    w = {k: (rng.standard_normal(s) * 0.02).astype(ml_dtypes.bfloat16)
+         for k, s in (("w_gate", (KIMI_E, KIMI_D, 8)),
+                      ("w_up", (KIMI_E, KIMI_D, 8)),
+                      ("w_down", (KIMI_E, 8, KIMI_D)))}
+    p = dict(w, router=router)
+    kw = dict(n_experts=KIMI_E, top_k=KIMI_K, capacity_factor=0.5)
+    _, n_want = rmoe._moe_spec_flat(p, x, stats=True, **kw)
+    tp = {k: _bf16(v) for k, v in p.items()}
+    for kernel in (False, True):
+        _, n_got = moe.moe_spec(tp, _bf16(x), kernel=kernel, stats=True,
+                                **kw)
+        assert int(n_got) == int(n_want) > 0
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
@@ -410,3 +532,17 @@ def test_unported_families_raise(name):
         m.init(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.init_cache(1, 8)
+
+
+def test_unported_messages_name_roadmap_items_that_exist():
+    """The messages name ROADMAP items by title, and each title is one."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ROADMAP.md")
+    with open(path, encoding="utf-8") as fh:
+        roadmap = fh.read()
+    for item in (tmodel.SSM_ITEM, tmodel.CROSS_ITEM):
+        title = item.split("'")[1]
+        assert f"**{title}.**" in roadmap, title
+    for msg in tmodel._MISSING.values():
+        assert "item 1" not in msg and "item 2" not in msg
