@@ -46,6 +46,19 @@ card, whose final memory must equal the simulated SPEC variant's bit for
 bit; pagerank and join compiled cold and warm through the frontend's
 compile cache with ``verify=True``, the warm objects run on the card
 bitwise; and the soundness verifier's sweeps with mutants, in-process.
+The model families of the seventh slice follow the serving phase, each
+first held card against CPU on its float32 smoke config (the same
+tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
+and depth through the engine (no spec kernel may launch) and profiles
+the wave with the recurrences' kernels apart; ``[hybrid]`` serves one
+Jamba-1.5-large group at full width (7 Mamba + 1 attention sublayers,
+its four MoE sublayers sharing one expert set to fit the card) through
+``dispatch="spec-kernel"`` and ``"spec"``, which must commit the same
+tokens and poison counts with 68 launches of each bf16 entry, profiles
+it and holds the bf16 entries to their plain versions at its shapes;
+``[cross]`` runs Llama-3.2-Vision-90B (one layer group) and
+Whisper-medium (whole) through ``Model.prefill`` / ``decode_step`` with
+seeded stub memory, 16 greedy steps, timed and profiled.
 Phases print as they finish; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -55,6 +68,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -1409,6 +1423,35 @@ SERVE = dict(requests=8, prompt=(128, 512), max_new=16, slots=8,
              max_len=544, seed=15)
 
 
+def _serve_prompts(vocab: int):
+    """The serving traffic's prompt lengths and seeded prompts."""
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    lens = rng.integers(lo, hi + 1, SERVE["requests"])
+    lens[int(np.argmax(lens))] = hi
+    return lens, [rng.integers(1, vocab, int(n)).astype(np.int32)
+                  for n in lens]
+
+
+def _serve(cfg, params, prompts, dispatch):
+    """One wave of ``prompts`` through the engine on the card, every model
+    call timed; fails on a failed, truncated or malformed request."""
+    from repro_torch.serve.engine import Engine, Request
+    eng = Engine(cfg, params, slots=SERVE["slots"], max_len=SERVE["max_len"],
+                 dispatch=dispatch, device=params["embed"].device)
+    eng.model = timed = _TimedModel(eng.model)
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE["max_new"])
+            for i, p in enumerate(prompts)]
+    res = eng.run(reqs)
+    if any(r.failed or r.truncated for r in reqs) or eng.events:
+        fail(f"serve {cfg.name} {dispatch}: events {eng.events}")
+    if sorted(res) != list(range(len(prompts))) or any(
+            len(v) != SERVE["max_new"] or not all(
+                0 <= t < cfg.vocab for t in v) for v in res.values()):
+        fail(f"serve {cfg.name} {dispatch}: results {res}")
+    return res, eng.wave_stats, timed
+
+
 class _TimedModel:
     """The engine's model with a host clock around each call (each call
     ends in a device sync: the engine reads its poison count), a check
@@ -1456,51 +1499,106 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _serve_profile(serve) -> dict:
-    """One more ``spec-kernel`` wave under ``torch.profiler``: for the
-    prefill call and the decode steps, the host window, the device's busy
-    time in it (the union of kernel and copy intervals), the idle share,
-    busy time by kind of kernel, and the top kernels."""
+@contextlib.contextmanager
+def _scan_ranges():
+    """Wrap the SSM scans in ``ssm.scan`` profiler ranges while the block
+    runs, so a profile can tell the recurrences' kernels from the rest."""
+    from repro_torch.models import ssm
+
+    def ranged(fn):
+        def scan(*args):
+            with torch.profiler.record_function("ssm.scan"):
+                return fn(*args)
+        return scan
+
+    saved = ssm._rwkv6_scan, ssm._mamba_scan
+    ssm._rwkv6_scan, ssm._mamba_scan = map(ranged, saved)
+    try:
+        yield
+    finally:
+        ssm._rwkv6_scan, ssm._mamba_scan = saved
+
+
+def _serve_profile(run) -> dict:
+    """``run()`` (one more wave) under ``torch.profiler``: for the prefill
+    call and the decode steps, the host window, the device's busy time in
+    it (the union of kernel and copy intervals), the idle share, busy time
+    by kind of kernel, and the top kernels.  Kernels that ran inside the
+    device-side span of an ``ssm.scan`` range count as "ssm scan"
+    (``scan_ms``, None when the wave ran no scan)."""
+    import bisect
     from torch.autograd import DeviceType
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        serve("spec-kernel")
+    with _scan_ranges(), torch.profiler.profile(activities=act) as prof:
+        run()
         torch.cuda.synchronize()
     events = prof.events()
     windows = {"prefill": [], "decode_step": []}
+    spans = []
     for ev in events:
-        if ev.device_type == DeviceType.CPU and ev.name in (
-                "serve.prefill", "serve.decode_step"):
-            windows[ev.name.split(".")[1]].append(
-                (ev.time_range.start, ev.time_range.end))
+        span = (ev.time_range.start, ev.time_range.end)
+        if ev.device_type == DeviceType.CPU:
+            if ev.name in ("serve.prefill", "serve.decode_step"):
+                windows[ev.name.split(".")[1]].append(span)
+        elif ev.name == "ssm.scan":
+            spans.append(span)
+    spans.sort()
+    span_starts = [b for b, _ in spans]
+
+    def in_scan(b, e):
+        j = bisect.bisect_right(span_starts, (b + e) / 2) - 1
+        return j >= 0 and (b + e) / 2 < spans[j][1]
+
     # device work: kernels and copies, not the ranges' own annotations
     kernels = sorted((ev.time_range.start, ev.time_range.end, ev.name)
                      for ev in events if ev.device_type != DeviceType.CPU
-                     and not ev.name.startswith("serve."))
+                     and not ev.name.startswith(("serve.", "ssm.")))
+    starts = [k[0] for k in kernels]
     out = {}
-    for phase, spans in windows.items():
-        window = sum(e - b for b, e in spans)
+    for phase, windows_of in windows.items():
+        window = sum(e - b for b, e in windows_of)
         busy = 0.0
         kinds = collections.Counter()
         names = collections.Counter()
-        for b, e in spans:
+        for b, e in windows_of:
             end = b
-            for kb, ke, name in kernels:
+            # kernels run one at a time: at most one starts before b
+            for kb, ke, name in kernels[max(0, bisect.bisect_left(
+                    starts, b) - 1):bisect.bisect_left(starts, e)]:
                 kb, ke = max(kb, b), min(ke, e)
                 if ke <= kb:
                     continue
-                kinds[_kind(name)] += ke - kb
+                kind = "ssm scan" if spans and in_scan(kb, ke) else \
+                    _kind(name)
+                kinds[kind] += ke - kb
                 names[name[:70]] += ke - kb
                 busy += max(0.0, ke - max(kb, end))
                 end = max(end, ke)
         out[phase] = {
-            "calls": len(spans), "window_ms": window / 1e3,
+            "calls": len(windows_of), "window_ms": window / 1e3,
             "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / window if window else None,
+            "scan_ms": kinds["ssm scan"] / 1e3 if spans else None,
             "by_kind_ms": {k: v / 1e3 for k, v in kinds.most_common()},
             "top_kernels_ms": {k: v / 1e3 for k, v in names.most_common(8)}}
     return out
+
+
+def _print_profile(tag: str, profile: dict) -> None:
+    for phase, pr in profile.items():
+        if not pr["busy_ms"]:
+            fail(f"{tag}: the profiler saw no device work in {phase}")
+        scan = "" if pr["scan_ms"] is None else (
+            f"ssm scan {pr['scan_ms']:.2f} ms; ")
+        print(f"[{tag}-profile] {phase} ({pr['calls']} calls, profiled): "
+              f"window {pr['window_ms']:.2f} ms, device busy "
+              f"{pr['busy_ms']:.2f} ms, idle {pr['idle_share']:.1%}; {scan}"
+              f"by kind " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      pr["by_kind_ms"].items())
+              + " ms; top kernels " + "; ".join(
+                  f"{k} {v:.2f}" for k, v in pr["top_kernels_ms"].items())
+              + f" ms ({smi()})")
 
 
 def _serve_small_agrees() -> None:
@@ -1682,15 +1780,12 @@ def phase_serve_full() -> list:
     counts; then the two bf16 entries are held against their plain
     versions at the prefill and decode shapes and timed."""
     import dataclasses
-    import gc
     from torch.utils._pytree import tree_leaves
     from repro_torch.configs import base as cbase
     from repro_torch.kernels import ref
     from repro_torch.models.model import build_model
     from repro_torch.models.moe import round_capacity as moe_capacity
-    from repro_torch.serve.engine import Engine, Request
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     t0 = time.perf_counter()
     _serve_small_agrees()
     cases = _bf16_sweep()
@@ -1716,27 +1811,10 @@ def phase_serve_full() -> list:
           f"GB, drawn on the card in {time.perf_counter() - t0:.1f} s "
           f"(device memory in use before: {before / 1e9:.2f} GB)")
 
-    rng = np.random.default_rng(SERVE["seed"])
-    lo, hi = SERVE["prompt"]
-    lens = rng.integers(lo, hi + 1, SERVE["requests"])
-    lens[int(np.argmax(lens))] = hi
-    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
-               for n in lens]
+    lens, prompts = _serve_prompts(cfg.vocab)
 
     def serve(dispatch):
-        eng = Engine(cfg, params, slots=SERVE["slots"],
-                     max_len=SERVE["max_len"], dispatch=dispatch, device=dev)
-        eng.model = timed = _TimedModel(eng.model)
-        reqs = [Request(rid=i, prompt=p, max_new=SERVE["max_new"])
-                for i, p in enumerate(prompts)]
-        res = eng.run(reqs)
-        if any(r.failed or r.truncated for r in reqs) or eng.events:
-            fail(f"serve {dispatch}: events {eng.events}")
-        if sorted(res) != list(range(len(prompts))) or any(
-                len(v) != SERVE["max_new"] or not all(
-                    0 <= t < cfg.vocab for t in v) for v in res.values()):
-            fail(f"serve {dispatch}: results {res}")
-        return res, eng.wave_stats, timed
+        return _serve(cfg, params, prompts, dispatch)
 
     serve("spec-kernel")  # warm-up: cuBLAS handles, the kernels' build
     g, s = _counters()
@@ -1790,18 +1868,8 @@ def phase_serve_full() -> list:
               f"({st['decode_steps']} steps, capacity {cap_d}); wave "
               f"{st['wall_s'] * 1e3:.1f} ms, {wave.tokens} tokens, "
               f"{st['tok_s']:.1f} tokens/s")
-    profile = _serve_profile(serve)
-    for phase, pr in profile.items():
-        if not pr["busy_ms"]:
-            fail(f"serve: the profiler saw no device work in {phase}")
-        print(f"[serve-profile] {phase} ({pr['calls']} calls, profiled): "
-              f"window {pr['window_ms']:.2f} ms, device busy "
-              f"{pr['busy_ms']:.2f} ms, idle {pr['idle_share']:.1%}; by "
-              f"kind " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                   pr["by_kind_ms"].items())
-              + " ms; top kernels " + "; ".join(
-                  f"{k} {v:.2f}" for k, v in pr["top_kernels_ms"].items())
-              + " ms")
+    profile = _serve_profile(lambda: serve("spec-kernel"))
+    _print_profile("serve", profile)
     print(f"[serve] same tokens for all {len(res_k)} requests and same "
           f"poison under both dispatches: {wave.moe_poison} of "
           f"{wave.moe_requests} dispatch requests poisoned "
@@ -1887,9 +1955,369 @@ def phase_serve_full() -> list:
                       "moe_requests": wave.moe_requests,
                       "peak_bytes": peak, "prompt_lens": lens.tolist()}})
     del params, timed_k, timed_s
+    _free()
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the ssm, hybrid, vlm and encdec families at full width
+# ---------------------------------------------------------------------------
+
+#: float32 smoke-config checks, card against CPU (tests/test_kernels.py's
+#: model tolerance)
+SMOKE_TOL = 1e-4
+
+
+def _greedy(model, params, tokens, steps, memory=None, dec_memory=None,
+            pad_lens=None):
+    """Prefill, then ``steps`` greedy decode steps: every call's logits
+    and the committed tokens.  ``dec_memory`` is what the decode steps
+    cross-attend to (the enc-dec family's memory encoded once)."""
+    max_len = tokens.shape[1] + steps + 1
+    logits, cache = model.prefill(params, tokens, max_len, memory=memory,
+                                  pad_lens=pad_lens)
+    out, toks = [logits], []
+    for step in range(steps):
+        toks.append(logits.argmax(-1)[:, None].to(torch.int32))
+        logits, cache = model.decode_step(
+            params, cache, toks[-1], tokens.shape[1] + step,
+            memory=dec_memory, pad_lens=pad_lens)
+        out.append(logits)
+    toks.append(logits.argmax(-1)[:, None].to(torch.int32))
+    return out, torch.cat(toks, 1)
+
+
+def _stub_memory(cfg, b, gen, device, dtype):
+    """Seeded stub patch (vlm) or frame (encdec) embeddings, or None."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    s = cfg.enc_len if cfg.family == "encdec" else cfg.n_patches
+    return torch.randn((b, s, cfg.d_model), generator=gen,
+                       device=device).to(dtype)
+
+
+def _small_family_agrees(arch: str, dispatch: str) -> None:
+    """The family's float32 smoke config through the same prefill and
+    greedy decode calls on the card and on the CPU, left-padded, with stub
+    memory where the family takes it: the same tokens, logits within
+    ``SMOKE_TOL``."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import base as cbase
+    from repro_torch.models.model import build_model
+    cfg = cbase.smoke(cbase.get(arch))
+    m = build_model(cfg, dispatch)
+    params = m.init(torch.Generator().manual_seed(5), "cpu")
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (3, 9)).astype(
+        np.int32))
+    pads = torch.tensor([0, 3, 5], dtype=torch.int32)
+    mem = _stub_memory(cfg, 3, torch.Generator().manual_seed(6), "cpu",
+                       torch.float32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        mdev = None if mem is None else mem.to(dev)
+        dec = m._encode(p, mdev) if cfg.family == "encdec" else mdev
+        logits, toks = _greedy(m, p, tok.to(dev), 6, mdev, dec,
+                               pads.to(dev))
+        runs[dev] = ([x.cpu() for x in logits], toks.cpu())
+    if not torch.equal(runs["cpu"][1], runs["cuda"][1]):
+        fail(f"{arch} smoke: tokens differ cuda/cpu: {runs}")
+    err = max((a - b).abs().max().item()
+              for a, b in zip(runs["cpu"][0], runs["cuda"][0]))
+    for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+        if not torch.allclose(b, a, atol=SMOKE_TOL, rtol=SMOKE_TOL):
+            fail(f"{arch} smoke: logits differ cuda/cpu by {err}")
+    print(f"[{cfg.family}] {arch} smoke config (float32, dispatch="
+          f"{dispatch}): prefill + 6 greedy steps on the card commit the "
+          f"CPU's tokens, logits within {SMOKE_TOL} (max |diff| {err:.3g})")
+
+
+def _weights_line(tag, cfg, params, t0, cut) -> None:
+    """Parameter count and bytes (shared tensors once) of ``params``."""
+    from torch.utils._pytree import tree_leaves
+    leaves = {t.data_ptr(): t for t in tree_leaves(params)}.values()
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"[{tag}] {cfg.name} at full width ({cut}): d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {n / 1e9:.2f}e9 "
+          f"parameters, {nbytes / 1e9:.2f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _wave_line(tag, dispatch, plen, waves, timed, peak=None) -> dict:
+    w = waves[0]
+    st = {"wall_s": w.wall_s, "prefill_ms": timed.prefill_s[0] * 1e3,
+          "decode_ms_per_step": float(np.mean(timed.decode_s)) * 1e3,
+          "decode_steps": len(timed.decode_s), "tok_s": w.tokens / w.wall_s,
+          "peak_bytes": peak}
+    mem = "" if peak is None else f"; peak device memory {peak / 1e9:.2f} GB"
+    print(f"[{tag}] dispatch={dispatch}: prefill {st['prefill_ms']:.2f} ms "
+          f"({SERVE['requests']} x {plen} rows); decode "
+          f"{st['decode_ms_per_step']:.3f} ms a step ({st['decode_steps']} "
+          f"steps); wave {w.wall_s * 1e3:.1f} ms, {w.tokens} tokens, "
+          f"{st['tok_s']:.1f} tokens/s{mem} ({smi()})")
+    return st
+
+
+def _free() -> None:
+    import gc
     gc.collect()
     torch.cuda.empty_cache()
-    return records
+
+
+def phase_ssm() -> None:
+    """RWKV-6-7B at full width and full depth (nothing cut) served by the
+    engine: one wave of the serving traffic, timed, checked to launch no
+    spec kernel (the family has no MoE), then profiled with the scans'
+    kernels apart from the projections'."""
+    from repro_torch.configs import base as cbase
+    from repro_torch.models.model import build_model
+    _free()
+    _small_family_agrees("rwkv6_7b", "spec")
+    cfg = cbase.get("rwkv6_7b")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+    torch.cuda.synchronize()
+    _weights_line("ssm", cfg, params, t0,
+                  f"all {cfg.n_layers} layers, {cfg.d_model // cfg.hd} "
+                  f"rwkv heads of {cfg.hd}")
+    lens, prompts = _serve_prompts(cfg.vocab)
+    _serve(cfg, params, prompts, "spec")  # warm-up
+    _reset()
+    res, waves, timed = _serve(cfg, params, prompts, "spec")
+    torch.cuda.synchronize()
+    if _launches() != (0, 0):
+        fail(f"ssm: spec kernels launched {_launches()} times")
+    _wave_line("ssm", "spec", int(lens.max()), waves, timed,
+               torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    profile = _serve_profile(lambda: _serve(cfg, params, prompts, "spec"))
+    _print_profile("ssm", profile)
+    print(f"[ssm] no spec kernel launched; {len(res)} requests, prompt "
+          f"lengths {sorted(int(n) for n in lens)}; profile "
+          f"{time.perf_counter() - t0:.1f} s")
+    del params
+    _free()
+
+
+def jamba_group_params(cfg, gen, device):
+    """Jamba's one layer group with every weight drawn by the model's own
+    ``init_sublayer``, except that the group's MoE sublayers share one set
+    of expert weights (``w_gate``, ``w_up``, ``w_down``): four distinct
+    sets do not fit in 80 GB.  Routers, norms and every other weight stay
+    distinct; each sublayer still reads its experts from device memory,
+    so a step moves the untied group's bytes."""
+    import dataclasses
+    from repro_torch.models.model import draw_dense, group_pattern, \
+        init_sublayer
+    dt = cfg.torch_dtype
+    params = {"embed": draw_dense((cfg.vocab, cfg.d_model), gen, device,
+                                  dt),
+              "ln_f": torch.ones((cfg.d_model,), dtype=dt, device=device)}
+    group, experts = {}, None
+    for j, kind in enumerate(group_pattern(cfg)):
+        if kind == "moe" and experts is not None:
+            # the router and norm alone: a one-wide expert draw, replaced
+            p = init_sublayer(dataclasses.replace(cfg, moe_d_ff=1), kind,
+                              gen, device)
+            p.update(experts)
+        else:
+            p = init_sublayer(cfg, kind, gen, device)
+            if kind == "moe":
+                experts = {k: p[k] for k in ("w_gate", "w_up", "w_down")}
+        group[f"s{j}_{kind}"] = p
+    params["groups"] = [group]
+    params["lm_head"] = draw_dense((cfg.d_model, cfg.vocab), gen, device,
+                                   dt)
+    return params
+
+
+def phase_hybrid() -> dict:
+    """Jamba-1.5-large at full width, one layer group of 8 (7 mamba + 1
+    attention, MoE on every second sublayer, the MoE sublayers' experts
+    shared), served by the engine through dispatch="spec-kernel" (its
+    launches counted: 4 MoE forwards a call) and "spec", which must commit
+    the same tokens and poison counts; profiled; then the two bf16 entries
+    held against their plain versions at Jamba's prefill and decode
+    shapes.  Returns the entries' launches and lines."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    from repro_torch.models.model import group_pattern
+    from repro_torch.models.moe import round_capacity as moe_capacity
+    _free()
+    _small_family_agrees("jamba_1_5_large_398b", "spec-kernel")
+    full = cbase.get("jamba_1_5_large_398b")
+    cfg = dataclasses.replace(full, n_layers=full.attn_stride)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = jamba_group_params(
+        cfg, torch.Generator(device=dev).manual_seed(SERVE["seed"]), dev)
+    torch.cuda.synchronize()
+    n_moe = group_pattern(cfg).count("moe")
+    _weights_line("hybrid", cfg, params, t0,
+                  f"n_layers {full.n_layers} cut to {cfg.n_layers}: one "
+                  f"group of 7 mamba + 1 attention, {cfg.n_heads} heads, "
+                  f"{cfg.n_kv_heads} KV heads, {n_moe} MoE sublayers of "
+                  f"{cfg.n_experts} experts top-{cfg.top_k} sharing one "
+                  f"expert set")
+    lens, prompts = _serve_prompts(cfg.vocab)
+    plen = int(lens.max())
+    _serve(cfg, params, prompts, "spec-kernel")  # warm-up
+    g, s = _counters()
+    _reset()
+    res_k, waves_k, timed_k = _serve(cfg, params, prompts, "spec-kernel")
+    torch.cuda.synchronize()
+    launches = {"spec_gather": (g.launches, dict(g.route_launches),
+                                g.entry_launches["spec_gather_bf16"]),
+                "spec_scatter_add": (s.launches, dict(s.route_launches),
+                                     s.entry_launches[
+                                         "spec_scatter_add_bf16"])}
+    peak = torch.cuda.max_memory_allocated()
+    res_s, waves_s, timed_s = _serve(cfg, params, prompts, "spec")
+    torch.cuda.synchronize()
+    if (g.launches, s.launches) != (launches["spec_gather"][0],
+                                    launches["spec_scatter_add"][0]):
+        fail("hybrid: dispatch='spec' launched a spec kernel")
+    want = n_moe * (1 + SERVE["max_new"])
+    for name, (n, routes, bf16) in launches.items():
+        if n != want or bf16 != want or routes != {"tensor": want,
+                                                   "staged": 0}:
+            fail(f"hybrid: {name} launched {n} times (by route {routes}, "
+                 f"bf16 entry {bf16}), want {want}: {n_moe} MoE sublayers "
+                 f"x (1 prefill + {SERVE['max_new']} decode steps)")
+    if res_k != res_s:
+        fail(f"hybrid: spec-kernel tokens {res_k} != spec tokens {res_s}")
+    pk = [(w.moe_poison, w.moe_requests) for w in waves_k]
+    if pk != [(w.moe_poison, w.moe_requests) for w in waves_s] or \
+            len(waves_k) != 1:
+        fail(f"hybrid: waves or poison counts differ: {pk} vs "
+             f"{[(w.moe_poison, w.moe_requests) for w in waves_s]}")
+    cap_p = moe_capacity(SERVE["requests"] * plen, cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    cap_d = moe_capacity(SERVE["requests"], cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    stats = {"spec-kernel": _wave_line("hybrid", "spec-kernel", plen,
+                                       waves_k, timed_k, peak),
+             "spec": _wave_line("hybrid", "spec", plen, waves_s, timed_s)}
+    wave = waves_k[0]
+    t0 = time.perf_counter()
+    profile = _serve_profile(lambda: _serve(cfg, params, prompts,
+                                            "spec-kernel"))
+    _print_profile("hybrid", profile)
+    print(f"[hybrid] same tokens for all {len(res_k)} requests and same "
+          f"poison under both dispatches: {wave.moe_poison} of "
+          f"{wave.moe_requests} dispatch requests poisoned "
+          f"({wave.moe_poison / wave.moe_requests:.4%}); capacity {cap_p} "
+          f"at prefill, {cap_d} at decode; launches "
+          f"{ {k: v[0] for k, v in launches.items()} } (all by the bf16 "
+          f"entry); profile {time.perf_counter() - t0:.1f} s")
+    del params, timed_k, timed_s
+    _free()
+
+    kgen = torch.Generator(device=dev).manual_seed(18)
+    shapes = {}
+    for tag, n_tok, cap in (("prefill", SERVE["requests"] * plen, cap_p),
+                            ("decode", SERVE["requests"], cap_d)):
+        idx, src, h = _moe_kernel_inputs(n_tok, cap, kgen, d=cfg.d_model,
+                                         n_experts=cfg.n_experts,
+                                         top_k=cfg.top_k)
+        shapes[tag] = {
+            "spec_scatter_add": _bf16_line("spec_scatter_add", idx,
+                                           torch.zeros_like(h), src),
+            "spec_gather": _bf16_line("spec_gather", idx, h, None)}
+        del idx, src, h
+        _free()
+    for name in ("spec_gather", "spec_scatter_add"):
+        for tag in ("prefill", "decode"):
+            r = shapes[tag][name]
+            print(f"[hybrid-kernels] {name} bf16 {tag} n={r['n']} "
+                  f"d={r['d']} rows={r['rows']} live={r['n_live']}: bitwise "
+                  f"equal to the plain version; device {r['ms'] * 1e3:.2f} "
+                  f"us, plain {r['plain_ms'] * 1e3:.2f} us, library "
+                  f"{r['library_ms'] * 1e3:.2f} us; byte bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us, "
+                  f"{r['bound_ms'] / r['ms']:.1%} of it ({smi()})")
+    return {f"{name}_bf16": {
+        "launches": launches[name][0], "prefill": shapes["prefill"][name],
+        "decode": shapes["decode"][name], "stats": stats,
+        "profile": profile, "moe_poison": wave.moe_poison,
+        "moe_requests": wave.moe_requests}
+        for name in ("spec_gather", "spec_scatter_add")}
+
+
+#: the cross families' runs: 8 rows of the serving prompts, 16 greedy
+#: decode steps, stub memory from this seed
+CROSS_SEED = 20
+
+
+def phase_cross() -> None:
+    """Llama-3.2-Vision-90B at full width with one layer group (n_layers
+    100 -> 5) and Whisper-medium whole (24 + 24 layers), through
+    ``Model.prefill`` / ``decode_step`` (the engine passes no memory) with
+    seeded stub memory: 1024 patches, 1500 frames.  The enc-dec decode
+    steps cross-attend to the memory the port's ``_encode`` gives once, as
+    the reference's decode takes memory as passed."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    from repro_torch.models.model import build_model
+    dev = torch.device("cuda")
+    for arch, n_layers in (("llama_3_2_vision_90b", 5),
+                           ("whisper_medium", None)):
+        _free()
+        _small_family_agrees(arch, "spec")
+        full = cbase.get(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+        cut = (f"n_layers {full.n_layers} cut to {cfg.n_layers}, one "
+               f"[(attn, mlp) x 4, (cross, mlp)] group, {cfg.n_patches} "
+               f"patches" if n_layers else
+               f"all {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+               f"{cfg.enc_len} frames")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(CROSS_SEED)
+        model = build_model(cfg)
+        params = model.init(gen, dev)
+        torch.cuda.synchronize()
+        _weights_line("cross", cfg, params, t0, cut)
+        lens, prompts = _serve_prompts(cfg.vocab)
+        plen = int(lens.max())
+        toks = np.zeros((len(prompts), plen), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p
+        toks = torch.from_numpy(toks).to(dev)
+        pads = torch.from_numpy((plen - lens).astype(np.int32)).to(dev)
+        mem = _stub_memory(cfg, len(prompts), gen, dev, cfg.torch_dtype)
+        for run in ("warm-up", "timed"):
+            timed = _TimedModel(model)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dec = model._encode(params, mem) if cfg.family == "encdec" \
+                else mem
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - t1) * 1e3
+            _, out = _greedy(timed, params, toks, SERVE["max_new"], mem, dec,
+                             pads)
+        if out.shape != (len(prompts), SERVE["max_new"] + 1) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            fail(f"cross {arch}: tokens {out}")
+        enc = (f"; encoder alone {enc_ms:.2f} ms (its output is the decode "
+               f"steps' memory)" if cfg.family == "encdec" else "")
+        print(f"[cross] {cfg.name}: prefill {timed.prefill_s[0] * 1e3:.2f} "
+              f"ms ({len(prompts)} x {plen} rows, memory "
+              f"{tuple(mem.shape)}); decode "
+              f"{float(np.mean(timed.decode_s)) * 1e3:.3f} ms a step "
+              f"({len(timed.decode_s)} steps){enc}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi()})")
+        _print_profile("cross", _serve_profile(lambda: _greedy(
+            _TimedModel(model), params, toks, SERVE["max_new"], mem, dec,
+            pads)))
+        del params, mem, dec, model
+    _free()
 
 
 def main() -> None:
@@ -1905,6 +2333,12 @@ def main() -> None:
     phase_kernels_dense()
     line["kernels"] += phase_api_full()
     line["kernels"] += phase_serve_full()
+    phase_ssm()
+    hybrid = phase_hybrid()
+    for rec in line["kernels"]:
+        if rec["name"] in hybrid:
+            rec["jamba"] = hybrid[rec["name"]]
+    phase_cross()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(smi())

@@ -2,8 +2,9 @@
 
 :func:`params_from_numpy` takes the reference's parameter tree with its
 leaves as numpy arrays (``groups`` stacked along a leading ``n_groups``
-axis, as ``lax.scan`` wants them) and returns the port's parameters
-(``groups`` a list, one dictionary per group), so that both packages can
+axis and the enc-dec family's ``enc_groups`` along ``n_enc_layers``, as
+``lax.scan`` wants them) and returns the port's parameters (each a list,
+one dictionary per group or layer), so that both packages can
 run on the same weights.  The port itself never sees JAX: a caller makes
 the numpy tree, e.g. ``jax.tree.map(np.asarray, model.init(key))``.
 """
@@ -13,8 +14,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-
-from .model import CROSS_ITEM
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -31,19 +30,23 @@ def _tree(node: Any, device):
     return _tensor(np.asarray(node), device)
 
 
+#: the subtrees stacked along a leading axis
+_STACKED = ("groups", "enc_groups")
+
+
 def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     """The port's parameters from the reference's numpy parameter tree,
-    on ``device``; values and dtypes unchanged."""
-    if "enc_groups" in tree:
-        raise NotImplementedError(
-            f"the enc-dec encoder is not ported yet: {CROSS_ITEM}")
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "groups"}
-    stacked = tree["groups"]
-    n_groups = len(np.asarray(next(iter(next(iter(
-        stacked.values())).values()))))
-    out["groups"] = [_tree(_index(stacked, g), device)
-                     for g in range(n_groups)]
+    on ``device``; values and dtypes unchanged (a float32 leaf in a bf16
+    tree, Mamba's ``a_log``, stays float32)."""
+    out = {}
+    for k, v in tree.items():
+        if k in _STACKED:
+            n = len(np.asarray(next(iter(next(iter(v.values())).values()))))
+            out[k] = [_tree(_index(v, g), device) for g in range(n)]
+        else:
+            out[k] = _tree(v, device)
     return out
+
 
 
 def _index(node: Any, g: int):

@@ -102,30 +102,38 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
                   n_kv_heads: int, head_dim: int, theta: float,
                   pos_offset: int = 0, kv_cache: Optional[Tuple] = None,
-                  cache_len: int = 0, causal: bool = True,
+                  cache_len: int = 0,
+                  cross_kv: Optional[Tuple] = None, causal: bool = True,
                   pad_len: Optional[torch.Tensor] = None):
     """GQA attention block (pre-norm outside).  Returns (out, new_kv).
 
     kv_cache: (k, v) of shape (B, Hkv, Tmax, hd); the new keys and values
     are written at ``cache_len`` **in place** (the reference returns
     updated copies; every caller here owns its cache) and the queries
-    attend over the valid prefix.  pad_len: (B,) int32, per-row left-pad
+    attend over the valid prefix.  cross_kv: precomputed (k, v) of shape
+    (B, Hkv, S, hd) for cross-attention (enc-dec, VLM): no RoPE, not
+    causal, no cache, no pad mask.  pad_len: (B,) int32, per-row left-pad
     length: RoPE positions count real tokens only and the pad columns are
     masked out of every attention read.
     """
     b, t, dm = x.shape
     rep = n_heads // n_kv_heads
     q = (x @ params["wq"]).view(b, t, n_heads, head_dim)
-    k = (x @ params["wk"]).view(b, t, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).view(b, t, n_kv_heads, head_dim)
-    pos = pos_offset + torch.arange(t, device=x.device)
-    if pad_len is not None:
-        # per-row real-token positions; pad rows clamp to 0 but are masked
-        # out of attention below, so their rotation is dead
-        pos = torch.clamp(pos[None, :] - pad_len[:, None].long(), min=0)
-    q = rope(q, pos, theta).transpose(1, 2)                 # (B, H, T, hd)
-    k = rope(k, pos, theta).transpose(1, 2)
-    v = v.transpose(1, 2)
+    if cross_kv is None:
+        k = (x @ params["wk"]).view(b, t, n_kv_heads, head_dim)
+        v = (x @ params["wv"]).view(b, t, n_kv_heads, head_dim)
+        pos = pos_offset + torch.arange(t, device=x.device)
+        if pad_len is not None:
+            # per-row real-token positions; pad rows clamp to 0 but are
+            # masked out of attention below, so their rotation is dead
+            pos = torch.clamp(pos[None, :] - pad_len[:, None].long(), min=0)
+        q = rope(q, pos, theta).transpose(1, 2)             # (B, H, T, hd)
+        k = rope(k, pos, theta).transpose(1, 2)
+        v = v.transpose(1, 2)
+    else:
+        q = q.transpose(1, 2)
+        k, v = cross_kv
+        causal = False
 
     new_cache = None
     if kv_cache is not None:

@@ -1,26 +1,30 @@
-"""Model builder for the dense and moe families.
+"""Model builder: one code path for every family of the reference.
 
 The counterpart of the JAX package's ``models/model.py``.  A config
 compiles to a repeating layer group:
 
-=========  ==========================
+=========  ==================================================
 family     group pattern
-=========  ==========================
-dense      [attn, mlp]  x n_layers
-moe        [attn, moe]  x n_layers
-=========  ==========================
+=========  ==================================================
+dense      [attn, mlp]                        x n_layers
+moe        [attn, moe]                        x n_layers
+ssm        [rwkv6, mlp]                       x n_layers
+hybrid     [(mamba, mlp/moe)x7, (attn, moe)]  x n_layers/8
+vlm        [(attn, mlp)x4, (cross, mlp)]      x n_layers/5
+encdec     encoder [attn, mlp]xE  +  decoder [self, cross, mlp]xL
+=========  ==================================================
 
 A Python loop over the groups takes the place of ``lax.scan``; the
 parameters of group ``g`` are ``params["groups"][g]``, a dictionary with
 one entry per sublayer (``s0_attn``, ``s1_moe``, ...), the reference's
-names.  KV caches are a list over groups of one ``(k, v)`` pair per
-attention sublayer, ``(B, Hkv, max_len, hd)`` each, written in place.
-
-:func:`group_pattern` and :func:`group_count` keep every family of the
-reference; building parameters or running a ``rwkv``, ``mamba`` or
-``cross`` sublayer, or the enc-dec encoder, raises
-:class:`NotImplementedError` naming the ROADMAP item that brings it.
-Training (``loss``) is not ported yet.
+names; the enc-dec encoder's are ``params["enc_groups"][i]``.  The cache
+is ``(caches, states)``: KV caches are a list over groups of one
+``(k, v)`` pair per attention sublayer, ``(B, Hkv, max_len, hd)`` each,
+written in place; SSM states a list over groups of one state per rwkv or
+mamba sublayer, replaced by each call.  Either is None when the pattern
+has no such sublayer.  Cross-attention reads ``memory`` (stub patch or
+frame embeddings, ``(B, S, d_model)``) through its own K/V projections
+on every call.  Training (``loss``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,29 +35,101 @@ import torch
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 
 #: elements drawn per ``torch.randn`` call at init: a draw is made in
 #: float32 before its cast, so the largest tensors (Kimi-K2's experts,
 #: 5.6e9 elements each) are drawn in slices of at most this many
 INIT_SLICE = 1 << 25
 
-#: ROADMAP.md §1 items, by title, that bring the missing families
-SSM_ITEM = "ROADMAP §1, 'RWKV-6 and Mamba: the ssm and hybrid families'"
-CROSS_ITEM = ("ROADMAP §1, 'Cross-attention and enc-dec: the vlm and "
-              "encdec families'")
-
-_MISSING = {
-    "rwkv": f"RWKV-6 sublayers (repro.models.ssm) are not ported yet: "
-            f"{SSM_ITEM}",
-    "mamba": f"Mamba sublayers (repro.models.ssm) are not ported yet: "
-             f"{SSM_ITEM}",
-    "cross": f"cross-attention sublayers are not ported yet: {CROSS_ITEM}",
-    "encoder": f"the enc-dec encoder is not ported yet: {CROSS_ITEM}",
-}
+#: sublayer kinds that carry a recurrent state
+SSM_KINDS = ("rwkv", "mamba")
 
 
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(_MISSING[kind])
+def draw_dense(shape, generator, device, dtype,
+               scale=0.02) -> torch.Tensor:
+    """Normal x ``scale``, drawn in float32 slices of at most
+    :data:`INIT_SLICE` elements, cast to ``dtype``."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(shape[0], -1)
+    step = max(1, INIT_SLICE // max(1, rows.shape[1]))
+    for lo in range(0, shape[0], step):
+        part = rows[lo:lo + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=device,
+                               dtype=torch.float32).mul_(scale))
+    return out
+
+
+def init_sublayer(cfg: ArchConfig, kind: str, generator: torch.Generator,
+                  device) -> Dict:
+    """One sublayer's random parameters, the reference's shapes, dtypes
+    and distributions: matrices normal x 0.02 (``ww`` x 0.01), norms 1,
+    RWKV's ``mu`` 0.5 and ``w_bias`` 2.0, Mamba's ``a_log`` float32
+    zeros whatever the config's dtype."""
+    d, hd, dt = cfg.d_model, cfg.hd, cfg.torch_dtype
+
+    def dense(shape, scale=0.02):
+        return draw_dense(shape, generator, device, dt, scale)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    if kind in ("attn", "cross"):
+        return {
+            "ln": full((d,), 1.0),
+            "wq": dense((d, cfg.n_heads * hd)),
+            "wk": dense((d, cfg.n_kv_heads * hd)),
+            "wv": dense((d, cfg.n_kv_heads * hd)),
+            "wo": dense((cfg.n_heads * hd, d)),
+        }
+    if kind == "mlp":
+        return {
+            "ln": full((d,), 1.0),
+            "w_gate": dense((d, cfg.d_ff)),
+            "w_up": dense((d, cfg.d_ff)),
+            "w_down": dense((cfg.d_ff, d)),
+        }
+    if kind == "moe":
+        ff = cfg.moe_d_ff or cfg.d_ff
+        p = {
+            "ln": full((d,), 1.0),
+            "router": dense((d, cfg.n_experts)),
+            "w_gate": dense((cfg.n_experts, d, ff)),
+            "w_up": dense((cfg.n_experts, d, ff)),
+            "w_down": dense((cfg.n_experts, ff, d)),
+        }
+        if cfg.n_shared_experts:
+            sf = ff * cfg.n_shared_experts
+            p.update(shared_w_gate=dense((d, sf)),
+                     shared_w_up=dense((d, sf)),
+                     shared_w_down=dense((sf, d)))
+        return p
+    if kind == "rwkv":
+        return {
+            "ln": full((d,), 1.0),
+            "mu": full((4, d), 0.5),
+            "wr": dense((d, d)),
+            "wk": dense((d, d)),
+            "wv": dense((d, d)),
+            "ww": dense((d, d), 0.01),
+            "w_bias": full((d,), 2.0),
+            "u": dense((d,)),
+            "wo": dense((d, d)),
+        }
+    if kind == "mamba":
+        n = cfg.ssm_d_state
+        return {
+            "ln": full((d,), 1.0),
+            "in_proj": dense((d, d)),
+            "gate_proj": dense((d, d)),
+            "dt_proj": dense((d,)),
+            "b_proj": dense((d, n)),
+            "c_proj": dense((d, n)),
+            "a_log": full((d, n), 0.0, torch.float32),
+            "out_proj": dense((d, d)),
+        }
+    raise ValueError(kind)
 
 
 class Model(NamedTuple):
@@ -67,83 +143,55 @@ class Model(NamedTuple):
     def init(self, generator: torch.Generator,
              device=None) -> Dict:
         """Random parameters on ``device`` (the generator's device when
-        None): matrices normal x 0.02 (drawn in float32, cast to the
-        config's dtype), norms 1.  The distributions of the reference's
-        init; its ``jax.random`` bits are not reproduced."""
+        None), each sublayer by :func:`init_sublayer`.  The distributions
+        of the reference's init; its ``jax.random`` bits are not
+        reproduced."""
         cfg = self.cfg
         device = torch.device(device if device is not None
                               else generator.device)
         dt = cfg.torch_dtype
         d, v = cfg.d_model, cfg.vocab
 
-        def norm(shape):
-            return torch.ones(shape, dtype=dt, device=device)
+        def draw(kind):
+            return init_sublayer(cfg, kind, generator, device)
 
-        def dense(shape, scale=0.02):
-            out = torch.empty(shape, dtype=dt, device=device)
-            rows = out.view(shape[0], -1)
-            step = max(1, INIT_SLICE // max(1, rows.shape[1]))
-            for lo in range(0, shape[0], step):
-                part = rows[lo:lo + step]
-                part.copy_(torch.randn(part.shape, generator=generator,
-                                       device=device,
-                                       dtype=torch.float32).mul_(scale))
-            return out
-
-        def sublayer_params(kind):
-            hd = cfg.hd
-            if kind == "attn":
-                return {
-                    "ln": norm((d,)),
-                    "wq": dense((d, cfg.n_heads * hd)),
-                    "wk": dense((d, cfg.n_kv_heads * hd)),
-                    "wv": dense((d, cfg.n_kv_heads * hd)),
-                    "wo": dense((cfg.n_heads * hd, d)),
-                }
-            if kind == "mlp":
-                return {
-                    "ln": norm((d,)),
-                    "w_gate": dense((d, cfg.d_ff)),
-                    "w_up": dense((d, cfg.d_ff)),
-                    "w_down": dense((cfg.d_ff, d)),
-                }
-            if kind == "moe":
-                ff = cfg.moe_d_ff or cfg.d_ff
-                p = {
-                    "ln": norm((d,)),
-                    "router": dense((d, cfg.n_experts)),
-                    "w_gate": dense((cfg.n_experts, d, ff)),
-                    "w_up": dense((cfg.n_experts, d, ff)),
-                    "w_down": dense((cfg.n_experts, ff, d)),
-                }
-                if cfg.n_shared_experts:
-                    sf = ff * cfg.n_shared_experts
-                    p.update(shared_w_gate=dense((d, sf)),
-                             shared_w_up=dense((d, sf)),
-                             shared_w_down=dense((sf, d)))
-                return p
-            raise _not_ported(kind) if kind in _MISSING else ValueError(kind)
-
-        if cfg.n_enc_layers:
-            raise _not_ported("encoder")
         pattern = group_pattern(cfg)
-        params = {"embed": dense((v, d)), "ln_f": norm((d,))}
+        params = {"embed": draw_dense((v, d), generator, device, dt),
+                  "ln_f": torch.ones((d,), dtype=dt, device=device)}
         params["groups"] = [
-            {f"s{j}_{kind}": sublayer_params(kind)
-             for j, kind in enumerate(pattern)}
+            {f"s{j}_{kind}": draw(kind) for j, kind in enumerate(pattern)}
             for _ in range(group_count(cfg))]
-        params["lm_head"] = dense((d, v))
+        params["lm_head"] = draw_dense((d, v), generator, device, dt)
+        if cfg.n_enc_layers:
+            params["enc_groups"] = [
+                {"s0_attn": draw("attn"), "s1_mlp": draw("mlp")}
+                for _ in range(cfg.n_enc_layers)]
+            params["enc_ln_f"] = torch.ones((d,), dtype=dt, device=device)
         return params
 
     # -------------------------------------------------------------- forward
     def _sublayer(self, kind: str, p: Dict, x: torch.Tensor, *,
-                  pos_offset: int = 0, kv_cache=None, cache_len: int = 0,
-                  pad_lens=None, moe_stats: bool = False):
+                  pos_offset: int = 0, cross_kv=None, kv_cache=None,
+                  cache_len: int = 0, state=None, pad_lens=None,
+                  moe_stats: bool = False):
         cfg = self.cfg
         h = L.rms_norm(x, p["ln"])
-        new_cache = None
-        poison = None
-        if kind == "attn":
+        new_cache = new_state = poison = None
+        if kind == "cross":
+            # project the memory with this sublayer's K/V weights, on every
+            # call (the reference recomputes them per decode step too)
+            if cross_kv is None:
+                raise ValueError(f"{cfg.name}: a cross sublayer needs "
+                                 "memory")
+            b, s, _ = cross_kv.shape
+            kk = (cross_kv @ p["wk"]).view(b, s, cfg.n_kv_heads, cfg.hd)
+            vv = (cross_kv @ p["wv"]).view(b, s, cfg.n_kv_heads, cfg.hd)
+            out, _ = L.gqa_attention(
+                p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, theta=cfg.rope_theta,
+                cross_kv=(kk.transpose(1, 2).to(h.dtype),
+                          vv.transpose(1, 2).to(h.dtype)))
+        elif kind == "attn":
             out, new_cache = L.gqa_attention(
                 p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.hd, theta=cfg.rope_theta,
@@ -164,109 +212,165 @@ class Model(NamedTuple):
                     kernel=self.dispatch == "spec-kernel", stats=moe_stats)
             out, poison = res if moe_stats else (res, None)
             out = out.reshape(b, t, d)
-        elif kind in _MISSING:
-            raise _not_ported(kind)
+        elif kind == "rwkv":
+            # RWKV's heads are d_model / head_dim, not cfg.n_heads
+            res = ssm_mod.rwkv6_block(p, h, n_heads=cfg.d_model // cfg.hd,
+                                      head_dim=cfg.hd, state=state,
+                                      return_state=state is not None)
+            out, new_state = res if state is not None else (res, None)
+        elif kind == "mamba":
+            res = ssm_mod.mamba_block(p, h, d_state=cfg.ssm_d_state,
+                                      state=state,
+                                      return_state=state is not None)
+            out, new_state = res if state is not None else (res, None)
         else:
             raise ValueError(kind)
-        return x + out, new_cache, poison
+        return x + out, new_cache, new_state, poison
 
     def _run_groups(self, params: Dict, x: torch.Tensor, *,
-                    pos_offset: int = 0, caches=None, cache_len: int = 0,
-                    pad_lens=None, collect_stats: bool = False):
-        """Run every layer group in order.  ``caches``: the list of
-        :meth:`init_cache`, updated in place.  ``pad_lens`` ((B,) int32,
-        left-pad length per row) reaches every attention sublayer.
-        Returns ``(x, caches)``, plus the summed MoE poison count (an
-        int32 scalar tensor) with ``collect_stats``."""
+                    pos_offset: int = 0, cross_kv=None, caches=None,
+                    cache_len: int = 0, states=None, pad_lens=None,
+                    collect_stats: bool = False):
+        """Run every layer group in order.  ``caches`` / ``states``: the
+        lists of :meth:`init_cache`, updated in place.  ``pad_lens`` ((B,)
+        int32, left-pad length per row) reaches every attention sublayer
+        (not the SSM states, as in the reference).  Returns ``(x, caches,
+        states)``, plus the summed MoE poison count (an int32 scalar
+        tensor) with ``collect_stats``."""
         pattern = group_pattern(self.cfg)
         poison = torch.zeros((), dtype=torch.int32, device=x.device)
         for g, gp in enumerate(params["groups"]):
-            a = 0
+            a = si = 0
             for j, kind in enumerate(pattern):
-                kv = None
+                kv = st = None
                 if kind == "attn" and caches is not None:
                     kv = caches[g][a]
-                x, nkv, pois = self._sublayer(
+                if kind in SSM_KINDS and states is not None:
+                    st = states[g][si]
+                x, nkv, nst, pois = self._sublayer(
                     kind, gp[f"s{j}_{kind}"], x, pos_offset=pos_offset,
-                    kv_cache=kv, cache_len=cache_len, pad_lens=pad_lens,
+                    cross_kv=cross_kv, kv_cache=kv, cache_len=cache_len,
+                    state=st, pad_lens=pad_lens,
                     moe_stats=collect_stats and kind == "moe")
                 if kv is not None:
                     caches[g][a] = nkv
                     a += 1
+                if st is not None:
+                    states[g][si] = nst
+                    si += 1
                 if pois is not None:
                     poison = poison + pois
         if collect_stats:
-            return x, caches, poison
-        return x, caches
+            return x, caches, states, poison
+        return x, caches, states
+
+    def _encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """The enc-dec encoder over stub frame embeddings (bidirectional,
+        no cache)."""
+        cfg = self.cfg
+        h = frames
+        for gp in params["enc_groups"]:
+            out, _ = L.gqa_attention(
+                gp["s0_attn"], L.rms_norm(h, gp["s0_attn"]["ln"]),
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, theta=cfg.rope_theta, causal=False)
+            h = h + out
+            m = gp["s1_mlp"]
+            h = h + L.swiglu(L.rms_norm(h, m["ln"]), m["w_gate"], m["w_up"],
+                             m["w_down"])
+        return L.rms_norm(h, params["enc_ln_f"])
+
+    def _make_cross(self, params: Dict, memory):
+        """Cross-attention K/V are projected per sublayer from this memory
+        (each cross sublayer owns its ``wk`` / ``wv``), so the memory goes
+        through as it is."""
+        return memory
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int,
-                   device=None) -> Tuple[Optional[List], None]:
-        """Zeroed KV caches: ``(caches, None)``, the second slot being the
-        reference's SSM states, which the dense and moe families lack."""
+                   device=None) -> Tuple[Optional[List], Optional[List]]:
+        """Zeroed ``(caches, states)`` with the reference's shapes and
+        dtypes: KV caches in the config's dtype; RWKV states ``(S, x_last)``
+        with S (B, H, hd, hd) and the token-shift carry (B, d_model), Mamba
+        states (B, d_model, d_state), all float32."""
         cfg = self.cfg
         pattern = group_pattern(cfg)
-        for kind in pattern:
-            if kind in _MISSING:
-                raise _not_ported(kind)
         shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
-        caches = [[(torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-                    torch.zeros(shape, dtype=cfg.torch_dtype, device=device))
-                   for kind in pattern if kind == "attn"]
-                  for _ in range(group_count(cfg))]
-        return (caches or None, None)
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        def state(kind):
+            if kind == "rwkv":
+                h = cfg.d_model // cfg.hd
+                return (zeros((batch, h, cfg.hd, cfg.hd)),
+                        zeros((batch, cfg.d_model)))
+            return zeros((batch, cfg.d_model, cfg.ssm_d_state))
+
+        n_groups = group_count(cfg)
+        caches = states = None
+        if "attn" in pattern:
+            caches = [[(zeros(shape, cfg.torch_dtype),
+                        zeros(shape, cfg.torch_dtype))
+                       for kind in pattern if kind == "attn"]
+                      for _ in range(n_groups)]
+        if any(kind in SSM_KINDS for kind in pattern):
+            states = [[state(kind) for kind in pattern if kind in SSM_KINDS]
+                      for _ in range(n_groups)]
+        return caches, states
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Logits of the last position, ``(B, vocab)``."""
         x = L.rms_norm(x[:, -1:], params["ln_f"])
         return (x @ params["lm_head"])[:, -1]
 
+    def _forward(self, params: Dict, tokens: torch.Tensor, cache, pos: int,
+                 memory, pad_lens, return_stats: bool):
+        caches, states = cache
+        x = params["embed"][tokens.long()]
+        res = self._run_groups(params, x, pos_offset=pos, cross_kv=memory,
+                               caches=caches, cache_len=pos, states=states,
+                               pad_lens=pad_lens,
+                               collect_stats=return_stats)
+        logits = self._head(params, res[0])
+        if return_stats:
+            return logits, (res[1], res[2]), {"moe_poison": res[3]}
+        return logits, (res[1], res[2])
+
     def decode_step(self, params: Dict, cache, tokens: torch.Tensor,
                     cache_len: int, memory=None, *, pad_lens=None,
                     return_stats: bool = False):
         """One-token step: tokens (B, 1); cache from :meth:`init_cache` or
-        :meth:`prefill`, updated in place and returned.
+        :meth:`prefill`, updated in place and returned.  ``memory`` reaches
+        the cross sublayers as given (the enc-dec family's is not encoded
+        here, as in the reference).
 
         ``pad_lens`` ((B,) int32): per-row left-pad length, masked out of
         attention, with RoPE positions counting real tokens only.
         ``return_stats=True`` appends ``{"moe_poison": n}`` (poisoned MoE
         dispatch requests this step, an int32 scalar tensor)."""
-        if memory is not None:
-            raise _not_ported("cross")
-        caches, states = cache
-        x = params["embed"][tokens.long()]
-        res = self._run_groups(params, x, pos_offset=cache_len,
-                               caches=caches, cache_len=cache_len,
-                               pad_lens=pad_lens,
-                               collect_stats=return_stats)
-        logits = self._head(params, res[0])
-        if return_stats:
-            return logits, (res[1], states), {"moe_poison": res[2]}
-        return logits, (res[1], states)
+        return self._forward(params, tokens, cache, cache_len,
+                             self._make_cross(params, memory), pad_lens,
+                             return_stats)
 
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int,
                 memory=None, *, pad_lens=None,
                 return_stats: bool = False):
         """Fill a fresh cache with a whole prompt; returns the last
-        position's logits and the cache.  See :meth:`decode_step` for
+        position's logits and the cache.  The enc-dec family encodes
+        ``memory`` (stub frames) first.  See :meth:`decode_step` for
         ``pad_lens`` / ``return_stats``."""
-        if memory is not None:
-            raise _not_ported("cross")
         b, _ = tokens.shape
-        caches, states = self.init_cache(b, max_len,
-                                         device=params["embed"].device)
-        x = params["embed"][tokens.long()]
-        res = self._run_groups(params, x, pos_offset=0, caches=caches,
-                               cache_len=0, pad_lens=pad_lens,
-                               collect_stats=return_stats)
-        logits = self._head(params, res[0])
-        if return_stats:
-            return logits, (res[1], states), {"moe_poison": res[2]}
-        return logits, (res[1], states)
+        cache = self.init_cache(b, max_len, device=params["embed"].device)
+        if self.cfg.family == "encdec" and memory is not None:
+            memory = self._encode(params, memory)
+        return self._forward(params, tokens, cache, 0,
+                             self._make_cross(params, memory), pad_lens,
+                             return_stats)
 
 
 # ---------------------------------------------------------------------------
-# layer-group schedules (every family of the reference)
+# layer-group schedules
 # ---------------------------------------------------------------------------
 
 

@@ -1,0 +1,128 @@
+"""Attention-free blocks: RWKV-6 (Finch, data-dependent decay) and a Mamba
+selective-SSM block (for the Jamba hybrid).
+
+The counterpart of the JAX package's ``models/ssm.py``.  The linear
+recurrences run as Python loops over time, one step per token (the
+reference leaves them to ``lax.scan``; no Pallas kernel computes them),
+rounding at every step where the reference, as XLA runs it, rounds: the
+states are float32; RWKV's k·v is rounded to the activations' dtype
+before it joins the state, Mamba's Δ·u·B is not.  Decode carries the
+state explicitly.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_block(params: Dict, x: torch.Tensor, *, n_heads: int,
+                head_dim: int, state: Optional[Tuple] = None,
+                return_state: bool = False):
+    """RWKV-6 time-mix: S_t = diag(w_t)·S_{t-1} + k_tᵀ·v_t; y_t = r_t·S_t
+    with data-dependent decay w_t (the Finch contribution).
+
+    x: (B, T, D).  state: (S, x_last) with S (B, H, hd, hd) float32 and
+    x_last (B, D) carrying the token shift across decode steps; the
+    returned x_last is in x's dtype.
+    """
+    b, t, _ = x.shape
+    h, hd = n_heads, head_dim
+
+    # token shift (x_{t-1} mix)
+    if state is not None:
+        s_in, x_last = state
+        x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    else:
+        s_in = None
+        x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    mix = params["mu"]  # (4, D) for r, k, v, w
+    xr = x * mix[0] + x_prev * (1 - mix[0])
+    xk = x * mix[1] + x_prev * (1 - mix[1])
+    xv = x * mix[2] + x_prev * (1 - mix[2])
+    xw = x * mix[3] + x_prev * (1 - mix[3])
+
+    r = (xr @ params["wr"]).view(b, t, h, hd)
+    k = (xk @ params["wk"]).view(b, t, h, hd)
+    v = (xv @ params["wv"]).view(b, t, h, hd)
+    # data-dependent decay in (0, 1)
+    w = torch.sigmoid((xw @ params["ww"]).view(b, t, h, hd)
+                      + params["w_bias"].view(1, 1, h, hd))
+    u = params["u"].view(h, hd)  # bonus for the current token
+
+    s0 = s_in if s_in is not None else torch.zeros(
+        (b, h, hd, hd), dtype=torch.float32, device=x.device)
+    s_fin, y = _rwkv6_scan(r, k, v, w, u, s0)
+    y = y.reshape(b, t, h * hd) @ params["wo"]
+    if return_state:
+        return y, (s_fin, x[:, -1])
+    return y
+
+
+def _rwkv6_scan(r, k, v, w, u, s):
+    """The recurrence over time.  r, k, v, w: (B, T, H, hd); u: (H, hd);
+    s: (B, H, hd, hd) float32.  Returns the last state and the outputs
+    (B, T, H, hd) in r's dtype."""
+    ub = u[None, :, :, None]
+    outs = []
+    for i in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
+        # the outer product in the activations' dtype, then float32
+        kv = (kt[..., :, None] * vt[..., None, :]).float()
+        outs.append((rt[..., None, :] @ (s + ub * kv).to(rt.dtype))[..., 0, :])
+        s = wt[..., None].float() * s + kv
+    return s, torch.stack(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM), simplified for the Jamba hybrid
+# ---------------------------------------------------------------------------
+
+
+def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int,
+                state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+    """Selective SSM: h_t = exp(Δ_t·A)⊙h_{t-1} + Δ_t·B_t·u_t; y = C_t·h_t.
+
+    x: (B, T, D); state: (B, D, N) float32.  ``a_log`` is float32 whatever
+    the activations' dtype, so exp(Δ·A) and the state are float32.
+    """
+    b, t, d = x.shape
+    n = d_state
+
+    u = x @ params["in_proj"]                                  # (B, T, D)
+    gate = F.silu(x @ params["gate_proj"])
+    delta = F.softplus(x @ params["dt_proj"])[..., None]       # (B, T, 1)
+    bmat = x @ params["b_proj"]                                # (B, T, N)
+    cmat = x @ params["c_proj"]
+    a = -torch.exp(params["a_log"])                            # (D, N) < 0
+
+    s0 = state if state is not None else torch.zeros(
+        (b, d, n), dtype=torch.float32, device=x.device)
+    s_fin, y = _mamba_scan(u, delta, bmat, cmat, a, s0)
+    y = (y * gate) @ params["out_proj"]
+    if return_state:
+        return y, s_fin
+    return y
+
+
+def _mamba_scan(u, delta, bmat, cmat, a, s):
+    """The recurrence over time.  u: (B, T, D); delta: (B, T, 1); bmat,
+    cmat: (B, T, N); a: (D, N) float32; s: (B, D, N) float32.  Returns the
+    last state and the outputs (B, T, D) in cmat's dtype."""
+    ys = []
+    for i in range(u.shape[1]):
+        ut, dt, bt, ct = u[:, i], delta[:, i], bmat[:, i], cmat[:, i]
+        da = torch.exp(dt[..., None] * a[None])               # (B, D, N)
+        # dt·u in the activations' dtype; its product with B joins the
+        # float32 state unrounded, as the reference's fused step computes
+        # it (XLA keeps the fused product in float32)
+        s = da * s + (dt * ut).float()[..., None] * bt.float()[:, None, :]
+        ys.append((s.to(ct.dtype) @ ct[..., None])[..., 0])
+    return s, torch.stack(ys, dim=1)

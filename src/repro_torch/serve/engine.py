@@ -4,7 +4,8 @@ The counterpart of the JAX package's ``serve/engine.py``.  Requests join
 a fixed-slot batch and are served in waves; greedy sampling.  Left-pad
 slots are *poisoned*, not fed as token 0: per-row ``pad_lens`` masks them
 out of every attention read and re-bases RoPE, so a batched request
-emits what its solo run emits.  A request that runs out of KV cache
+emits what its solo run emits (in the ssm and hybrid families the pads
+still flow into the SSM states, as in the reference).  A request that runs out of KV cache
 (``max_len``) with output budget remaining is marked ``truncated=True``
 and recorded as a ``serve.truncate``
 :class:`~repro_torch.resilience.ladder.FailureEvent`, never a silent cut.

@@ -605,3 +605,80 @@ def test_cuda_warm_cached_compile_runs_bitwise(cuda, tmp_path):
         assert spec_gather.launches > g0
         for k in want:
             assert np.array_equal(mem[k], want[k]), (cu_mode, k)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "jamba_1_5_large_398b",
+                                  "llama_3_2_vision_90b", "whisper_medium"])
+def test_cuda_family_matches_cpu(cuda, arch):
+    """The smoke config (float32) of each family of the seventh slice:
+    prefill (left-padded, with stub memory where the family takes it) and
+    greedy decode steps on the card commit the CPU's tokens, logits within
+    1e-4; the SSM states within the same."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs import base
+    from repro_torch.models.model import build_model
+    cfg = base.smoke(base.get(arch))
+    m = build_model(cfg, "spec-kernel")
+    params = m.init(torch.Generator().manual_seed(5), "cpu")
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (3, 9)).astype(
+        np.int32))
+    pads = torch.tensor([0, 3, 5], dtype=torch.int32)
+    mem = None
+    if cfg.family in ("vlm", "encdec"):
+        s = cfg.enc_len if cfg.family == "encdec" else cfg.n_patches
+        mem = torch.from_numpy(rng.standard_normal(
+            (3, s, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        md = None if mem is None else mem.to(dev)
+        logits, cache = m.prefill(p, tok.to(dev), 16, memory=md,
+                                  pad_lens=pads.to(dev))
+        dec = m._encode(p, md) if cfg.family == "encdec" else md
+        out, toks = [logits], []
+        for step in range(4):
+            toks.append(logits.argmax(-1)[:, None].to(torch.int32))
+            logits, cache = m.decode_step(p, cache, toks[-1], 9 + step,
+                                          memory=dec, pad_lens=pads.to(dev))
+            out.append(logits)
+        runs[str(dev)] = ([x.cpu() for x in out], torch.cat(toks, 1).cpu(),
+                          [t.cpu() for t in tree_leaves(cache[1] or [])])
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert torch.equal(cpu[1], card[1])
+    for a, b in zip(cpu[0] + cpu[2], card[0] + card[2], strict=True):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_jamba_wave_spec_kernel_matches_spec(cuda):
+    """A Jamba smoke wave in bf16 (8 requests, 16 new tokens, a capacity
+    that poisons): dispatch="spec-kernel" commits the tokens and poison
+    counts of "spec", launching each bf16 entry 4 x 17 = 68 times (4 MoE
+    sublayers, 1 prefill + 16 decode steps)."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.serve.engine import Engine, Request
+    cfg = dataclasses.replace(base.smoke(base.get("jamba_1_5_large_398b")),
+                              dtype="bfloat16", capacity_factor=0.5)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in rng.integers(4, 13, 8)]
+    params = Engine(cfg, slots=8, max_len=40, device=cuda).params
+    runs = {}
+    for dispatch in ("spec-kernel", "spec"):
+        eng = Engine(cfg, params, slots=8, max_len=40, dispatch=dispatch,
+                     device=cuda)
+        g0 = spec_gather.entry_launches["spec_gather_bf16"]
+        s0 = spec_scatter_add.entry_launches["spec_scatter_add_bf16"]
+        res = eng.run([Request(rid=i, prompt=p, max_new=16)
+                       for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        runs[dispatch] = (res, [(w.moe_poison, w.moe_requests)
+                                for w in eng.wave_stats],
+                          spec_gather.entry_launches["spec_gather_bf16"] - g0,
+                          spec_scatter_add.entry_launches[
+                              "spec_scatter_add_bf16"] - s0)
+    assert runs["spec-kernel"][:2] == runs["spec"][:2]
+    assert runs["spec-kernel"][1][0][0] > 0, "no capacity race"
+    assert runs["spec-kernel"][2:] == (68, 68)
+    assert runs["spec"][2:] == (0, 0)

@@ -12,7 +12,10 @@ against the JAX reference, on the CPU.
   ``jax.lax.top_k``'s (the lower expert first among equal gates);
 * the model: prefill and decode logits at ``atol = rtol = 1e-4`` and poison
   counts equal, on the reference's own parameters (``params_from_numpy``),
-  for the Kimi-K2 (moe) and Granite-34B (dense) smoke configs, float32.
+  for the Kimi-K2 (moe) and Granite-34B (dense) smoke configs, float32
+  (the other families: ``tests/test_torch_ssm.py``,
+  ``tests/test_torch_cross.py``); every family's group pattern, and its
+  init's shapes, dtypes and distributions.
 
 The reference's ``spec-kernel`` runs reach its Pallas kernels in interpret
 mode, as ``tests/test_moe_serve.py`` runs them; each reference run is
@@ -30,6 +33,7 @@ from repro.configs import base as rbase
 from repro.models import layers as rlayers
 from repro.models import moe as rmoe
 from repro.models.model import build_model as rbuild
+from repro.models.model import group_count as rgroup_count
 from repro.models.model import group_pattern as rgroup_pattern
 from repro_torch.configs import base
 from repro_torch.kernels.spec_gather import spec_gather
@@ -477,29 +481,58 @@ def test_model_dispatch_spec_kernel_bitexact(cf):
         assert a[2] > 0
 
 
-def test_init_matches_reference_shapes_and_distribution(monkeypatch):
-    """The port's init draws the reference's tree of shapes and dtypes:
-    matrices normal x 0.02, norms 1; drawn in slices (the slice forced
-    small here), the same seed giving the same parameters."""
+#: one config of each family: moe, dense, ssm, hybrid, vlm, encdec
+FAMILIES = ("kimi_k2_1t_a32b", "granite_34b", "rwkv6_7b",
+            "jamba_1_5_large_398b", "llama_3_2_vision_90b", "whisper_medium")
+
+
+@pytest.mark.parametrize("name", rbase.ASSIGNED)
+def test_group_pattern_matches_reference(name):
+    ref, got = rbase.get(name), base.get(name)
+    for r, g in ((ref, got), (rbase.smoke(ref), base.smoke(got))):
+        assert tmodel.group_pattern(g) == rgroup_pattern(r)
+        assert tmodel.group_count(g) == rgroup_count(r)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_init_matches_reference_shapes_and_distribution(monkeypatch, name):
+    """The port's init draws the reference's tree of shapes and dtypes
+    (encoder included): matrices normal x 0.02, norms 1, RWKV's mu 0.5 and
+    w_bias 2.0, Mamba's a_log float32 zeros; drawn in slices (the slice
+    forced small here), the same seed giving the same parameters."""
     monkeypatch.setattr(tmodel, "INIT_SLICE", 1000)
-    ref = jax.eval_shape(rbuild(RCFG).init, jax.random.PRNGKey(0))
-    m = build_model(CFG)
+    rcfg, cfg = rbase.smoke(rbase.get(name)), base.smoke(base.get(name))
+    ref = jax.eval_shape(rbuild(rcfg).init, jax.random.PRNGKey(0))
+    m = build_model(cfg)
     got = m.init(torch.Generator().manual_seed(3), "cpu")
     again = m.init(torch.Generator().manual_seed(3), "cpu")
-    assert len(got["groups"]) == CFG.n_layers
-    for g, gp in enumerate(got["groups"]):
-        for sub, leaves in gp.items():
-            for name, t in leaves.items():
-                want = ref["groups"][sub][name]
-                assert tuple(t.shape) == tuple(want.shape[1:]), (sub, name)
-                assert t.dtype == torch.float32
-                assert torch.equal(t, again["groups"][g][sub][name])
-                if name == "ln":
-                    assert torch.equal(t, torch.ones_like(t))
-    for name in ("embed", "lm_head", "ln_f"):
-        assert tuple(got[name].shape) == tuple(ref[name].shape)
+    assert sorted(got) == sorted(ref)
+    consts = {"ln": 1.0, "mu": 0.5, "w_bias": 2.0, "a_log": 0.0}
+    for key in ("groups", "enc_groups"):
+        if key not in ref:
+            continue
+        n = jax.tree.leaves(ref[key])[0].shape[0]
+        assert len(got[key]) == n
+        for g, gp in enumerate(got[key]):
+            assert sorted(gp) == sorted(ref[key])
+            for sub, leaves in gp.items():
+                assert sorted(leaves) == sorted(ref[key][sub])
+                for pname, t in leaves.items():
+                    want = ref[key][sub][pname]
+                    assert tuple(t.shape) == tuple(want.shape[1:]), (
+                        sub, pname)
+                    assert t.dtype == getattr(torch, want.dtype.name)
+                    assert torch.equal(t, again[key][g][sub][pname])
+                    if pname in consts:
+                        assert (t == consts[pname]).all(), (sub, pname)
+    for pname in ("embed", "lm_head", "ln_f", "enc_ln_f"):
+        if pname in ref:
+            assert tuple(got[pname].shape) == tuple(ref[pname].shape)
     e = got["embed"]
     assert abs(float(e.std()) - 0.02) < 0.002 and abs(float(e.mean())) < 2e-3
+    if cfg.family == "ssm":
+        ww = torch.cat([gp["s0_rwkv"]["ww"].ravel() for gp in got["groups"]])
+        assert abs(float(ww.std()) - 0.01) < 0.001
 
 
 def test_init_in_config_dtype():
@@ -507,6 +540,12 @@ def test_init_in_config_dtype():
     p = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     assert p["embed"].dtype == torch.bfloat16
     assert p["groups"][0]["s1_moe"]["w_gate"].dtype == torch.bfloat16
+    # Mamba's a_log stays float32 in a bf16 model, as the reference's
+    jamba = dataclasses.replace(base.smoke(base.get("jamba_1_5_large_398b")),
+                                dtype="bfloat16")
+    p = build_model(jamba).init(torch.Generator().manual_seed(0), "cpu")
+    assert p["groups"][0]["s0_mamba"]["a_log"].dtype == torch.float32
+    assert p["groups"][0]["s0_mamba"]["in_proj"].dtype == torch.bfloat16
 
 
 def test_params_from_numpy_bfloat16_bits():
@@ -519,30 +558,3 @@ def test_params_from_numpy_bfloat16_bits():
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   want.view(np.int16))
-
-
-@pytest.mark.parametrize("name", ["rwkv6_7b", "jamba_1_5_large_398b",
-                                  "llama_3_2_vision_90b", "whisper_medium"])
-def test_unported_families_raise(name):
-    cfg = base.smoke(base.get(name))
-    m = build_model(cfg)
-    assert tmodel.group_pattern(cfg) == rgroup_pattern(
-        rbase.smoke(rbase.get(name)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init_cache(1, 8)
-
-
-def test_unported_messages_name_roadmap_items_that_exist():
-    """The messages name ROADMAP items by title, and each title is one."""
-    import os
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "ROADMAP.md")
-    with open(path, encoding="utf-8") as fh:
-        roadmap = fh.read()
-    for item in (tmodel.SSM_ITEM, tmodel.CROSS_ITEM):
-        title = item.split("'")[1]
-        assert f"**{title}.**" in roadmap, title
-    for msg in tmodel._MISSING.values():
-        assert "item 1" not in msg and "item 2" not in msg
