@@ -59,6 +59,19 @@ it and holds the bf16 entries to their plain versions at its shapes;
 ``[cross]`` runs Llama-3.2-Vision-90B (one layer group) and
 Whisper-medium (whole) through ``Model.prefill`` / ``decode_step`` with
 seeded stub memory, 16 greedy steps, timed and profiled.
+Training follows (the eighth slice, which reaches no kernel):
+``[train-small]`` runs 3 steps of ``make_train_step`` on every config's
+float32 smoke variant on the card and on the CPU from the same weights
+(losses within rtol 1e-4, parameters within 1e-4) and checks that a
+gradient through ``dispatch="spec-kernel"`` and through each kernel
+entry raises on CUDA tensors; ``[train-dense]`` trains Phi-4-mini-3.8B
+whole (AdamW) and ``[train-moe]`` one Grok-1-314B group at full width
+(``dispatch="spec"``, Adafactor, as the whole model takes it), 2048
+tokens a step: step ms, tokens/s, losses, peak memory, the FLOP and
+optimizer byte bounds, and a profiled step split into forward, backward
+and optimizer by kind of kernel; ``[train-ckpt]`` saves a bf16 smoke
+run on the card asynchronously, restores it bitwise and continues it
+through a fresh ``train()``.
 Phases print as they finish; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
@@ -2320,6 +2333,415 @@ def phase_cross() -> None:
     _free()
 
 
+# ---------------------------------------------------------------------------
+# training at full width
+# ---------------------------------------------------------------------------
+
+#: the full-width training traffic: SyntheticLM, global batch 8 of 256
+#: tokens (2048 a step), 1 warm-up step, then TIMED steps and one profiled
+TRAIN = dict(batch=8, seq_len=256, timed=5, seed=18)
+#: bytes an optimizer step moves per parameter: AdamW reads the bf16
+#: parameter and gradient and both float32 moments and writes the
+#: moments and the parameter; Adafactor's state is O(rows + cols)
+OPT_BYTES = {"adamw": 2 + 2 + 8 + 8 + 2, "adafactor": 2 + 2 + 2}
+#: kernel-name fragments of the training profile's kinds
+TRAIN_KINDS = (
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "splitK")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def _train_kind(name: str) -> str:
+    low = name.lower()
+    for kind, parts in TRAIN_KINDS:
+        if any(p.lower() in low for p in parts):
+            return kind
+    return "other"
+
+
+def _no_kernel_launched(tag: str) -> None:
+    """Fails unless no kernel of the port launched since ``_reset`` and
+    ``_reset_dense``: the training path reaches none."""
+    counts = _launches() + tuple(k.launches for k in _dense_kernels())
+    if any(counts):
+        fail(f"{tag}: kernels launched on the training path: {counts}")
+
+
+def _reset_dense() -> None:
+    for k in _dense_kernels():
+        k.launches = 0
+
+
+def _to(tree, device, clone=False):
+    """``tree`` (a TrainState, dicts, lists) with every tensor on
+    ``device`` (copied when ``clone``)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: (t.to(device, copy=clone)
+                               if torch.is_tensor(t) else t), tree)
+
+
+def _train_batch(cfg, data, step, device, memory=None):
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in data.batch_at(step).items()}
+    if memory is not None:
+        b["frames" if cfg.family == "encdec" else "patches"] = \
+            memory.to(device)
+    return b
+
+
+def _flat(tree):
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def phase_train_small() -> None:
+    """Every config's float32 smoke variant: 3 steps of the same
+    ``make_train_step`` on the card and on the CPU from the same weights
+    and batches (stub memory for vlm and encdec); losses within
+    ``rtol = SMOKE_TOL`` and every parameter within ``atol = SMOKE_TOL``.
+    Then a gradient through ``dispatch="spec-kernel"`` and through each
+    kernel entry must raise on CUDA tensors, as ``jax.grad`` through the
+    reference's Pallas kernels does."""
+    from repro_torch.configs import base as cbase
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    worst = 0.0
+    for arch in cbase.ASSIGNED:
+        cfg = cbase.smoke(cbase.get(arch))
+        init, step_fn, name = make_train_step(
+            build_model(cfg, "spec"), peak_lr=1e-3, warmup=1, total=10)
+        state0 = init(torch.Generator().manual_seed(7), "cpu")
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                      global_batch=2))
+        mem = _stub_memory(cfg, 2, torch.Generator().manual_seed(8), "cpu",
+                           torch.float32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state, losses = _to(state0, dev, clone=True), []
+            for i in range(3):
+                state, m = step_fn(state, _train_batch(cfg, data, i, dev,
+                                                       mem))
+                losses.append(float(m["loss"]))
+            runs[dev] = (losses, [t.cpu() for t in _flat(state.params)],
+                         int(state.step))
+        (lc, pc, sc), (lg, pg, sg) = runs["cpu"], runs["cuda"]
+        if sc != sg or sg != 3:
+            fail(f"train-small {arch}: steps {sc} / {sg}")
+        if not np.allclose(lg, lc, rtol=SMOKE_TOL, atol=0):
+            fail(f"train-small {arch}: losses cuda {lg} cpu {lc}")
+        err = max((a - b).abs().max().item() for a, b in zip(pc, pg))
+        if err > SMOKE_TOL:
+            fail(f"train-small {arch}: parameters differ cuda/cpu by {err}")
+        worst = max(worst, err)
+        print(f"[train-small] {arch} smoke config (float32, {name}): 3 "
+              f"steps on the card, losses {', '.join(f'{x:.6f}' for x in lg)}"
+              f" (CPU {', '.join(f'{x:.6f}' for x in lc)}); parameters "
+              f"within {err:.3g} of the CPU's")
+    # a gradient through a kernel raises, on the card as in the reference
+    cfg = cbase.smoke(cbase.get("kimi_k2_1t_a32b"))
+    model = build_model(cfg, "spec-kernel")
+    params = model.init(torch.Generator(device="cuda").manual_seed(9),
+                        "cuda")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=2))
+    _reset()
+    try:
+        value_and_grad(model, params, _train_batch(cfg, data, 0, "cuda"))
+    except NotImplementedError:
+        pass
+    else:
+        fail("train-small: dispatch=spec-kernel took a gradient on the card")
+    dev = torch.device("cuda")
+
+    def f(*shape):
+        return torch.randn(shape, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    calls = {
+        "spec_gather": lambda g: ops.spec_gather(
+            f(16, 8).requires_grad_(g), torch.tensor([0, 3, -1], **i32)),
+        "spec_scatter_add": lambda g: ops.spec_scatter_add(
+            f(16, 8), torch.tensor([0, 3, -1], **i32),
+            f(3, 8).requires_grad_(g)),
+        "ragged_matmul": lambda g: ops.ragged_matmul(
+            f(16, 64).requires_grad_(g), f(2, 64, 64), 8),
+        "flash_attention": lambda g: ops.flash_attention(
+            f(1, 2, 16, 64).requires_grad_(g), f(1, 2, 16, 64),
+            f(1, 2, 16, 64)),
+        "paged_attention": lambda g: ops.paged_attention(
+            f(2, 2, 64).requires_grad_(g), f(4, 8, 2, 64), f(4, 8, 2, 64),
+            torch.tensor([[0, 1], [2, 3]], **i32),
+            torch.tensor([10, 5], **i32)),
+    }
+    for name, call in calls.items():
+        try:
+            call(True)
+        except NotImplementedError:
+            pass
+        else:
+            fail(f"train-small: {name} took a gradient on the card")
+    _reset()
+    _reset_dense()
+    torch.cuda.synchronize()
+    print(f"[train-small] all {len(cbase.ASSIGNED)} configs agree card "
+          f"against CPU (parameters within {worst:.3g}, atol {SMOKE_TOL}); "
+          f"on CUDA tensors a gradient through dispatch=spec-kernel and "
+          f"through each of the {len(calls)} kernel entries raises "
+          f"NotImplementedError")
+
+
+def _multiply_params(cfg, params) -> float:
+    """Parameters that multiply per token, the embedding excluded: every
+    matrix, the MoE experts at top_k of n_experts."""
+    n = 0.0
+    for g in params["groups"] + params.get("enc_groups", []):
+        for sub in g.values():
+            for k, t in sub.items():
+                if t.dim() >= 2:
+                    share = cfg.top_k / cfg.n_experts if (
+                        t.dim() == 3 and k.startswith("w_")) else 1.0
+                    n += t.numel() * share
+    return n + params["lm_head"].numel()
+
+
+def _train_profile(run) -> dict:
+    """``run()`` (one train step) under ``torch.profiler``: the step's
+    host window (ending in a sync), the device's busy time in it, the
+    idle share, and device time by part and kind of kernel.  Forward and
+    optimizer are the kernels inside the device-side spans of the step's
+    ``train.forward`` and ``train.optimizer`` ranges (both launched from
+    this thread); backward, with its recompute, is every kernel between
+    them (autograd launches it from its own thread); the rest (the step
+    counter's increment) falls outside all three."""
+    from torch.autograd import DeviceType
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        with torch.profiler.record_function("train.step"):
+            run()
+            torch.cuda.synchronize()
+    window, spans, kernels = None, {}, []
+    for ev in prof.events():
+        span = (ev.time_range.start, ev.time_range.end)
+        if ev.device_type == DeviceType.CPU:
+            if ev.name == "train.step":
+                window = span
+        elif ev.name in ("train.forward", "train.optimizer"):
+            b, e = spans.get(ev.name, (span[0], span[1]))
+            spans[ev.name] = (min(b, span[0]), max(e, span[1]))
+        elif not ev.name.startswith("train."):
+            kernels.append((ev.time_range.start, ev.time_range.end,
+                            ev.name))
+    if window is None or len(spans) != 2:
+        fail(f"train profile: no step window or device spans ({spans})")
+    kernels.sort()
+    fwd, opt = spans["train.forward"], spans["train.optimizer"]
+    parts = {p: collections.Counter() for p in
+             ("forward", "backward", "optimizer", "rest")}
+    busy, end = 0.0, window[0]
+    for kb, ke, name in kernels:
+        kb, ke = max(kb, window[0]), min(ke, window[1])
+        if ke <= kb:
+            continue
+        mid = (kb + ke) / 2
+        part = ("forward" if fwd[0] <= mid <= fwd[1] else
+                "optimizer" if opt[0] <= mid <= opt[1] else
+                "backward" if fwd[1] < mid < opt[0] else "rest")
+        parts[part][_train_kind(name)] += ke - kb
+        busy += max(0.0, ke - max(kb, end))
+        end = max(end, ke)
+    wms = (window[1] - window[0]) / 1e3
+    return {"window_ms": wms, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / 1e3 / wms,
+            "parts": {p: {k: v / 1e3 for k, v in c.most_common()}
+                      for p, c in parts.items()}}
+
+
+def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
+    """The training phase at full width: weights and optimizer state
+    drawn on the card (the optimizer must be ``opt``), the MoE poison
+    share of the first batch, 1 warm-up step, ``TRAIN["timed"]`` steps
+    timed by the host clock ending in a sync, one profiled step; no
+    kernel of the port may launch."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import make_train_step
+    _free()
+    dev = torch.device("cuda")
+    model = build_model(cfg, dispatch)
+    init, step_fn, opt_name = make_train_step(model, opt_cfg=opt_cfg)
+    if opt_name != opt:
+        fail(f"{tag}: make_optimizer picked {opt_name}, not {opt}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init(torch.Generator(device=dev).manual_seed(TRAIN["seed"]), dev)
+    torch.cuda.synchronize()
+    _weights_line(tag, cfg, state.params, t0, cut)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                                  global_batch=TRAIN["batch"]))
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    n_params = sum(t.numel() for t in _flat(state.params))
+    n_mult = _multiply_params(cfg, state.params)
+    flop_ms = 8 * n_mult * tokens / BF16_FLOP_PER_S * 1e3
+    opt_ms = OPT_BYTES[opt_name] * n_params / HBM_BYTES_PER_S * 1e3
+    if cfg.n_experts:
+        _train_poison(tag, model, state.params, _train_batch(cfg, data, 0,
+                                                             dev))
+    _reset()
+    _reset_dense()
+    losses, times = [], []
+    for i in range(1 + TRAIN["timed"]):
+        batch = _train_batch(cfg, data, i, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+    _no_kernel_launched(tag)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)) or not (
+            0.5 * np.log(cfg.vocab) < losses[0] < 2.5 * np.log(cfg.vocab)):
+        fail(f"{tag}: losses {losses} (log vocab {np.log(cfg.vocab):.3f})")
+    if int(state.step) != len(losses):
+        fail(f"{tag}: step {int(state.step)} after {len(losses)} steps")
+    step_ms = float(np.median(times[1:])) * 1e3
+    print(f"[{tag}] {opt_name}, dispatch={dispatch}, {TRAIN['batch']} x "
+          f"{TRAIN['seq_len']} tokens a step: step ms "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times[1:])
+          + f" (median {step_ms:.1f}; warm-up {times[0] * 1e3:.1f}); "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (log vocab {np.log(cfg.vocab):.4f}); peak device memory "
+          f"{peak / 1e9:.2f} GB ({smi()})")
+    print(f"[{tag}] bounds: FLOP bound {flop_ms:.2f} ms (8 x "
+          f"{n_mult / 1e9:.3f}e9 multiplying parameters x {tokens} tokens: forward, backward "
+          f"and the remat's second forward, over 989 TFLOP/s bf16; "
+          f"{flop_ms / step_ms:.1%} of the median step); optimizer byte "
+          f"bound {opt_ms:.2f} ms ({OPT_BYTES[opt_name]} bytes x "
+          f"{n_params / 1e9:.3f}e9 parameters over 3.35 TB/s); no kernel "
+          f"of the port launched")
+    batch = _train_batch(cfg, data, len(losses), dev)
+    prof = _train_profile(lambda: step_fn(state, batch))
+    parts = prof["parts"]
+    print(f"[{tag}-profile] one step (profiled): window "
+          f"{prof['window_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
+          f"ms, idle {prof['idle_share']:.1%}; " + "; ".join(
+              f"{p} {sum(k.values()):.2f} ms (" + ", ".join(
+                  f"{n} {v:.2f}" for n, v in k.items()) + ")"
+              for p, k in parts.items()) + f" ({smi()})")
+    return {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
+            "losses": losses, "peak_bytes": peak, "flop_ms": flop_ms,
+            "opt_ms": opt_ms, "profile": prof}
+
+
+def _train_poison(tag, model, params, batch) -> None:
+    """Poisoned MoE dispatch requests of one forward over ``batch``
+    (exact counts, from ``_run_groups(collect_stats=True)``)."""
+    from repro_torch.models.moe import round_capacity
+    cfg = model.cfg
+    tok = batch["tokens"].long()
+    with torch.no_grad():
+        _, _, _, poison = model._run_groups(params, params["embed"][tok],
+                                            collect_stats=True)
+    n_moe = sum(k == "moe" for k in _pattern(cfg)) * len(params["groups"])
+    n_req = tok.numel() * cfg.top_k * n_moe
+    cap = round_capacity(tok.numel(), cfg.n_experts, cfg.top_k,
+                         cfg.capacity_factor)
+    print(f"[{tag}] poison share of the first training batch: "
+          f"{int(poison)} of {n_req} dispatch requests "
+          f"({int(poison) / n_req:.2%}), capacity {cap} rows an expert")
+
+
+def _pattern(cfg):
+    from repro_torch.models.model import group_pattern
+    return group_pattern(cfg)
+
+
+def phase_train_dense() -> None:
+    """Phi-4-mini-3.8B whole (32 layers, nothing cut), bf16, AdamW."""
+    from repro_torch.configs import base as cbase
+    cfg = cbase.get("phi4_mini_3_8b")
+    _train_full("train-dense", cfg, f"all {cfg.n_layers} layers, nothing "
+                f"cut", "adamw")
+    _free()
+
+
+def phase_train_moe() -> None:
+    """Grok-1-314B at full width, one [attn, moe] group (n_layers 64 ->
+    1), ``dispatch="spec"``, Adafactor as ``make_optimizer`` picks for the
+    whole model."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    full = cbase.get("grok_1_314b")
+    cfg = dataclasses.replace(full, n_layers=1)
+    small_opt = ("adafactor" if cbase.param_count(cfg)[0] > 100e9
+                 else "adamw")
+    print(f"[train-moe] optimizer from make_optimizer(get('grok_1_314b')): "
+          f"{cbase.param_count(full)[0] / 1e9:.1f}e9 parameters pick "
+          f"adafactor; the cut config's {cbase.param_count(cfg)[0] / 1e9:.2f}"
+          f"e9 would pick {small_opt}, whose "
+          f"{8 * cbase.param_count(cfg)[0] / 1e9:.1f} GB of float32 moments "
+          f"do not fit beside the bf16 weights and gradients")
+    _train_full("train-moe", cfg, f"n_layers {full.n_layers} cut to 1, "
+                f"one [attn, moe] group, {cfg.n_experts} experts "
+                f"top-{cfg.top_k}", "adafactor", opt_cfg=full)
+    _free()
+
+
+def phase_train_ckpt() -> None:
+    """On the card at a bf16 smoke config: train, save_async and wait, a
+    fresh ``train()`` that restores LATEST and continues; the restored
+    tensors on the card, in their dtypes, bitwise the saved ones."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import base as cbase
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = dataclasses.replace(cbase.smoke(cbase.get("phi4_mini_3_8b")),
+                              dtype="bfloat16")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        kw = dict(ckpt_dir=d, ckpt_every=2, global_batch=2, seq_len=16)
+        logs = []
+        out1 = train(cfg, TrainerConfig(steps=4, **kw), log=logs.append,
+                     device=None)
+        mgr = CheckpointManager(d)
+        mgr.save_async(4, out1["state"])
+        mgr.wait()
+        back = mgr.restore(shard_fn=lambda t: _to(t, "cuda"))
+        saved = _flat(out1["state"])
+        restored = _flat(back)
+        if len(saved) != len(restored):
+            fail(f"train-ckpt: {len(restored)} tensors of {len(saved)}")
+        for a, b in zip(saved, restored):
+            if b.device.type != "cuda" or b.dtype != a.dtype or not \
+                    torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)):
+                fail(f"train-ckpt: restored {b.dtype} on {b.device} vs "
+                     f"saved {a.dtype}")
+        n_bf16 = sum(t.dtype == torch.bfloat16 for t in restored)
+        out2 = train(cfg, TrainerConfig(steps=7, **kw), log=logs.append,
+                     device=None)
+        if f"[trainer] restored step 4 from {d}" not in logs or int(
+                out2["state"].step) != 7 or len(out2["losses"]) != 3 or \
+                not np.all(np.isfinite(out2["losses"])):
+            fail(f"train-ckpt: restart {logs}, step "
+                 f"{int(out2['state'].step)}")
+        print(f"[train-ckpt] {cfg.name} smoke config in bf16 on the card: "
+              f"4 steps, save_async + wait, {len(restored)} tensors restored "
+              f"bitwise on cuda in their dtypes ({n_bf16} bf16); a fresh "
+              f"train() restored step 4 from LATEST and ran to step 7 "
+              f"(losses {', '.join(f'{x:.4f}' for x in out2['losses'])}); "
+              f"steps on disk {CheckpointManager(d).all_steps()}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> None:
     """Run every phase; print the result lines only if all passed."""
     if not torch.cuda.is_available():
@@ -2339,6 +2761,10 @@ def main() -> None:
         if rec["name"] in hybrid:
             rec["jamba"] = hybrid[rec["name"]]
     phase_cross()
+    phase_train_small()
+    phase_train_dense()
+    phase_train_moe()
+    phase_train_ckpt()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))
     print(smi())

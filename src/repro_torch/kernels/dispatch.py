@@ -30,6 +30,20 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when autograd is recording and one of
+    ``tensors`` requires a gradient.  No kernel has a backward, and the
+    reference's ``jax.grad`` through its Pallas kernels raises too; on a
+    CUDA tensor the kernel's output would otherwise carry no ``grad_fn``
+    and cut the graph without a word, and on a CPU tensor the plain
+    version would differentiate where the card cannot."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: a kernel entry takes no tensor that "
+            f"requires a gradient (as jax.grad through the reference's "
+            f"Pallas kernel raises)")
+
+
 def resolve_device(device, who: str) -> torch.device:
     """``device``, or ``cuda`` when None; raises when a CUDA device is
     asked for and there is none, so an entry point never falls back to

@@ -33,7 +33,8 @@ import torch
 
 from . import ref
 from .build import check, load
-from .dispatch import aligned16, check_float, on_cuda, stream_of, suffix
+from .dispatch import (aligned16, check_float, on_cuda, refuse_grad,
+                       stream_of, suffix)
 
 #: head widths the kernels are built for
 HEAD_DIMS = (64, 128)
@@ -104,6 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     cuda = on_cuda(q, k, v)
     check_float("flash_attention", q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q, k, v must be (B, H, T, d) with k and v alike, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -17,7 +17,7 @@ import torch
 
 from . import ref
 from .build import check, load
-from .dispatch import check_float, on_cuda, stream_of, suffix
+from .dispatch import check_float, on_cuda, refuse_grad, stream_of, suffix
 
 #: head widths the kernel is built for
 HEAD_DIMS = (64, 128)
@@ -40,6 +40,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """
     cuda = on_cuda(q, k_pages, v_pages, page_table, seq_lens)
     check_float("paged_attention", q, k_pages, v_pages)
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"q must be (B, H, d) and k_pages, v_pages alike "
                          f"(P, page, H, d), got {tuple(q.shape)}, "

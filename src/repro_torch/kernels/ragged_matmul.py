@@ -35,7 +35,8 @@ import torch
 
 from . import ref
 from .build import check, load
-from .dispatch import aligned16, check_float, on_cuda, stream_of, suffix
+from .dispatch import (aligned16, check_float, on_cuda, refuse_grad,
+                       stream_of, suffix)
 
 #: rows and K of one TMA-route tile (its TMA boxes are 64 elements, the
 #: 128-byte swizzle's width, by 64 rows)
@@ -79,6 +80,7 @@ def ragged_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """
     cuda = on_cuda(x, w)
     check_float("ragged_matmul", x, w)
+    refuse_grad("ragged_matmul", x, w)
     if w.dim() != 3:
         raise ValueError(f"w must be (E, D, F), got {tuple(w.shape)}")
     e, d, f = w.shape

@@ -37,7 +37,8 @@ import torch
 from ..resilience import faults
 from . import ref
 from .build import check, load
-from .dispatch import check_table_idx, on_cuda, stream_of, suffix
+from .dispatch import (check_table_idx, on_cuda, refuse_grad, stream_of,
+                       suffix)
 from .staging import Slot, check_staged
 
 ROUTES = ("tensor", "staged")
@@ -60,6 +61,7 @@ def spec_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """
     cuda = on_cuda(table, idx)
     check_table_idx(table, idx)
+    refuse_grad("spec_gather", table)
     if faults.ACTIVE and faults.fire("kernels.gather.allpoison"):
         idx = torch.full_like(idx, -1)
     if not cuda:

@@ -42,7 +42,8 @@ import torch
 from ..resilience import faults
 from . import ref
 from .build import check, load
-from .dispatch import check_table_idx, on_cuda, stream_of, suffix
+from .dispatch import (check_table_idx, on_cuda, refuse_grad, stream_of,
+                       suffix)
 from .staging import Slot, check_staged
 
 ROUTES = ("tensor", "staged")
@@ -73,6 +74,7 @@ def spec_scatter_add(table: torch.Tensor, idx: torch.Tensor,
                          f"{(idx.shape[0], table.shape[1])}")
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
+    refuse_grad("spec_scatter_add", table, values)
     if faults.ACTIVE:
         faults.inject("kernels.scatter.raise")
         if faults.fire("kernels.scatter.allpoison"):

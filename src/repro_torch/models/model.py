@@ -24,13 +24,21 @@ written in place; SSM states a list over groups of one state per rwkv or
 mamba sublayer, replaced by each call.  Either is None when the pattern
 has no such sublayer.  Cross-attention reads ``memory`` (stub patch or
 frame embeddings, ``(B, S, d_model)``) through its own K/V projections
-on every call.  Training (``loss``) is not ported yet.
+on every call.
+
+:meth:`Model.loss` is the training objective: the mean next-token NLL
+from float32 log-softmax, over every family.  Each layer group, and each
+encoder layer, runs under ``torch.utils.checkpoint`` (non-reentrant):
+its activations are recomputed in the backward pass, as the reference
+remats each scanned group with ``nothing_saveable``; a step keeps only
+each group's input.  The serving calls never checkpoint.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -264,20 +272,25 @@ class Model(NamedTuple):
             return x, caches, states, poison
         return x, caches, states
 
-    def _encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
-        """The enc-dec encoder over stub frame embeddings (bidirectional,
-        no cache)."""
+    def _enc_layer(self, gp: Dict, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        out, _ = L.gqa_attention(
+            gp["s0_attn"], L.rms_norm(h, gp["s0_attn"]["ln"]),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, theta=cfg.rope_theta, causal=False)
+        h = h + out
+        m = gp["s1_mlp"]
+        return h + L.swiglu(L.rms_norm(h, m["ln"]), m["w_gate"], m["w_up"],
+                            m["w_down"])
+
+    def _encode(self, params: Dict, frames: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
+        """The enc-dec encoder over stub frame embeddings (bidirectional,
+        no cache); ``remat`` checkpoints each layer (training)."""
         h = frames
         for gp in params["enc_groups"]:
-            out, _ = L.gqa_attention(
-                gp["s0_attn"], L.rms_norm(h, gp["s0_attn"]["ln"]),
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.hd, theta=cfg.rope_theta, causal=False)
-            h = h + out
-            m = gp["s1_mlp"]
-            h = h + L.swiglu(L.rms_norm(h, m["ln"]), m["w_gate"], m["w_up"],
-                             m["w_down"])
+            h = (checkpoint(self._enc_layer, gp, h, use_reentrant=False)
+                 if remat else self._enc_layer(gp, h))
         return L.rms_norm(h, params["enc_ln_f"])
 
     def _make_cross(self, params: Dict, memory):
@@ -285,6 +298,30 @@ class Model(NamedTuple):
         (each cross sublayer owns its ``wk`` / ``wv``), so the memory goes
         through as it is."""
         return memory
+
+    # ----------------------------------------------------------------- train
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Mean NLL of the next token.  ``batch["tokens"]`` (B, T) int32;
+        the enc-dec family also takes ``batch["frames"]`` and the vlm
+        family ``batch["patches"]``, (B, S, d_model) stub memory."""
+        cfg = self.cfg
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+        cross = None
+        if cfg.family == "encdec":
+            cross = self._make_cross(params, self._encode(
+                params, batch["frames"], remat=True))
+        elif cfg.family == "vlm":
+            cross = self._make_cross(params, batch["patches"])
+        for gp in params["groups"]:
+            x = checkpoint(lambda gp, x: self._run_groups(
+                {"groups": [gp]}, x, cross_kv=cross)[0], gp, x,
+                use_reentrant=False)
+        x = L.rms_norm(x, params["ln_f"])
+        logits = (x @ params["lm_head"])[:, :-1].float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None])
+        return nll.mean()
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int,

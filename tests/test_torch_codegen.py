@@ -383,6 +383,8 @@ def test_import_boundary_no_jax_no_repro():
         "import repro_torch.core.machine, repro_torch.core.sim, "
         "repro_torch.verify, repro_torch.verify.__main__, "
         "repro_torch.frontend.cache\n"
+        "import repro_torch.data.pipeline, repro_torch.optim, "
+        "repro_torch.train.trainer, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -682,3 +682,129 @@ def test_cuda_jamba_wave_spec_kernel_matches_spec(cuda):
     assert runs["spec-kernel"][1][0][0] > 0, "no capacity race"
     assert runs["spec-kernel"][2:] == (68, 68)
     assert runs["spec"][2:] == (0, 0)
+
+
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "kimi_k2_1t_a32b",
+                                  "jamba_1_5_large_398b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """Three steps of ``make_train_step`` on the card and on the CPU from
+    the same float32 smoke weights and batches: losses at rtol 1e-4,
+    every parameter and moment within 1e-4, the step count equal."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import make_train_step
+    cfg = base.smoke(base.get(arch))
+    init, step_fn, _ = make_train_step(build_model(cfg), peak_lr=1e-3,
+                                       warmup=1, total=10)
+    state0 = init(torch.Generator().manual_seed(3), "cpu")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=2))
+    runs = {}
+    for dev in ("cpu", cuda):
+        state = tree_map(lambda t: t.to(dev, copy=True)
+                         if torch.is_tensor(t) else t, state0)
+        losses = []
+        for i in range(3):
+            state, m = step_fn(state, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in data.batch_at(i).items()})
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, [t.cpu() for t in tree_leaves(state)
+                                   if torch.is_tensor(t)])
+    cpu, card = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    for a, b in zip(cpu[1], card[1], strict=True):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+def test_cuda_kernels_refuse_a_gradient(cuda):
+    """Each kernel entry (and its ops wrapper) raises NotImplementedError
+    on CUDA tensors that require a gradient, before it launches; without
+    a gradient the same call launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ragged_matmul import ragged_matmul
+
+    def f(*shape):
+        return torch.randn(shape, device=cuda)
+
+    i32 = dict(dtype=torch.int32, device=cuda)
+    idx = torch.tensor([0, 3, -1], **i32)
+    cases = [
+        (spec_gather, ops.spec_gather, lambda: [f(16, 8), idx], [0]),
+        (spec_scatter_add, ops.spec_scatter_add,
+         lambda: [f(16, 8), idx, f(3, 8)], [0, 2]),
+        (ragged_matmul, lambda x, w: ops.ragged_matmul(x, w, 8),
+         lambda: [f(16, 64), f(2, 64, 64)], [0, 1]),
+        (flash_attention, ops.flash_attention,
+         lambda: [f(1, 2, 16, 64), f(1, 2, 16, 64), f(1, 2, 16, 64)],
+         [0, 1, 2]),
+        (paged_attention, ops.paged_attention,
+         lambda: [f(2, 2, 64), f(4, 8, 2, 64), f(4, 8, 2, 64),
+                  torch.tensor([[0, 1], [2, 3]], **i32),
+                  torch.tensor([10, 5], **i32)], [0, 1, 2]),
+    ]
+    for kernel, op, make, diff in cases:
+        for i in diff:
+            args = make()
+            args[i].requires_grad_(True)
+            n = kernel.launches
+            with pytest.raises(NotImplementedError, match="no backward"):
+                op(*args)
+            assert kernel.launches == n
+            with torch.no_grad():
+                op(*args)
+            assert kernel.launches == n + 1
+    torch.cuda.synchronize()
+
+
+def test_cuda_spec_kernel_loss_refuses_a_gradient(cuda):
+    from repro_torch.configs import base
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import value_and_grad
+    cfg = base.smoke(base.get("kimi_k2_1t_a32b"))
+    model = build_model(cfg, "spec-kernel")
+    params = model.init(torch.Generator(device=cuda).manual_seed(2), cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16),
+                                     dtype=torch.int32, device=cuda)}
+    n = spec_scatter_add.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        value_and_grad(model, params, batch)
+    assert spec_scatter_add.launches == n
+    assert not any(p.requires_grad for p in
+                   [params["embed"], params["lm_head"]])
+
+
+def test_cuda_checkpoint_roundtrip_bf16(cuda, tmp_path):
+    """A bf16 TrainState on the card through save_async, wait and restore
+    with a shard_fn onto the card: every tensor back on the card, in its
+    dtype, bitwise; a fresh trainer restores LATEST and continues."""
+    import dataclasses
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs import base
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import TrainerConfig, train
+    cfg = dataclasses.replace(base.smoke(base.get("granite_34b")),
+                              dtype="bfloat16")
+    kw = dict(ckpt_dir=str(tmp_path), global_batch=2, seq_len=16)
+    out = train(cfg, TrainerConfig(steps=2, **kw), log=lambda s: None)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(2, out["state"])
+    mgr.wait()
+    back = mgr.restore(shard_fn=lambda t: tree_map(
+        lambda x: x.to(cuda) if torch.is_tensor(x) else x, t))
+    saved = [t for t in tree_leaves(out["state"]) if torch.is_tensor(t)]
+    got = [t for t in tree_leaves(back) if torch.is_tensor(t)]
+    assert len(saved) == len(got)
+    assert any(t.dtype == torch.bfloat16 for t in got)
+    for a, b in zip(saved, got):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    logs = []
+    out2 = train(cfg, TrainerConfig(steps=4, **kw), log=logs.append)
+    assert logs[0].startswith("[trainer] restored step 2")
+    assert int(out2["state"].step) == 4
+    assert out2["state"].params["embed"].device.type == "cuda"
