@@ -38,6 +38,19 @@ device's busy and idle time, its router's top-k (a stable sort, so ties
 keep the reference's order) timed beside ``torch.topk``, and the two
 bf16 entries held against
 their plain versions at the prefill and decode shapes and timed.
+The mesh follows the serving phase (the ninth slice): ``[mesh]`` serves
+the same wave again under ``use_mesh`` of a (1, 1) ("data", "model")
+mesh on a one-rank NCCL group, where ``moe_spec`` takes the
+expert-parallel variant, which must commit the flat run's tokens and
+poison count with 17 launches of each bf16 entry; ``[mesh-shards]``
+runs the splits one card can hold shard by shard
+(``repro_torch.models.moe.run_shards``): Kimi-K2's MoE layer at 4096
+tokens expert-parallel at 2 and 4 shards and Grok-1's tensor-parallel
+at 2, each against the flat path (poison counts equal, outputs within
+``MESH_BF16_TOL``), with the bf16 entries held against their plain
+versions and timed at every shard's shapes; ``[dryrun]`` runs one
+dry-run cell (Kimi-K2 x decode_32k on a fake 256-rank mesh) in a
+subprocess and prints its per-device counts and H100 roofline terms.
 After the parity phase, the ``[sim]`` lines run the paper's evaluation
 path: each workload at its default size through
 ``repro_torch.core.pipeline.run_all`` (STA, DAE, SPEC and ORACLE cycles
@@ -1942,6 +1955,8 @@ def phase_serve_full() -> list:
           f"{rows} rows: max |got - float32 sum| {dup_err:.4g}, within "
           f"bf16_sum_bound (max {dup_bound:.4g}) "
           f"({time.perf_counter() - t0:.1f} s)")
+    mesh = phase_mesh(cfg, params, prompts, res_s, waves_s, stats)
+    shards = _mesh_shards_kimi(cfg, params)
     records = []
     for name, lib, replaces in (
             ("spec_gather", "index_select",
@@ -1966,10 +1981,286 @@ def phase_serve_full() -> list:
             "serve": {"stats": stats, "profile": profile,
                       "moe_poison": wave.moe_poison,
                       "moe_requests": wave.moe_requests,
-                      "peak_bytes": peak, "prompt_lens": lens.tolist()}})
+                      "peak_bytes": peak, "prompt_lens": lens.tolist()},
+            "mesh": {"serve": mesh, "shards": {
+                k: v[name] for k, v in shards.items()}}})
     del params, timed_k, timed_s
     _free()
     return records
+
+
+# ---------------------------------------------------------------------------
+# the mesh: expert- and tensor-parallel MoE dispatch, the dry run
+# ---------------------------------------------------------------------------
+
+#: bf16 tolerance of a mesh variant's output against the flat path's:
+#: each shard's partial output (EP) or expert output (TP) is rounded to
+#: bf16 before the shards are summed, in another order than the flat
+#: path's one sum, so the two may differ by a few bf16 rounding steps of
+#: the largest output; bounded by 2**-6 * max|flat| (2 ulp at the max)
+MESH_BF16_TOL = 2.0 ** -6
+
+
+def phase_mesh(cfg, params, prompts, res_flat, waves_flat, flat_stats):
+    """``[mesh]``: the wave of ``[serve]`` again, through the engine under
+    ``use_mesh`` of a (1, 1) ("data", "model") mesh on a one-rank NCCL
+    group: ``moe_spec`` takes the expert-parallel variant, whose fill and
+    combine launch the bf16 entries and whose partial output and poison
+    counts go through NCCL all-reduces.  It must commit the flat run's
+    tokens and poison count with 17 launches of each bf16 entry."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh
+    t0 = time.perf_counter()
+    picked = collections.Counter()
+    real_ep = moe._moe_spec_ep
+
+    def ep(*args, **kw):
+        picked["ep"] += 1
+        return real_ep(*args, **kw)
+
+    with process_group("nccl"):
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        moe._moe_spec_ep = ep
+        try:
+            with use_mesh(mesh):
+                _serve(cfg, params, prompts, "spec-kernel")  # warm-up
+                g, s = _counters()
+                _reset()
+                picked.clear()
+                res, waves, timed = _serve(cfg, params, prompts,
+                                           "spec-kernel")
+                torch.cuda.synchronize()
+                launches = {"spec_gather": (
+                    g.launches, g.entry_launches["spec_gather_bf16"]),
+                    "spec_scatter_add": (
+                        s.launches,
+                        s.entry_launches["spec_scatter_add_bf16"])}
+        finally:
+            moe._moe_spec_ep = real_ep
+    forwards = 1 + SERVE["max_new"]
+    if picked["ep"] != forwards:
+        fail(f"mesh: the expert-parallel variant ran {picked['ep']} times, "
+             f"want {forwards}")
+    for name, (n, bf16) in launches.items():
+        if (n, bf16) != (forwards, forwards):
+            fail(f"mesh: {name} launched {n} times ({bf16} by the bf16 "
+                 f"entry), want {forwards}")
+    if res != res_flat:
+        fail("mesh: the expert-parallel wave committed other tokens")
+    pm = [(w.moe_poison, w.moe_requests) for w in waves]
+    pf = [(w.moe_poison, w.moe_requests) for w in waves_flat]
+    if pm != pf:
+        fail(f"mesh: poison counts {pm} differ from the flat run's {pf}")
+    w = waves[0]
+    st = {"prefill_ms": timed.prefill_s[0] * 1e3,
+          "decode_ms_per_step": float(np.mean(timed.decode_s)) * 1e3,
+          "tok_s": w.tokens / w.wall_s, "wall_s": w.wall_s,
+          "moe_poison": w.moe_poison, "moe_requests": w.moe_requests,
+          "launches": {k: v[0] for k, v in launches.items()}}
+    flat = flat_stats["spec-kernel"]
+    print(f"[mesh] {cfg.name} one group under use_mesh((1, 1) data x model, "
+          f"one-rank NCCL group): expert-parallel MoE in all {forwards} "
+          f"forwards, same tokens for all {len(res)} requests and same "
+          f"poison as the flat run: {w.moe_poison} of {w.moe_requests} "
+          f"dispatch requests poisoned; launches {st['launches']} (bf16 "
+          f"entries); prefill {st['prefill_ms']:.2f} ms (flat "
+          f"{flat['prefill_ms']:.2f}), decode {st['decode_ms_per_step']:.3f} "
+          f"ms a step (flat {flat['decode_ms_per_step']:.3f}), "
+          f"{st['tok_s']:.1f} tokens/s (flat {flat['tok_s']:.1f}) "
+          f"({time.perf_counter() - t0:.1f} s; {smi()})")
+    return st
+
+
+def _shard_lines(tag, slot, table_rows, d, x, top_k, h):
+    """The two bf16 entries at one shard's shapes against their plain
+    versions, timed (``_bf16_line``): the scatter of the shard's N*k
+    requests into its (rows, d) buffer, the gather of them from ``h``."""
+    src = x.repeat_interleave(top_k, dim=0)
+    zeros = torch.zeros((table_rows, d), dtype=x.dtype, device=x.device)
+    out = {"spec_scatter_add": _bf16_line("spec_scatter_add", slot, zeros,
+                                          src),
+           "spec_gather": _bf16_line("spec_gather", slot, h, None)}
+    del src, zeros
+    for name, r in out.items():
+        print(f"[mesh-shards] {tag} {name} bf16 n={r['n']} rows={r['rows']} "
+              f"live={r['n_live']}: bitwise equal to the plain version; "
+              f"device {r['ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, library "
+              f"{r['library_ms'] * 1e3:.2f} us; byte bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_ms'] / r['ms']:.1%})")
+    return out
+
+
+def _shards_against_flat(tag, variant, p, x, n_shards, cfg, flat, n_flat):
+    """``run_shards`` of ``variant`` on the card (each shard's local
+    function in turn, launches counted per shard) against the flat path:
+    the poisoned count bitwise, the output within MESH_BF16_TOL; then the
+    bf16 entries at each shard's shapes."""
+    from repro_torch.models import moe
+    g, s = _counters()
+    per = []
+
+    def each(shard, slot):
+        per.append((g.launches, s.launches))
+
+    _reset()
+    out, pois, slots = moe.run_shards(
+        p, x, n_shards, variant=variant, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor, kernel=True,
+        each=each)
+    torch.cuda.synchronize()
+    gather_total = g.launches
+    steps = [(b[0] - a[0], b[1] - a[1])
+             for a, b in zip([(0, 0)] + per[:-1], per)]
+    want_gather = n_shards if variant == "ep" else 1
+    if [st[1] for st in steps] != [1] * n_shards or             gather_total != want_gather:
+        fail(f"mesh-shards {tag}: launches per shard {steps}, gathers "
+             f"{gather_total} (want one scatter a shard, {want_gather} "
+             f"gathers)")
+    if int(pois) != int(n_flat):
+        fail(f"mesh-shards {tag}: {int(pois)} poisoned, flat {int(n_flat)}")
+    dev = (out.float() - flat.float()).abs().max().item()
+    bound = MESH_BF16_TOL * flat.float().abs().max().item()
+    if not dev <= bound:
+        fail(f"mesh-shards {tag}: max |shards - flat| {dev:.4g} past "
+             f"{bound:.4g}")
+    print(f"[mesh-shards] {tag}: {n_shards} shards summed against flat: "
+          f"poisoned {int(pois)} of {x.shape[0] * cfg.top_k} (flat "
+          f"{int(n_flat)}, equal); max |shards - flat| {dev:.4g} (bound "
+          f"{bound:.4g} = 2**-6 max|flat|); launches per shard (gather, "
+          f"scatter) {steps}, gathers in all {gather_total}")
+    rec = {"n_shards": n_shards, "poisoned": int(pois),
+           "max_abs_dev": dev, "bound": bound, "launches": steps,
+           "kernels": []}
+    d = x.shape[1]
+    cap = moe.round_capacity(x.shape[0], cfg.n_experts, cfg.top_k,
+                             cfg.capacity_factor)
+    e_rows = (cfg.n_experts // n_shards if variant == "ep"
+              else cfg.n_experts) * cap
+    kgen = torch.Generator(device="cuda").manual_seed(23)
+    h = torch.randn((e_rows, d), generator=kgen, device="cuda").bfloat16()
+    for shard, slot in enumerate(slots if variant == "ep" else slots[:1]):
+        rec["kernels"].append(_shard_lines(
+            f"{tag} shard {shard}", slot, e_rows, d, x, cfg.top_k, h))
+    del h, out, slots
+    return rec
+
+
+def _skewed_tokens(n: int, d: int, gen) -> torch.Tensor:
+    """``n`` bf16 activations of width ``d`` that share one random
+    component as large as their own, so the router favours the same
+    experts and the capacity race poisons requests."""
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    x += torch.randn((1, d), generator=gen, device="cuda")
+    return x.bfloat16()
+
+
+def _mesh_shards_kimi(cfg, params) -> dict:
+    """``[mesh-shards]``, Kimi-K2's MoE layer at the prefill shape (4096
+    tokens): the expert-parallel split at 2 and 4 shards against flat."""
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    p = params["groups"][0]["s1_moe"]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = _skewed_tokens(4096, cfg.d_model, gen)
+    flat, n_flat = moe._moe_spec_flat(
+        p, x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor, kernel=True, stats=True)
+    out = {}
+    for n in (2, 4):
+        rec = _shards_against_flat(f"{cfg.name} EP x{n}", "ep", p, x, n,
+                                   cfg, flat, n_flat)
+        out[f"ep{n}"] = {
+            name: {**{k: v for k, v in rec.items() if k != "kernels"},
+                   "per_shard": [kr[name] for kr in rec["kernels"]]}
+            for name in ("spec_gather", "spec_scatter_add")}
+    print(f"[mesh-shards] {cfg.name} done ({time.perf_counter() - t0:.1f} "
+          f"s; {smi()})")
+    del x, flat
+    return out
+
+
+def phase_mesh_shards_grok() -> dict:
+    """``[mesh-shards]``, Grok-1's MoE layer (8 experts, ff 32768) at 4096
+    tokens: the tensor-parallel split at 2 shards against flat."""
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_sublayer
+    _free()
+    t0 = time.perf_counter()
+    cfg = cbase.get("grok_1_314b")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    p = init_sublayer(cfg, "moe", gen, torch.device("cuda"))
+    x = _skewed_tokens(4096, cfg.d_model, gen)
+    flat, n_flat = moe._moe_spec_flat(
+        p, x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor, kernel=True, stats=True)
+    rec = _shards_against_flat(f"{cfg.name} TP x2", "tp", p, x, 2, cfg,
+                               flat, n_flat)
+    print(f"[mesh-shards] {cfg.name} done ({time.perf_counter() - t0:.1f} "
+          f"s; {smi()})")
+    del p, x, flat
+    _free()
+    return {name: {**{k: v for k, v in rec.items() if k != "kernels"},
+                   "per_shard": [kr[name] for kr in rec["kernels"]]}
+            for name in ("spec_gather", "spec_scatter_add")}
+
+
+DRYRUN_CELL = ("kimi_k2_1t_a32b", "decode_32k")
+
+
+def phase_dryrun() -> dict:
+    """``[dryrun]``: one dry-run cell in its own process (a fake process
+    group of 256 ranks, the (16, 16) production mesh, fake tensors: no
+    device memory), its per-device counts and the H100 roofline terms."""
+    from repro_torch.launch import roofline
+    arch, shape = DRYRUN_CELL
+    out = os.path.join(ROOT, "build", "dryrun", f"{arch}__{shape}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--out", out],
+                       capture_output=True, text=True, env=env, timeout=600,
+                       cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"dryrun {arch} x {shape}: exit {p.returncode}\n"
+             f"{p.stderr[-3000:]}")
+    with open(out) as fh:
+        rec = json.load(fh)
+    r = roofline.analyze(rec)
+    mem = rec["memory_analysis"]
+    coll = rec["collective_bytes"]
+    print(f"[dryrun] {arch} x {shape} x single ({rec['n_devices']} fake "
+          f"ranks, (16, 16) data x model, no device memory): per device "
+          f"parameters {rec['param_bytes'] / 1e9:.3f} GB, arguments "
+          f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+          f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (in place "
+          f"{mem['alias_size_in_bytes'] / 1e9:.3f}), live-output peak "
+          f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB; matmul FLOPs "
+          f"{rec['flops']:.6g}, matmul bytes {rec['bytes_accessed']:.6g}; "
+          f"collective bytes " + ", ".join(
+              f"{k} {v:.6g}" for k, v in coll.items())
+          + f"; replicated ops {rec['replicated_ops']}; cell "
+          f"{rec['seconds']:.1f} s in a {wall:.1f} s process")
+    print(f"[dryrun] H100 roofline (989 TFLOP/s bf16, 3.35 TB/s HBM3, "
+          f"450 GB/s NVLink a direction): compute {r.compute_s * 1e3:.4f} "
+          f"ms, memory {r.memory_s * 1e3:.4f} ms, collective "
+          f"{r.collective_s * 1e3:.4f} ms; {r.dominant}-bound, step bound "
+          f"{r.step_time_s * 1e3:.4f} ms, useful {r.useful_ratio:.3f}, MFU "
+          f"at the bound {r.mfu:.2%} (counted work, not a time measured "
+          f"on a card)")
+    if not (rec["flops"] > 0 and coll["total"] > 0):
+        fail(f"dryrun: nothing counted: {rec}")
+    return {"record": {k: v for k, v in rec.items()}, "roofline":
+            {"compute_s": r.compute_s, "memory_s": r.memory_s,
+             "collective_s": r.collective_s, "dominant": r.dominant,
+             "step_time_s": r.step_time_s, "mfu": r.mfu},
+            "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2755,6 +3046,13 @@ def main() -> None:
     phase_kernels_dense()
     line["kernels"] += phase_api_full()
     line["kernels"] += phase_serve_full()
+    grok = phase_mesh_shards_grok()
+    for rec in line["kernels"]:
+        if "mesh" in rec:  # the two bf16 entries
+            rec["mesh"]["shards"]["tp2_grok"] = grok[
+                rec["name"].removesuffix("_bf16")]
+    dry = phase_dryrun()
+    line["dryrun"] = dry
     phase_ssm()
     hybrid = phase_hybrid()
     for rec in line["kernels"]:

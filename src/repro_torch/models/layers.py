@@ -3,8 +3,13 @@
 The counterpart of the JAX package's ``models/layers.py``: pure functions
 over parameter dictionaries, the same arithmetic in the same dtypes
 (float32 statistics and softmax state, everything else in the
-activations' dtype).  The reference's sharding constraints are dropped:
-the port has no mesh yet.
+activations' dtype).  The reference's sharding constraints sit at the
+same points with the same axes (:func:`repro_torch.models.sharding.constrain`):
+under an ambient mesh they redistribute DTensor activations, and they
+pass plain tensors through, so every path over plain tensors is
+unchanged, bit for bit.  Where the port's layout differs from the
+reference's (the queries are ``(B, T, H, hd)`` until RoPE), the axes
+follow the dimensions they name.
 
 Attention keeps the reference's masking exactly, and its NEG_INF is
 **finite** (``-1e30``) on purpose: a query row with no live key (a row
@@ -23,6 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import constrain
 
 NEG_INF = -1e30
 
@@ -50,7 +57,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    if g.ndim == 3:  # (B, T, ff): TP on the hidden dim, DP on batch
+        g = constrain(g, "dp", None, "model")
+        u = constrain(u, "dp", None, "model")
+    out = (F.silu(g) * u) @ w_down
+    if out.ndim == 3:
+        out = constrain(out, "dp", None, None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +132,10 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
     b, t, dm = x.shape
     rep = n_heads // n_kv_heads
     q = (x @ params["wq"]).view(b, t, n_heads, head_dim)
+    # queries shard on heads over the model axis; K/V stay replicated
+    # across it and expand to full heads locally, so every score and
+    # context product is communication-free
+    q = constrain(q, "dp", None, "model", None)
     if cross_kv is None:
         k = (x @ params["wk"]).view(b, t, n_kv_heads, head_dim)
         v = (x @ params["wv"]).view(b, t, n_kv_heads, head_dim)
@@ -128,8 +145,9 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
             # masked out of attention below, so their rotation is dead
             pos = torch.clamp(pos[None, :] - pad_len[:, None].long(), min=0)
         q = rope(q, pos, theta).transpose(1, 2)             # (B, H, T, hd)
-        k = rope(k, pos, theta).transpose(1, 2)
-        v = v.transpose(1, 2)
+        k = constrain(rope(k, pos, theta).transpose(1, 2),
+                      "dp", None, None, None)
+        v = constrain(v.transpose(1, 2), "dp", None, None, None)
     else:
         q = q.transpose(1, 2)
         k, v = cross_kv
@@ -144,17 +162,24 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
         ck[:, :, cache_len:cache_len + t] = k.to(ck.dtype)
         cv[:, :, cache_len:cache_len + t] = v.to(cv.dtype)
         new_cache = (ck, cv)
+        # decode is sequence-parallel: the cache keeps its T-sharding, the
+        # (tiny) q replicates across the model axis, scores reduce once
         cke = ck.repeat_interleave(rep, dim=1) if rep > 1 else ck
         cve = cv.repeat_interleave(rep, dim=1) if rep > 1 else cv
+        cke = constrain(cke, "dp", None, "model", None)
+        cve = constrain(cve, "dp", None, "model", None)
         out = _decode_attention(q, cke, cve, cache_len + t, pad_len=pad_len)
         out = out.reshape(b, t, n_heads * head_dim)
     else:
         if rep > 1:
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
+            k = constrain(k.repeat_interleave(rep, dim=1),
+                          "dp", "model", None, None)
+            v = constrain(v.repeat_interleave(rep, dim=1),
+                          "dp", "model", None, None)
         out = chunked_attention(q, k, v, causal=causal, q_offset=pos_offset)
         out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
-    return out @ params["wo"], new_cache
+    out = constrain(out, "dp", None, "model")
+    return constrain(out @ params["wo"], "dp", None, None), new_cache
 
 
 def _decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

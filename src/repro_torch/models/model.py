@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -57,8 +58,12 @@ SSM_KINDS = ("rwkv", "mamba")
 def draw_dense(shape, generator, device, dtype,
                scale=0.02) -> torch.Tensor:
     """Normal x ``scale``, drawn in float32 slices of at most
-    :data:`INIT_SLICE` elements, cast to ``dtype``."""
+    :data:`INIT_SLICE` elements, cast to ``dtype``.  On the meta device
+    (shapes and dtypes only, as the dry run and the sharding rules take
+    them) nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     rows = out.view(shape[0], -1)
     step = max(1, INIT_SLICE // max(1, rows.shape[1]))
     for lo in range(0, shape[0], step):
@@ -364,7 +369,11 @@ class Model(NamedTuple):
     def _forward(self, params: Dict, tokens: torch.Tensor, cache, pos: int,
                  memory, pad_lens, return_stats: bool):
         caches, states = cache
-        x = params["embed"][tokens.long()]
+        # an embedding lookup (the rows a plain index reads): on a
+        # vocabulary-sharded table each shard looks up its own rows and
+        # the partial rows are summed once, here (no table all-gather)
+        x = L.constrain(F.embedding(tokens.long(), params["embed"]),
+                        "dp", None, None)
         res = self._run_groups(params, x, pos_offset=pos, cross_kv=memory,
                                caches=caches, cache_len=pos, states=states,
                                pad_lens=pad_lens,

@@ -6,8 +6,9 @@
 * **Async**: ``save_async`` snapshots the tensors to host memory, then
   writes on a background thread — the training loop is blocked only for
   the device→host copy.
-* **Elastic**: tensors are stored whole on the host; ``restore`` places
-  them with ``shard_fn`` wherever the new job runs.
+* **Elastic**: tensors are stored whole on the host (a DTensor's full
+  value); ``restore`` places them with ``shard_fn`` wherever the new job
+  runs, on a new mesh through ``distribute_params``.
 
 The port writes its own format, which the reference's checkpoints are
 not: ``state.pt``, a tree of plain dictionaries, lists and detached CPU
@@ -32,6 +33,8 @@ def snapshot(tree: Any) -> Any:
     copied to the CPU, a ``NamedTuple`` as a dictionary, a tuple as a
     list."""
     if torch.is_tensor(tree):
+        if hasattr(tree, "full_tensor"):  # a DTensor: its whole value
+            tree = tree.full_tensor()
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, tuple) and hasattr(tree, "_asdict"):
         return {k: snapshot(v) for k, v in tree._asdict().items()}
@@ -119,7 +122,10 @@ class CheckpointManager:
                 shard_fn: Optional[Callable[[Any], Any]] = None) -> Any:
         """Load a step (default: LATEST) as a tree of CPU tensors.
         ``shard_fn`` places it where the *current* job runs, e.g. a map
-        of ``.to(device)`` over the tree."""
+        of ``.to(device)`` over the tree, or on a new mesh (an elastic
+        restart): ``lambda t: distribute_params(t, cfg, mesh, fsdp)``
+        with :func:`repro_torch.launch.mesh.distribute_params` and the
+        mesh of :func:`repro_torch.train.fault.remesh`."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

@@ -19,7 +19,11 @@ Policies:
   barrier).
 * **Elastic scaling** — `plan_remesh` maps a surviving device count to the
   largest fillable (data, model) mesh, keeping the model axis intact first
-  (TP/EP shards are stateful; DP shrink only re-slices the batch).
+  (TP/EP shards are stateful; DP shrink only re-slices the batch);
+  `remesh` builds that ``DeviceMesh``, and
+  ``CheckpointManager.restore(shard_fn=...)`` with
+  ``repro_torch.launch.mesh.distribute_params`` re-places a restored
+  tree on it.
 
 This policy engine is a consumer of the shared resilience plane
 (:mod:`repro_torch.resilience`): an armed
@@ -121,3 +125,16 @@ def plan_remesh(n_devices: int, model_size: int = 16,
         return (pods, pod_size // model_size, model_size)
     data = max(1, n_devices // model_size)
     return (data, model_size)
+
+
+def remesh(n_devices: int, device_type: str = "cuda", **kw):
+    """The ``DeviceMesh`` of :func:`plan_remesh`'s shape over the running
+    process group, its axes named as
+    :func:`repro_torch.launch.mesh.make_production_mesh` names them
+    (``("data", "model")``, or ``("pod", "data", "model")`` across
+    pods); ``kw`` goes to :func:`plan_remesh`."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = plan_remesh(n_devices, **kw)
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data",
+                                                            "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)

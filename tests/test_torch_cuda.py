@@ -808,3 +808,72 @@ def test_cuda_checkpoint_roundtrip_bf16(cuda, tmp_path):
     assert logs[0].startswith("[trainer] restored step 2")
     assert int(out2["state"].step) == 4
     assert out2["state"].params["embed"].device.type == "cuda"
+
+
+def _mesh_moe(cuda, e=16, d=256, ff=128, seed=5):
+    """A small bf16 MoE layer on the card: (params, x, kwargs)."""
+    from repro_torch.configs import base
+    from repro_torch.models.model import init_sublayer
+    import dataclasses
+    cfg = dataclasses.replace(base.smoke(base.get("kimi_k2_1t_a32b")),
+                              n_experts=e, top_k=4, d_model=d, moe_d_ff=ff,
+                              n_shared_experts=1, dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = init_sublayer(cfg, "moe", gen, cuda)
+    x = torch.randn((256, d), generator=gen, device=cuda).bfloat16()
+    return p, x, dict(n_experts=e, top_k=4)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("variant", ["ep", "tp"])
+def test_cuda_mesh_local_functions_sum_to_flat(cuda, variant, n, cf):
+    """The expert- and tensor-parallel local functions of ``n`` model
+    shards, run in turn on the card through the bf16 kernels and summed,
+    against the flat path: the poisoned count bitwise, the output within
+    2**-6 max|flat| (each shard's partial is rounded to bf16 before the
+    sum), one scatter a shard, and one gather a shard (EP) or one in all
+    (TP)."""
+    from repro_torch.models import moe
+    p, x, kw = _mesh_moe(cuda)
+    flat, n_flat = moe._moe_spec_flat(p, x, capacity_factor=cf,
+                                      kernel=True, stats=True, **kw)
+    g0, s0 = spec_gather.launches, spec_scatter_add.launches
+    out, pois, slots = moe.run_shards(p, x, n, variant=variant,
+                                      capacity_factor=cf, kernel=True, **kw)
+    torch.cuda.synchronize()
+    assert spec_scatter_add.launches - s0 == n
+    assert spec_gather.launches - g0 == (n if variant == "ep" else 1)
+    assert int(pois) == int(n_flat)
+    if cf == 0.5:
+        assert int(n_flat) > 0
+    dev = (out.float() - flat.float()).abs().max().item()
+    assert dev <= 2.0 ** -6 * flat.float().abs().max().item()
+    if variant == "ep":
+        live = torch.stack([s >= 0 for s in slots])
+        assert int(live.sum(0).max()) <= 1          # one home shard
+        assert int(live.sum()) == x.shape[0] * kw["top_k"] - int(n_flat)
+
+
+def test_cuda_mesh_11_nccl_matches_flat(cuda):
+    """``moe_spec`` under ``use_mesh`` of a (1, 1) mesh on a one-rank
+    NCCL group: the expert-parallel variant through the bf16 kernels
+    gives the flat path's output bitwise and its poison count."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import use_mesh
+    p, x, kw = _mesh_moe(cuda, seed=6)
+    flat, n_flat = moe._moe_spec_flat(p, x, capacity_factor=0.5,
+                                      kernel=True, stats=True, **kw)
+    with process_group("nccl"):
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        g0 = spec_gather.entry_launches["spec_gather_bf16"]
+        with use_mesh(mesh):
+            out, pois = moe.moe_spec(p, x, capacity_factor=0.5, kernel=True,
+                                     stats=True, **kw)
+        torch.cuda.synchronize()
+        assert spec_gather.entry_launches["spec_gather_bf16"] - g0 == 1
+    assert int(pois) == int(n_flat) > 0
+    assert torch.equal(out, flat)
