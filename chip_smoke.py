@@ -50,7 +50,13 @@ at 2, each against the flat path (poison counts equal, outputs within
 ``MESH_BF16_TOL``), with the bf16 entries held against their plain
 versions and timed at every shard's shapes; ``[dryrun]`` runs one
 dry-run cell (Kimi-K2 x decode_32k on a fake 256-rank mesh) in a
-subprocess and prints its per-device counts and H100 roofline terms.
+subprocess and prints its per-device counts and H100 roofline terms
+(its collective term must stay under 1 ms, not the bound: the
+sharded decode writes and attends the T-sharded KV cache in place);
+``[mesh-attn]``, before it, decodes one Kimi-K2 attention layer at full
+width with its cache split 2 and 4 ways over T, shard by shard
+(``repro_torch.models.layers.gqa_decode_shards``), against the unsplit
+layer (the cache bitwise, the output within ``MESH_BF16_TOL``).
 After the parity phase, the ``[sim]`` lines run the paper's evaluation
 path: each workload at its default size through
 ``repro_torch.core.pipeline.run_all`` (STA, DAE, SPEC and ORACLE cycles
@@ -2209,6 +2215,126 @@ def phase_mesh_shards_grok() -> dict:
             for name in ("spec_gather", "spec_scatter_add")}
 
 
+#: ``[mesh-attn]``: requests and cache positions of the decode
+MESH_ATTN = dict(batch=8, t_max=32768, seed=24, reps=10)
+
+
+def phase_mesh_attn() -> dict:
+    """``[mesh-attn]``: one Kimi-K2 attention layer at full width (64
+    query heads, 8 K/V heads of 112) decodes against a bf16 KV cache of
+    8 requests x 32,768 positions split 2 and 4 ways over T, shard by
+    shard on the card (``repro_torch.models.layers.gqa_decode_shards``:
+    each shard writes its positions of the new keys and values, and
+    ``layers.seq_parallel``, the function the mesh runs, combines the
+    shards' row max, exponentials' sum and partial contexts in shard
+    order, where the mesh all-reduces them), against the unsplit layer:
+    the cache bitwise, the output within ``MESH_BF16_TOL``.  Two steps: 2
+    tokens at T/2 - 1 (across a shard boundary of both splits), then 1
+    at T/2 + 1.  Each shard's work in the one-token step (what one rank
+    of the mesh runs: its write, then ``seq_parallel`` on its one shard,
+    the reductions across cards left out) is timed with CUDA events
+    around it (synchronised first, so launch gaps count)."""
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import init_sublayer
+    _free()
+    t0 = time.perf_counter()
+    cfg = cbase.get("kimi_k2_1t_a32b")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MESH_ATTN["seed"])
+    p = init_sublayer(cfg, "attn", gen, dev)
+    b, tmax = MESH_ATTN["batch"], MESH_ATTN["t_max"]
+    filled = tmax // 2 - 1
+    ck, cv = (torch.zeros((b, cfg.n_kv_heads, tmax, cfg.hd),
+                          dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    for c in (ck, cv):
+        c[:, :, :filled] = torch.randn(
+            (b, cfg.n_kv_heads, filled, cfg.hd), generator=gen,
+            device=dev).bfloat16()
+    pad = torch.randint(0, 64, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    steps = ((2, filled), (1, filled + 2))
+    xs = [torch.randn((b, t, cfg.d_model), generator=gen,
+                      device=dev).bfloat16() for t, _ in steps]
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.hd, theta=cfg.rope_theta, pad_len=pad)
+
+    def timed(fn):
+        """``fn``'s device time, µs, the mean of ``reps`` runs after one
+        warm-up."""
+        fn()
+        spent = 0.0
+        for _ in range(MESH_ATTN["reps"]):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            spent += start.elapsed_time(stop) * 1e3
+        return spent / MESH_ATTN["reps"]
+
+    flat_kv = (ck.clone(), cv.clone())
+    flat = [L.gqa_attention(p, x, pos_offset=cl, kv_cache=flat_kv,
+                            cache_len=cl, **kw)[0]
+            for x, (_, cl) in zip(xs, steps)]
+    x1, (_, cl1) = xs[1], steps[1]
+    flat_us = timed(lambda: L.gqa_attention(
+        p, x1, pos_offset=cl1, kv_cache=flat_kv, cache_len=cl1, **kw))
+    q1, k1, v1 = L._self_qkv(p, x1, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                             cfg.rope_theta, cl1, pad)
+
+    def one_shard(kv, lo, n):
+        """One rank's work on the shard of ``n`` positions from ``lo``."""
+        cks, cvs = (c[:, :, lo:lo + n] for c in kv)
+        L._shard_write(cks, k1, cl1, lo)
+        L._shard_write(cvs, v1, cl1, lo)
+        return L.seq_parallel(q1, [cks], [cvs], [lo], cl1 + 1, pad,
+                              lambda parts, op: parts[0])
+
+    rec = {"batch": b, "t_max": tmax, "steps": [list(st) for st in steps],
+           "flat_us": flat_us, "splits": {}}
+    for n in (2, 4):
+        kv = (ck.clone(), cv.clone())
+        outs = [L.gqa_decode_shards(p, x, kv_cache=kv, cache_len=cl,
+                                    n_shards=n, **kw)[0]
+                for x, (_, cl) in zip(xs, steps)]
+        torch.cuda.synchronize()
+        if not (torch.equal(kv[0], flat_kv[0])
+                and torch.equal(kv[1], flat_kv[1])):
+            fail(f"mesh-attn: the cache split {n} ways differs from the "
+                 f"unsplit layer's")
+        devs, bounds = [], []
+        for got, want in zip(outs, flat):
+            devs.append((got.float() - want.float()).abs().max().item())
+            bounds.append(MESH_BF16_TOL * want.float().abs().max().item())
+            if not devs[-1] <= bounds[-1]:
+                fail(f"mesh-attn: {n} shards, max |shards - flat| "
+                     f"{devs[-1]:.4g} past {bounds[-1]:.4g}")
+        shard_us = {i: timed(lambda i=i: one_shard(kv, i * tmax // n,
+                                                   tmax // n))
+                    for i in range(n)}
+        rec["splits"][n] = {"max_abs_dev": devs, "bound": bounds,
+                            "shard_us": shard_us}
+        print(f"[mesh-attn] {cfg.name} attention, KV cache {b} x "
+              f"{cfg.n_kv_heads} x {tmax} x {cfg.hd} bf16 split {n} ways "
+              f"over T, shard by shard: cache bitwise equal to the unsplit "
+              f"layer's after writes at {steps[0][1]}..{steps[0][1] + 1} "
+              f"(across a shard boundary) and {steps[1][1]}; max |shards - "
+              f"flat| {', '.join(f'{d:.4g}' for d in devs)} (bounds "
+              f"{', '.join(f'{x:.4g}' for x in bounds)} = 2**-6 max|flat|); "
+              f"one-token step, each shard's write, scores and context "
+              f"{', '.join(f'{u:.1f}' for u in shard_us.values())} us "
+              f"(unsplit layer {flat_us:.1f} us, with its projections)")
+        del kv, outs
+    print(f"[mesh-attn] done ({time.perf_counter() - t0:.1f} s; {smi()})")
+    del p, ck, cv, flat_kv, flat
+    _free()
+    return rec
+
+
 DRYRUN_CELL = ("kimi_k2_1t_a32b", "decode_32k")
 
 
@@ -2256,6 +2382,10 @@ def phase_dryrun() -> dict:
           f"on a card)")
     if not (rec["flops"] > 0 and coll["total"] > 0):
         fail(f"dryrun: nothing counted: {rec}")
+    if r.collective_s >= 1e-3 or r.dominant == "collective":
+        fail(f"dryrun: collective term {r.collective_s * 1e3:.4f} ms "
+             f"({r.dominant}-bound): the sharded decode gathers what the "
+             f"reference keeps sharded")
     return {"record": {k: v for k, v in rec.items()}, "roofline":
             {"compute_s": r.compute_s, "memory_s": r.memory_s,
              "collective_s": r.collective_s, "dominant": r.dominant,
@@ -3051,6 +3181,7 @@ def main() -> None:
         if "mesh" in rec:  # the two bf16 entries
             rec["mesh"]["shards"]["tp2_grok"] = grok[
                 rec["name"].removesuffix("_bf16")]
+    line["mesh_attn"] = phase_mesh_attn()
     dry = phase_dryrun()
     line["dryrun"] = dry
     phase_ssm()

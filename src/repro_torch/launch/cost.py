@@ -25,18 +25,28 @@ counter marks that step (it wraps the sharding propagator's tensor-meta
 step while active) and leaves it out (counted, it would add the global
 product to the local one).  The reference multiplies a ``while``
 body by its trip count; the port's loops (the layer groups, the
-attention chunks, the SSM scans) are Python loops, counted a step at a
-time, so the same loop gives the same total.
+attention chunks) are Python loops, counted a step at a time, so the
+same loop gives the same total.  Inside :meth:`CostCounter.repeat`
+every count is multiplied: the dry run counts the SSM scans' second
+step and multiplies it by the steps that follow (the reference's rule
+for a ``while`` body), since a step's cost does not depend on its
+values.
 
 :meth:`CostCounter.totals` returns the keys of the reference's ``analyze_hlo``:
 ``dot_flops``, ``dot_bytes``, one key per collective kind that occurred
-and ``collective_total``.
+and ``collective_total``.  :meth:`CostCounter.xla_cpu_totals` gives the
+collective bytes as the reference's dry run counts the same program:
+XLA's CPU backend promotes a 16-bit floating all-reduce or
+reduce-scatter to float32, so its counts hold those at 4 bytes an
+element.  Both packages reduce in the activations' dtype; the second
+count is for comparing with the reference only.
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -79,12 +89,21 @@ _C10D_OUT_ARG = {"allreduce_", "allreduce_coalesced_", "allgather_",
                  "alltoall_base_"}
 
 
-def _nbytes(x) -> int:
-    """Bytes of the tensors in ``x`` (a tensor or nested lists of them)."""
+#: the reducing collectives, which XLA's CPU backend runs in float32
+#: for 16-bit floats
+_PROMOTED = ("all-reduce", "reduce-scatter")
+
+
+def _nbytes(x, promote: bool = False) -> int:
+    """Bytes of the tensors in ``x`` (a tensor or nested lists of them);
+    with ``promote``, 16-bit floats at 4 bytes an element."""
     if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
+        size = x.element_size()
+        if promote and x.dtype in (torch.bfloat16, torch.float16):
+            size = 4
+        return x.numel() * size
     if isinstance(x, (list, tuple)):
-        return sum(_nbytes(v) for v in x)
+        return sum(_nbytes(v, promote) for v in x)
     return 0
 
 
@@ -164,11 +183,13 @@ class CostCounter(TorchDispatchMode):
         self.dot_flops = 0
         self.dot_bytes = 0
         self.collectives: Dict[str, int] = defaultdict(int)
+        self.collectives_xla_cpu: Dict[str, int] = defaultdict(int)
         self.collective_calls: Dict[str, int] = defaultdict(int)
         self.live_bytes = 0
         self.peak_bytes = 0
         self._inferring = 0
         self._unhook = None
+        self._times = 1
 
     def __enter__(self):
         self._unhook = _hook_inference(self)
@@ -179,6 +200,17 @@ class CostCounter(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             self._unhook()
+
+    @contextlib.contextmanager
+    def repeat(self, n: int) -> Iterator[None]:
+        """Count every operation in the block ``n`` times (a loop body
+        that runs ``n`` times with the same shapes)."""
+        before = self._times
+        self._times = before * n
+        try:
+            yield
+        finally:
+            self._times = before
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -191,15 +223,17 @@ class CostCounter(TorchDispatchMode):
         namespace, _, name = func.name().partition("::")
         if namespace == "aten":
             flops, nbytes = matmul_cost(name, args)
-            self.dot_flops += flops
-            self.dot_bytes += nbytes
+            self.dot_flops += flops * self._times
+            self.dot_bytes += nbytes * self._times
             self._track(func, out)
         kind = _COLLECTIVES.get((namespace, name))
         if kind is not None:
             result = args[0] if (namespace == "c10d"
                                  and name in _C10D_OUT_ARG) else out
-            self.collectives[kind] += _nbytes(result)
-            self.collective_calls[kind] += 1
+            self.collectives[kind] += _nbytes(result) * self._times
+            self.collectives_xla_cpu[kind] += _nbytes(
+                result, kind in _PROMOTED) * self._times
+            self.collective_calls[kind] += self._times
         return out
 
     def _track(self, func, out) -> None:
@@ -223,5 +257,14 @@ class CostCounter(TorchDispatchMode):
         out.update({k: float(v) for k, v in self.collectives.items()})
         out["collective_total"] = float(sum(
             v for k, v in self.collectives.items() if k in KINDS))
+        return out
+
+    def xla_cpu_totals(self) -> Dict[str, float]:
+        """The collective bytes by kind and their ``collective_total``,
+        16-bit floating reductions counted at 4 bytes an element, as the
+        reference's dry run on XLA's CPU backend counts them."""
+        out = {k: float(v) for k, v in self.collectives_xla_cpu.items()}
+        out["collective_total"] = float(sum(
+            v for k, v in self.collectives_xla_cpu.items() if k in KINDS))
         return out
 

@@ -19,6 +19,14 @@ the port's model under :class:`repro_torch.launch.cost.CostCounter`.
   (parameters, optimizer state, caches, inputs), the outputs, the part
   of the outputs that is an argument updated in place (the cache, the
   parameters), and the peak of the operations' live outputs.
+* The SSM scans (:func:`repro_torch.models.ssm._rwkv6_scan`,
+  ``_mamba_scan``: a Python loop, one step a token) run their first two
+  steps, and the second is counted once for every step after the first
+  (:func:`scan_shortcut`), as the reference counts a ``while`` body
+  times its trip count: a step's cost does not depend on its values, so
+  the total is the full loop's (``tests/test_torch_dryrun.py`` holds the
+  two equal), in seconds where the loop took minutes.  Serving and
+  training keep the loop.
 * An operation DTensor has no sharding strategy for (or cannot
   propagate on fake tensors) runs on replicated arguments instead (with
   no strategy at all, on each rank's whole tensors): the counter sees
@@ -40,18 +48,19 @@ analysis here, as the reference writes when it has none), and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
 from collections import Counter
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ArchConfig, get, param_count, smoke
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch.cost import CostCounter
+from repro_torch.launch.cost import KINDS, CostCounter
 from repro_torch.models.model import SSM_KINDS, build_model, group_pattern
 from repro_torch.models.sharding import (axis_sizes, data_axes, data_size,
                                          placements, use_mesh)
@@ -224,6 +233,72 @@ class _DTensorOps(TorchDispatchMode):
                                        **tree_map(unwrap, kwargs)))
 
 
+@contextlib.contextmanager
+def scan_shortcut(counter: CostCounter) -> Iterator[None]:
+    """Inside the block, the SSM scans run their first two time steps
+    and count the second ``T - 1`` times, its backward too (module
+    docstring); their outputs keep the full loop's shapes (the second
+    step's output stands for the later ones: the dry run reads no
+    values)."""
+    from repro_torch.models import ssm
+    real = {n: getattr(ssm, n) for n in ("_rwkv6_scan", "_mamba_scan")}
+
+    def shortcut(scan):
+        # both scans: four (B, T, ...) inputs, one constant, the state
+        def run(a, b, c, d, const, s):
+            n_t = a.shape[1]
+            if n_t <= 2:
+                return scan(a, b, c, d, const, s)
+            s, y0 = scan(*(x[:, :1] for x in (a, b, c, d)), const, s)
+            s, y1 = _Repeated.apply(counter, n_t - 1, scan, const, s,
+                                    *(x[:, 1:2] for x in (a, b, c, d)))
+            shape = list(y1.shape)
+            shape[1] = n_t - 1
+            return s, torch.cat([y0, y1.expand(shape)], dim=1)
+        return run
+
+    for n, scan in real.items():
+        setattr(ssm, n, shortcut(scan))
+    try:
+        yield
+    finally:
+        for n, scan in real.items():
+            setattr(ssm, n, scan)
+
+
+class _Repeated(torch.autograd.Function):
+    """One scan step whose forward and backward are each counted ``n``
+    times: the step runs on its own autograd graph, whose gradient the
+    backward takes inside :meth:`CostCounter.repeat`.  That graph keeps
+    its saved tensors itself (an activation checkpoint around the step
+    would otherwise recompute its whole region inside the repeat)."""
+
+    @staticmethod
+    def forward(ctx, counter, n, scan, const, s, *xs):
+        ins = [t.detach().requires_grad_(t.requires_grad)
+               for t in (const, s) + xs]
+        keep = torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                        lambda t: t)
+        with torch.enable_grad(), keep, counter.repeat(n):
+            s_out, y = scan(*ins[2:], ins[0], ins[1])
+        ctx.counter, ctx.n, ctx.ins, ctx.outs = counter, n, ins, (s_out, y)
+        return s_out.detach(), y.detach()
+
+    @staticmethod
+    def backward(ctx, g_s, g_y):
+        want = [t for t in ctx.ins if t.requires_grad]
+        outs = [(o, g) for o, g in zip(ctx.outs, (g_s, g_y))
+                if o.requires_grad and g is not None]
+        got = iter(())
+        if want and outs:
+            with ctx.counter.repeat(ctx.n):
+                got = iter(torch.autograd.grad(
+                    [o for o, _ in outs], want, [g for _, g in outs],
+                    allow_unused=True))
+        return (None, None, None) + tuple(
+            next(got, None) if t.requires_grad else None for t in ctx.ins)
+
+
 def _place(t: torch.Tensor, spec, mesh, fake) -> Any:
     """A DTensor of fake local shards for the meta tensor ``t``."""
     from torch.distributed.tensor import DTensor, Replicate
@@ -260,8 +335,10 @@ def _local_ids(tree) -> Dict[int, int]:
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
              dispatch: str = "spec", extra_tags: str = "",
-             smoke_cell: bool = False) -> Dict:
-    """Run one cell and return its record (printed as one JSON line)."""
+             smoke_cell: bool = False, full_scans: bool = False) -> Dict:
+    """Run one cell and return its record (printed as one JSON line).
+    ``full_scans`` runs the SSM scans' every step instead of
+    :func:`scan_shortcut`."""
     cfg = get(arch)
     mesh_name = "multi" if multi_pod else "single"
     reason = shape_skip_reason(cfg, shape)
@@ -282,7 +359,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     with mesh_mod.process_group("fake", n_dev):
         from torch.distributed.device_mesh import init_device_mesh
         mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=axes)
-        out = _run(cfg, shape, shapes[shape], mesh, dispatch)
+        out = _run(cfg, shape, shapes[shape], mesh, dispatch, full_scans)
     total, active = param_count(cfg)
     rec = {
         "arch": arch, "shape": shape, "mesh": mesh_name,
@@ -292,11 +369,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         "xla_flops": -1, "xla_bytes": -1,
         "flops": out["cost"]["dot_flops"],
         "bytes_accessed": out["cost"]["dot_bytes"],
-        "collective_bytes": {
-            k: out["cost"].get(k, 0.0)
-            for k in ("all-gather", "all-reduce", "reduce-scatter",
-                      "all-to-all", "collective-permute")} |
-            {"total": out["cost"]["collective_total"]},
+        "collective_bytes": _by_kind(out["cost"]),
+        # as the reference's dry run counts them (16-bit floating
+        # reductions at 4 bytes an element): for comparing with it only
+        "collective_bytes_xla_cpu": _by_kind(out["xla_cpu"]),
         "collective_calls": out["calls"],
         "param_bytes": out["param_bytes"],
         "replicated_ops": out["replicated_ops"],
@@ -311,8 +387,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     return rec
 
 
+def _by_kind(totals: Dict[str, float]) -> Dict[str, float]:
+    """Collective bytes by kind (0 where none ran) and their total."""
+    return {k: totals.get(k, 0.0) for k in KINDS} | {
+        "total": totals["collective_total"]}
+
+
 def _run(cfg: ArchConfig, shape: str, info: Dict, mesh,
-         dispatch: str) -> Dict:
+         dispatch: str, full_scans: bool = False) -> Dict:
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     fake = FakeTensorMode(allow_non_fake_inputs=True)
@@ -346,6 +428,8 @@ def _run(cfg: ArchConfig, shape: str, info: Dict, mesh,
     memory = ins.get("frames", ins.get("patches"))
     fallback = _DTensorOps()
     counter = CostCounter()
+    scans = (contextlib.nullcontext() if full_scans
+             else scan_shortcut(counter))
     with use_mesh(mesh), implicit_replication():
         if kind == "train":
             from repro_torch.train.train_step import make_train_step
@@ -356,7 +440,7 @@ def _run(cfg: ArchConfig, shape: str, info: Dict, mesh,
                 batch["frames" if cfg.family == "encdec" else
                       "patches"] = memory
             args = (state, batch)
-            with fake, counter, fallback:
+            with fake, counter, fallback, scans:
                 outputs = train_step(state, batch)
         else:
             seq_sharded = kind == "decode" and not batch_sharded
@@ -365,7 +449,7 @@ def _run(cfg: ArchConfig, shape: str, info: Dict, mesh,
             cache = tuple(_map_specs(lambda t, s: _place(t, s, mesh, fake),
                                      c, sp) for c, sp in zip(cache, cspecs))
             args = (params, cache, ins)
-            with fake, counter, fallback:
+            with fake, counter, fallback, scans:
                 if kind == "prefill":
                     mem = memory
                     if cfg.family == "encdec":
@@ -384,6 +468,7 @@ def _run(cfg: ArchConfig, shape: str, info: Dict, mesh,
     out_ids = _local_ids(outputs)
     return {
         "cost": counter.totals(),
+        "xla_cpu": counter.xla_cpu_totals(),
         "calls": dict(counter.collective_calls),
         "param_bytes": sum(_local_ids(params).values()),
         "replicated_ops": dict(fallback.replicated),

@@ -7,10 +7,11 @@ writes ``results/dryrun/``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun_all --mesh single
 
 The counterpart of the JAX package's ``launch/dryrun_all.py``, with its
-per-cell timeout.  The Python SSM scans run one dispatch per operation
-per token on DTensors, so the ssm and hybrid cells at 4096 and 32768
-tokens may reach it; a cell that fails or times out is reported with
-the end of its error output, and nothing is skipped silently.
+per-cell timeout.  The SSM scans are counted a step at a time and
+multiplied by their trip count (:func:`repro_torch.launch.dryrun.
+scan_shortcut`), so the ssm and hybrid cells take seconds, as the
+others do; a cell that fails or times out is reported with the end of
+its error output, and nothing is skipped silently.
 """
 from __future__ import annotations
 

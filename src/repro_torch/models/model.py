@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -45,6 +46,7 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from .sharding import SumAcross, local, shard_span
 
 #: elements drawn per ``torch.randn`` call at init: a draw is made in
 #: float32 before its cast, so the largest tensors (Kimi-K2's experts,
@@ -188,7 +190,10 @@ class Model(NamedTuple):
                   cache_len: int = 0, state=None, pad_lens=None,
                   moe_stats: bool = False):
         cfg = self.cfg
-        h = L.rms_norm(x, p["ln"])
+        # the sublayer's input stays replicated over ``model``: its
+        # gradient, a partial sum of the tensor-parallel products, is
+        # all-reduced here (the reference's constraint on the cotangent)
+        h = L.constrain(L.rms_norm(x, p["ln"]), "dp", None, None)
         new_cache = new_state = poison = None
         if kind == "cross":
             # project the memory with this sublayer's K/V weights, on every
@@ -196,14 +201,12 @@ class Model(NamedTuple):
             if cross_kv is None:
                 raise ValueError(f"{cfg.name}: a cross sublayer needs "
                                  "memory")
-            b, s, _ = cross_kv.shape
-            kk = (cross_kv @ p["wk"]).view(b, s, cfg.n_kv_heads, cfg.hd)
-            vv = (cross_kv @ p["wv"]).view(b, s, cfg.n_kv_heads, cfg.hd)
+            kk, vv = (L.kv_heads(cross_kv, p[w], cfg.n_kv_heads,
+                                 cfg.n_heads, cfg.hd) for w in ("wk", "wv"))
             out, _ = L.gqa_attention(
                 p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.hd, theta=cfg.rope_theta,
-                cross_kv=(kk.transpose(1, 2).to(h.dtype),
-                          vv.transpose(1, 2).to(h.dtype)))
+                cross_kv=(kk.to(h.dtype), vv.to(h.dtype)))
         elif kind == "attn":
             out, new_cache = L.gqa_attention(
                 p, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -311,7 +314,7 @@ class Model(NamedTuple):
         family ``batch["patches"]``, (B, S, d_model) stub memory."""
         cfg = self.cfg
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens)
         cross = None
         if cfg.family == "encdec":
             cross = self._make_cross(params, self._encode(
@@ -322,11 +325,11 @@ class Model(NamedTuple):
             x = checkpoint(lambda gp, x: self._run_groups(
                 {"groups": [gp]}, x, cross_kv=cross)[0], gp, x,
                 use_reentrant=False)
-        x = L.rms_norm(x, params["ln_f"])
-        logits = (x @ params["lm_head"])[:, :-1].float()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, tokens[:, 1:, None])
-        return nll.mean()
+        # the head's input stays replicated over ``model``: its gradient,
+        # partial over the vocabulary shards, is all-reduced once here
+        x = L.constrain(L.rms_norm(x, params["ln_f"]), "dp", None, None)
+        logits = (x @ L.weight(params["lm_head"]))[:, :-1].float()
+        return _nll(logits, tokens[:, 1:]).mean()
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int,
@@ -364,16 +367,44 @@ class Model(NamedTuple):
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Logits of the last position, ``(B, vocab)``."""
         x = L.rms_norm(x[:, -1:], params["ln_f"])
-        return (x @ params["lm_head"])[:, -1]
+        return (x @ L.weight(params["lm_head"]))[:, -1]
+
+    @staticmethod
+    def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings: an embedding lookup (the rows a plain
+        index reads).  On a DTensor table sharded on the vocabulary, each
+        rank looks its tokens up in its own rows (zeros for a token held
+        elsewhere) and the rows are summed across the shards once (no
+        table all-gather); the local table's gradient is partial over the
+        data axes, each rank's tokens being its own."""
+        table = params["embed"]
+        if not (hasattr(table, "placements") and any(
+                p.is_shard(0) for p in table.placements)):
+            return L.constrain(F.embedding(tokens.long(), table),
+                               "dp", None, None)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        table = L.weight(table)
+        mesh = table.device_mesh
+        lo, n, vdims = shard_span(table, 0)
+        # the embeddings take the tokens' placements
+        b_pl = (list(tokens.placements) if L.is_dtensor(tokens)
+                else [Replicate()] * mesh.ndim)
+        idx = local(tokens, mesh, b_pl).long() - lo
+        hit = (idx >= 0) & (idx < n)
+        grad_pl = [p if p.is_shard() else Partial()
+                   for p in table.placements]
+        rows = F.embedding(idx.clamp(0, n - 1),
+                           table.to_local(grad_placements=grad_pl))
+        rows = torch.where(hit[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        x = SumAcross.apply(rows, mesh, tuple(vdims))
+        return DTensor.from_local(x, mesh, b_pl, run_check=False)
 
     def _forward(self, params: Dict, tokens: torch.Tensor, cache, pos: int,
                  memory, pad_lens, return_stats: bool):
         caches, states = cache
-        # an embedding lookup (the rows a plain index reads): on a
-        # vocabulary-sharded table each shard looks up its own rows and
-        # the partial rows are summed once, here (no table all-gather)
-        x = L.constrain(F.embedding(tokens.long(), params["embed"]),
-                        "dp", None, None)
+        x = self._embed(params, tokens)
         res = self._run_groups(params, x, pos_offset=pos, cross_kv=memory,
                                caches=caches, cache_len=pos, states=states,
                                pad_lens=pad_lens,
@@ -413,6 +444,44 @@ class Model(NamedTuple):
         return self._forward(params, tokens, cache, 0,
                              self._make_cross(params, memory), pad_lens,
                              return_stats)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The next-token NLL of each position, ``(B, T, 1)``, from float32
+    ``logits`` (B, T, V) and ``labels`` (B, T).
+
+    On a DTensor whose vocabulary is sharded (the dry run's and the
+    reference's layout of the head), DTensor's ``log_softmax`` would
+    gather the logits.  Here each rank works on its vocabulary shard, as
+    the reference's partitioned softmax does: the row max and the
+    exponentials' sum are reduced across the shards, and the label's
+    logit is read on the shard that holds it and summed; one number a
+    row crosses the mesh, and the logits stay sharded."""
+    vdim = logits.ndim - 1
+    if not (hasattr(logits, "placements") and any(
+            p.is_shard(vdim) for p in logits.placements) and all(
+            p.is_shard(0) or p.is_shard(vdim) for p in logits.placements)):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    lo, n, vdims = shard_span(logits, vdim)
+    b_pl = [Shard(0) if p.is_shard(0) else Replicate()
+            for p in logits.placements]
+    lg = logits.to_local()
+    lab = local(labels, mesh, b_pl)[..., None].long() - lo
+    m = lg.detach().amax(-1, keepdim=True)
+    for i in vdims:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    z = lg - m
+    hit = (lab >= 0) & (lab < n)
+    tgt = torch.where(hit, torch.gather(z, -1, lab.clamp(0, n - 1)),
+                      torch.zeros((), dtype=z.dtype, device=z.device))
+    sums = SumAcross.apply(
+        torch.cat([torch.exp(z).sum(-1, keepdim=True), tgt], dim=-1),
+        mesh, tuple(vdims))
+    nll = torch.log(sums[..., :1]) - sums[..., 1:]
+    return DTensor.from_local(nll, mesh, b_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ an int32 scalar tensor.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,8 +66,8 @@ import torch.nn.functional as F
 from ..kernels.spec_gather import spec_gather
 from ..kernels.spec_scatter import spec_scatter_add
 from .layers import swiglu
-from .sharding import (Axis, axis_sizes, current_mesh, data_axes, data_size,
-                       placements)
+from .sharding import (Axis, SumAcross, axis_sizes, current_mesh, data_axes,
+                       data_size, local, placements)
 
 
 def round_capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -253,7 +253,8 @@ def _ep_local(router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def _tp_local(router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
               wd: torch.Tensor, x: torch.Tensor, *, n_experts: int,
-              top_k: int, capacity_factor: float, kernel: bool = False
+              top_k: int, capacity_factor: float, kernel: bool = False,
+              ffn_x: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One model shard's part of the tensor-parallel variant: ``x``
     (n_loc, d) this rank's tokens, ``wg`` / ``wu`` (E, d, f_loc) and
@@ -262,13 +263,17 @@ def _tp_local(router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     model shards to the full ones, the slot table (n_loc * top_k,) int32
     (capacity poison only; equal on every shard) and the gates (n_loc,
     top_k) with poisoned requests' zeroed.  :func:`_combine` of the summed
-    outputs finishes the layer."""
+    outputs finishes the layer.  ``ffn_x`` is the same tokens as the
+    FFN's input (its gradient a partial sum over the shards, where the
+    router's is whole on each); ``x`` when None."""
     n_loc = x.shape[0]
     _, gates, experts = _route({"router": router}, x, top_k)
     cap = round_capacity(n_loc, n_experts, top_k, capacity_factor)
     slot, gates = spec_dispatch_indices(gates, experts, cap, n_experts)
     flat = slot.reshape(-1)
-    return _expert_ffn(x, flat, wg, wu, wd, cap, top_k, kernel), flat, gates
+    h = _expert_ffn(x if ffn_x is None else ffn_x, flat, wg, wu, wd, cap,
+                    top_k, kernel)
+    return h, flat, gates
 
 
 # ---------------------------------------------------------------------------
@@ -276,19 +281,15 @@ def _tp_local(router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _local(t: torch.Tensor, mesh, spec: Sequence[Axis]) -> torch.Tensor:
+def _local(t: torch.Tensor, mesh, spec: Sequence[Axis],
+           partial: Sequence[str] = ()) -> torch.Tensor:
     """This rank's shard of ``t`` under ``spec`` (a ``shard_map`` in_spec):
     a DTensor is redistributed and unwrapped; a plain tensor is the same
     full value on every rank and is sliced, mesh dimension by mesh
-    dimension, the first outermost."""
-    pl = placements(spec, mesh)
-    if hasattr(t, "to_local"):
-        return t.redistribute(mesh, pl).to_local()
-    for i, p in enumerate(pl):
-        if p.is_shard():
-            n = mesh.size(i)
-            t = t.chunk(n, p.dim)[mesh.get_coordinate()[i]]
-    return t
+    dimension, the first outermost.  The gradient of the local value is
+    a partial sum over the mesh axes ``partial`` (the transpose of a
+    ``shard_map`` input that the body uses for its own part only)."""
+    return local(t, mesh, placements(spec, mesh), partial)
 
 
 def _global(t: torch.Tensor, like: torch.Tensor, mesh,
@@ -319,12 +320,15 @@ def _moe_spec_ep(params: Dict, x: torch.Tensor, *, n_experts: int,
                  kernel: bool = False, stats: bool = False):
     dp = data_axes(mesh)
     wspec = ("model", None, None)
-    xl = _local(x, mesh, (dp, None))
+    # every model shard routes its tokens and runs its own experts: the
+    # tokens' and the router's gradients are partial over ``model``, the
+    # weights' over the data axes (each data shard's tokens)
+    xl = _local(x, mesh, (dp, None), ("model",))
     partial, slot = _ep_local(
-        _local(params["router"], mesh, (None, None)),
-        _local(params["w_gate"], mesh, wspec),
-        _local(params["w_up"], mesh, wspec),
-        _local(params["w_down"], mesh, wspec), xl,
+        _local(params["router"], mesh, (None, None), dp + ("model",)),
+        _local(params["w_gate"], mesh, wspec, dp),
+        _local(params["w_up"], mesh, wspec, dp),
+        _local(params["w_down"], mesh, wspec, dp), xl,
         mesh.get_local_rank("model"), n_experts=n_experts, top_k=top_k,
         capacity_factor=capacity_factor, kernel=kernel)
     # a request commits on exactly one model shard (its expert's home)
@@ -334,7 +338,7 @@ def _moe_spec_ep(params: Dict, x: torch.Tensor, *, n_experts: int,
     committed = _all_reduce((slot >= 0).sum(dtype=torch.int32)[None], mesh,
                             ("model",))
     poisoned = _all_reduce(xl.shape[0] * top_k - committed, mesh, dp)[0]
-    out = _global(_all_reduce(partial, mesh, ("model",)), x, mesh,
+    out = _global(SumAcross.apply(partial, mesh, ("model",)), x, mesh,
                   (dp, None))
     out = _shared(params, x, out)
     return (out, poisoned) if stats else out
@@ -349,15 +353,19 @@ def _moe_spec_tp(params: Dict, x: torch.Tensor, *, n_experts: int,
     f-partial expert outputs once per layer."""
     dp = data_axes(mesh)
     fspec = (None, None, "model")
+    # the routing (and the combine after the all-reduce) is the same on
+    # every model shard: its inputs' gradients are whole there; the FFN's
+    # input gradient is partial over ``model`` (a slice of the width),
+    # the weights' over the data axes
     xl = _local(x, mesh, (dp, None))
     h, flat, gates = _tp_local(
-        _local(params["router"], mesh, (None, None)),
-        _local(params["w_gate"], mesh, fspec),
-        _local(params["w_up"], mesh, fspec),
-        _local(params["w_down"], mesh, (None, "model", None)), xl,
+        _local(params["router"], mesh, (None, None), dp),
+        _local(params["w_gate"], mesh, fspec, dp),
+        _local(params["w_up"], mesh, fspec, dp),
+        _local(params["w_down"], mesh, (None, "model", None), dp), xl,
         n_experts=n_experts, top_k=top_k, capacity_factor=capacity_factor,
-        kernel=kernel)
-    out = _combine(_all_reduce(h, mesh, ("model",)), flat, gates, kernel)
+        kernel=kernel, ffn_x=_local(x, mesh, (dp, None), ("model",)))
+    out = _combine(SumAcross.apply(h, mesh, ("model",)), flat, gates, kernel)
     # every model shard dispatches the same replicated tokens, so the
     # local poison count is already the per-dp-shard total: sum over the
     # data axes only (summing over ``model`` would multiply-count)

@@ -14,6 +14,17 @@ The spec becomes DTensor placements (:func:`placements`) and a DTensor
 argument is redistributed to them.  A plain tensor, or any tensor with no
 ambient mesh, is returned as it is, so every meshless path and every
 path over plain (replicated) tensors is unchanged, bit for bit.
+
+Where DTensor's own propagation would gather what the reference's
+compiled program keeps sharded, the layers work on local shards with the
+helpers here: :func:`local` (this rank's shard of a DTensor, or of a
+plain tensor that every rank holds whole), :func:`shard_span` (where a
+rank's shard of a dimension starts), :func:`unshard` (replicate a
+DTensor over some mesh dimensions: the FSDP gather of a weight) and
+:func:`reduce` (a ``constrain`` whose partial sums are reduced once,
+through :class:`SumAcross`, an all-reduce whose gradient passes
+through).  Every reduction runs in its tensor's dtype, as the
+reference's psums do.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import contextvars
 from typing import Dict, Iterator, List, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -104,14 +116,133 @@ def placements(spec: Sequence[Axis], mesh) -> list:
 def constrain(x: torch.Tensor, *axes: Axis) -> torch.Tensor:
     """Redistribute a DTensor to ``axes`` on the ambient mesh (each entry
     None / axis name / tuple of names; unknown or non-dividing axes drop
-    to None); any other tensor, or no mesh, passes through."""
+    to None); any other tensor, or no mesh, passes through.  The
+    gradient goes back to the input's placements, as with_sharding_
+    constraint's transpose constrains the cotangent (a gradient that
+    arrives as a partial sum is reduced there)."""
     mesh = current_mesh()
-    if mesh is None or not _is_dtensor(x):
+    if mesh is None or not is_dtensor(x):
         return x
     spec = resolve_spec(x.shape, axes, mesh)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return _Constrain.apply(x, mesh, tuple(placements(spec, mesh)))
 
 
-def _is_dtensor(x) -> bool:
+class _Constrain(torch.autograd.Function):
+    """``x.redistribute(mesh, pl)``, whose backward redistributes the
+    gradient to ``x``'s placements (a partial one there replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh = mesh
+        ctx.back = tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements)
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.back), None, None
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a mesh)."""
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def _mesh_dims(mesh, names: Sequence[str]) -> List[int]:
+    return [mesh.mesh_dim_names.index(a) for a in names
+            if a in mesh.mesh_dim_names]
+
+
+def local(t: torch.Tensor, mesh, pl: Sequence,
+          partial: Sequence[str] = ()) -> torch.Tensor:
+    """This rank's shard of ``t`` under DTensor placements ``pl``: a
+    DTensor is redistributed and unwrapped; a plain tensor is the same
+    full value on every rank and is sliced, mesh dimension by mesh
+    dimension, the first outermost.  ``partial`` names the mesh axes
+    over which the local result's gradient is a partial sum (each rank
+    uses the replicated value for its own part of the work), so that
+    autograd sums it there."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Partial
+        dims = _mesh_dims(mesh, partial)
+        grad = [Partial() if i in dims and not p.is_shard() else p
+                for i, p in enumerate(pl)]
+        return t.redistribute(mesh, list(pl)).to_local(
+            grad_placements=grad)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            t = t.chunk(mesh.size(i), p.dim)[mesh.get_coordinate()[i]]
+    return t
+
+
+def shard_span(x: torch.Tensor, dim: int) -> Tuple[int, int, List[int]]:
+    """``(start, length, mesh dims)``: where this rank's shard of the
+    DTensor ``x`` lies along tensor dimension ``dim`` (evenly divided,
+    the first mesh dimension outermost), and the mesh dimensions that
+    shard it; ``(0, size, [])`` for a plain tensor or an unsharded
+    dimension."""
+    start, length, dims = 0, x.shape[dim], []
+    if not is_dtensor(x):
+        return start, length, dims
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            length //= mesh.size(i)
+            start += coord[i] * length
+            dims.append(i)
+    return start, length, dims
+
+
+def unshard(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """A DTensor replicated over the mesh axes ``axes`` (other
+    placements kept); any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = _mesh_dims(x.device_mesh, axes)
+    pl = [Replicate() if i in dims and p.is_shard() else p
+          for i, p in enumerate(x.placements)]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def reduce(x: torch.Tensor, *axes: Axis) -> torch.Tensor:
+    """``constrain`` a product whose partial sums must be reduced: they
+    are summed once, in the product's dtype (the reference's psum of a
+    partitioned product), and the sum's gradient is the incoming one on
+    every rank (DTensor's own redistribution would hand a partial
+    gradient to the product's backward).  A plain tensor, or one with no partial sum, is
+    ``constrain``-ed as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    parts = ([p for p in x.placements if p.is_partial()]
+             if is_dtensor(x) else [])
+    if current_mesh() is None or not parts or any(
+            type(p) is not Partial or p.reduce_op != "sum" for p in parts):
+        return constrain(x, *axes)
+    mesh = x.device_mesh
+    dims = tuple(i for i, p in enumerate(x.placements) if p.is_partial())
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    y = SumAcross.apply(x.to_local(grad_placements=pl), mesh, dims)
+    y = DTensor.from_local(y, mesh, pl, run_check=False)
+    return constrain(y, *axes)
+
+
+class SumAcross(torch.autograd.Function):
+    """A sum all-reduce of local tensors over mesh dimensions whose
+    gradient is the incoming one on every rank (each rank's part enters
+    the sum once, and the sum's consumers are replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        out = x.clone()
+        for i in dims:
+            dist.all_reduce(out, group=mesh.get_group(i))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None

@@ -8,6 +8,13 @@ rounding at every step where the reference, as XLA runs it, rounds: the
 states are float32; RWKV's k·v is rounded to the activations' dtype
 before it joins the state, Mamba's Δ·u·B is not.  Decode carries the
 state explicitly.
+
+Under a mesh (DTensor parameters and states) the heads (RWKV) or the
+channels (Mamba) shard over ``model``, as the states do; the small
+per-channel parameters that every shard needs whole (RWKV's token-shift
+mix, Mamba's B and C projections and A) and RWKV's token-shift carry are
+replicated over ``model`` first, and the output projection's partial
+sums are reduced once.  On plain tensors these steps do nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +22,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .layers import weight, whole_product
+from .sharding import constrain, reduce, unshard
 
 
 # ---------------------------------------------------------------------------
@@ -38,28 +48,32 @@ def rwkv6_block(params: Dict, x: torch.Tensor, *, n_heads: int,
     # token shift (x_{t-1} mix)
     if state is not None:
         s_in, x_last = state
+        x_last = unshard(x_last, ("model",))
         x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     else:
         s_in = None
         x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
-    mix = params["mu"]  # (4, D) for r, k, v, w
-    xr = x * mix[0] + x_prev * (1 - mix[0])
-    xk = x * mix[1] + x_prev * (1 - mix[1])
-    xv = x * mix[2] + x_prev * (1 - mix[2])
-    xw = x * mix[3] + x_prev * (1 - mix[3])
+    mix = unshard(params["mu"], ("model",))  # (4, D) for r, k, v, w
+    # four distinct inputs of four tensor-parallel projections: each
+    # input's gradient (a partial sum over ``model``) is reduced at its
+    # projection, as the reference's partitioner and tensor-parallel
+    # linears reduce it
+    xr, xk, xv, xw = (constrain(x * mix[i] + x_prev * (1 - mix[i]),
+                                "dp", None, None) for i in range(4))
 
-    r = (xr @ params["wr"]).view(b, t, h, hd)
-    k = (xk @ params["wk"]).view(b, t, h, hd)
-    v = (xv @ params["wv"]).view(b, t, h, hd)
+    r = (xr @ weight(params["wr"])).view(b, t, h, hd)
+    k = (xk @ weight(params["wk"])).view(b, t, h, hd)
+    v = (xv @ weight(params["wv"])).view(b, t, h, hd)
     # data-dependent decay in (0, 1)
-    w = torch.sigmoid((xw @ params["ww"]).view(b, t, h, hd)
+    w = torch.sigmoid((xw @ weight(params["ww"])).view(b, t, h, hd)
                       + params["w_bias"].view(1, 1, h, hd))
     u = params["u"].view(h, hd)  # bonus for the current token
 
     s0 = s_in if s_in is not None else torch.zeros(
         (b, h, hd, hd), dtype=torch.float32, device=x.device)
     s_fin, y = _rwkv6_scan(r, k, v, w, u, s0)
-    y = y.reshape(b, t, h * hd) @ params["wo"]
+    y = reduce(y.reshape(b, t, h * hd) @ weight(params["wo"]),
+               "dp", None, None)
     if return_state:
         return y, (s_fin, x[:, -1])
     return y
@@ -96,17 +110,18 @@ def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int,
     b, t, d = x.shape
     n = d_state
 
-    u = x @ params["in_proj"]                                  # (B, T, D)
-    gate = F.silu(x @ params["gate_proj"])
+    u = x @ weight(params["in_proj"])                          # (B, T, D)
+    gate = F.silu(x @ weight(params["gate_proj"]))
     delta = F.softplus(x @ params["dt_proj"])[..., None]       # (B, T, 1)
-    bmat = x @ params["b_proj"]                                # (B, T, N)
-    cmat = x @ params["c_proj"]
-    a = -torch.exp(params["a_log"])                            # (D, N) < 0
+    bmat = whole_product(x, params["b_proj"])                  # (B, T, N)
+    cmat = whole_product(x, params["c_proj"])
+    # (D, N) < 0, whole over ``model`` on a mesh
+    a = -torch.exp(unshard(weight(params["a_log"]), ("model",)))
 
     s0 = state if state is not None else torch.zeros(
         (b, d, n), dtype=torch.float32, device=x.device)
     s_fin, y = _mamba_scan(u, delta, bmat, cmat, a, s0)
-    y = (y * gate) @ params["out_proj"]
+    y = reduce((y * gate) @ weight(params["out_proj"]), "dp", None, None)
     if return_state:
         return y, s_fin
     return y

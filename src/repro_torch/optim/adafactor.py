@@ -25,6 +25,20 @@ import torch
 from .tree import Leaf, at, leaves, stack_f32, stacked_tree
 
 
+def _placed_for(v: torch.Tensor, g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The moment ``v``, ``g``'s statistic over dimension ``dim``, placed
+    as ``g`` is (its shards of the other dimensions kept, of ``dim``
+    replicated), so that the update built from it moves none of ``g``
+    (the state keeps its own placements); a plain ``v`` as it is."""
+    if not hasattr(g, "placements"):
+        return v
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= g.ndim
+    pl = [Shard(p.dim - (p.dim > dim)) if p.is_shard() and p.dim != dim
+          else Replicate() for p in g.placements]
+    return v.redistribute(v.device_mesh, pl)
+
+
 class AdafactorState(NamedTuple):
     step: torch.Tensor
     vr: Any   # row second moments (or full moment for vectors)
@@ -73,8 +87,9 @@ def adafactor(lr: Callable[[torch.Tensor], torch.Tensor] | float, *,
                 vc.mul_(beta).add_(g2.mean(-2).mul_(1 - beta))
                 del g2
                 # factored normalization: g / sqrt(vr ⊗ vc / mean(vr))
-                u = vr[..., None] * vc[..., None, :]
-                u.div_(torch.clamp(vr.mean(-1, keepdim=True),
+                r, c = _placed_for(vr, g, -1), _placed_for(vc, g, -2)
+                u = r[..., None] * c[..., None, :]
+                u.div_(torch.clamp(r.mean(-1, keepdim=True),
                                    min=eps)[..., None])
                 u.add_(eps).rsqrt_().mul_(g)
             else:

@@ -84,7 +84,13 @@ def at(tree: Dict, path: Tuple[str, ...]) -> Any:
 
 
 def stack_f32(leaf: Leaf) -> torch.Tensor:
-    """The reference's leaf as one new float32 tensor (one copy)."""
+    """The reference's leaf as one new float32 tensor (one copy).  Parts
+    that are DTensors (a mesh) stack into a DTensor sharded as they are,
+    its group axis replicated, so no rank gathers a gradient."""
+    if hasattr(leaf.parts[0], "placements"):
+        if not leaf.stacked:
+            return leaf.parts[0].float().clone()
+        return torch.stack([t.float() for t in leaf.parts])
     out = torch.empty(leaf.shape, dtype=torch.float32,
                       device=leaf.parts[0].device)
     if not leaf.stacked:

@@ -53,7 +53,9 @@ def value_and_grad(model: Model, params: Dict, batch: Dict
                    ) -> Tuple[torch.Tensor, Dict]:
     """The loss (detached) and its gradient with respect to every
     parameter, in the parameters' layout and dtypes (a parameter the loss
-    does not reach gets zeros, as ``jax.grad`` gives)."""
+    does not reach gets zeros, as ``jax.grad`` gives).  On a mesh each
+    gradient takes its parameter's placements (the reference's state
+    shardings), its partial sums over the data axes reduced there."""
     flat = []
     map_parts(lambda path, group, p: flat.append(p), params)
     try:
@@ -67,9 +69,18 @@ def value_and_grad(model: Model, params: Dict, batch: Dict
     finally:
         for p in flat:
             p.requires_grad_(False)
-    it = iter(torch.zeros_like(p) if g is None else g
+    it = iter(torch.zeros_like(p) if g is None else _placed_like(g, p)
               for p, g in zip(flat, grads))
     return loss.detach(), map_parts(lambda path, group, p: next(it), params)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` with the placements of the parameter ``p`` (a DTensor's
+    gradient may come out partial, or sharded otherwise); a plain tensor
+    as it is."""
+    if not hasattr(g, "placements"):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(model: Model, *, compress: bool = False,

@@ -190,6 +190,27 @@ def test_smoke_cell_end_to_end(arch, shape, capsys):
                                                "collective")
 
 
+@pytest.mark.parametrize("arch,shape", [
+    ("rwkv6_7b", "train_4k"),               # RWKV-6 scan, forward + backward
+    ("rwkv6_7b", "prefill_32k"),
+    ("jamba_1_5_large_398b", "train_4k"),   # Mamba scans beside attention
+    ("jamba_1_5_large_398b", "prefill_32k"),
+])
+def test_scan_shortcut_counts_the_full_loop(arch, shape, capsys):
+    """The dry run's SSM scans run two steps and count the second once
+    for every later step: the same FLOPs, matmul bytes and collectives
+    (by kind, bytes and calls) as running every step."""
+    short = dryrun.run_cell(arch, shape, False, smoke_cell=True)
+    full = dryrun.run_cell(arch, shape, False, smoke_cell=True,
+                           full_scans=True)
+    capsys.readouterr()
+    assert dryrun.SMOKE_SHAPES[shape]["seq"] > 2   # the shortcut applies
+    for key in ("flops", "bytes_accessed", "collective_bytes",
+                "collective_calls"):
+        assert short[key] == full[key], key
+    assert short["flops"] > 0
+
+
 def test_dryrun_all_writes_skips(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun_all, "RESULTS", str(tmp_path))
     assert dryrun_all.run_matrix(("single",),
