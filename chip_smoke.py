@@ -65,25 +65,37 @@ card, whose final memory must equal the simulated SPEC variant's bit for
 bit; pagerank and join compiled cold and warm through the frontend's
 compile cache with ``verify=True``, the warm objects run on the card
 bitwise; and the soundness verifier's sweeps with mutants, in-process.
+After the kernel API, ``[scan]`` holds the SSM scans' four kernels
+(``repro_torch.kernels.scan``: RWKV-6 and Mamba, forward and backward)
+against their plain loops, float32 at a small odd T, then bf16 at one
+RWKV-6-7B layer's and one Jamba Mamba layer's shapes (8 x 512 prefill
+and T = 1 decode forward, a backward at B = 2, T = 2048), timed beside
+their bounds and the loops.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
-and depth through the engine (no spec kernel may launch) and profiles
-the wave with the recurrences' kernels apart; ``[hybrid]`` serves one
+and depth through the engine (no spec kernel may launch; the RWKV-6
+forward scan kernel once a layer a call), serves the wave again with
+the scans as their plain loops (the same tokens, or a bf16 argmax tie
+reported with its logit gap) and profiles the wave with the scans'
+kernels apart; ``[hybrid]`` serves one
 Jamba-1.5-large group at full width (7 Mamba + 1 attention sublayers,
 its four MoE sublayers sharing one expert set to fit the card) through
 ``dispatch="spec-kernel"`` and ``"spec"``, which must commit the same
-tokens and poison counts with 68 launches of each bf16 entry, profiles
+tokens and poison counts with 68 launches of each bf16 entry and the
+Mamba forward scan once a layer a call, against the plain loops as
+``[ssm]`` is, profiles
 it and holds the bf16 entries to their plain versions at its shapes;
 ``[cross]`` runs Llama-3.2-Vision-90B (one layer group) and
 Whisper-medium (whole) through ``Model.prefill`` / ``decode_step`` with
 seeded stub memory, 16 greedy steps, timed and profiled.
-Training follows (the eighth slice, which reaches no kernel):
-``[train-small]`` runs 3 steps of ``make_train_step`` on every config's
-float32 smoke variant on the card and on the CPU from the same weights
-(losses within rtol 1e-4, parameters within 1e-4) and checks that a
-gradient through ``dispatch="spec-kernel"`` and through each kernel
-entry raises on CUDA tensors; ``[train-dense]`` trains Phi-4-mini-3.8B
+Training follows (the eighth slice; of the kernels it reaches only the
+scans): ``[train-small]`` runs 3 steps of ``make_train_step`` on every
+config's float32 smoke variant on the card and on the CPU from the same
+weights (losses within rtol 1e-4, parameters within 1e-4), the rwkv and
+jamba configs through the scans' forward and backward kernels (counted),
+and checks that a gradient through ``dispatch="spec-kernel"`` and
+through each of the five Pallas sites' entries raises on CUDA tensors; ``[train-dense]`` trains Phi-4-mini-3.8B
 whole (AdamW) and ``[train-moe]`` one Grok-1-314B group at full width
 (``dispatch="spec"``, Adafactor, as the whole model takes it), 2048
 tokens a step: step ms, tokens/s, losses, peak memory, the FLOP and
@@ -152,11 +164,12 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def call_ms(fn, reps: int = 200) -> float:
+def call_ms(fn, reps: int = 200, warm: int = 10) -> float:
     """Mean time of one eager ``fn()`` call in ms, CUDA events around
-    ``reps`` back-to-back calls: at the main path's sizes this is the
-    host's issue rate (Python, checks, launch), not the device's time."""
-    for _ in range(10):
+    ``reps`` back-to-back calls after ``warm`` warm-up calls: at the main
+    path's sizes this is the host's issue rate (Python, checks, launch),
+    not the device's time."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1445,6 +1458,282 @@ def phase_api_full() -> list:
     return records
 
 # ---------------------------------------------------------------------------
+# the SSM scans: RWKV-6 and Mamba, forward and backward
+# ---------------------------------------------------------------------------
+
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), for
+#: the scans' operation bound (step-serial float32 on the CUDA cores)
+F32_FLOP_PER_S = 67e12
+#: the scans' outputs against their plain loops: rtol, and atol as a share
+#: of max|want| (the read-out's float32 sum in another order; one bf16 ulp)
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: the last state: rtol, and atol as a share of max|want| (the kernels keep
+#: the loops' roundings, so it is bitwise unless exp differs)
+SCAN_STATE_TOL = 1e-5
+#: gradients against autograd through the plain loop, as a share of
+#: max|want| (autograd rounds every step's gradient terms to bf16 where
+#: the kernels sum them in float32: u's, summed over 2048 steps in bf16,
+#: is 0.11 of its max off at the backward's shape)
+SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -3}
+#: bf16 gradients against autograd through the plain loop in float32 on
+#: the same values, as a share of max|want| (the kernels' bf16 roundings
+#: of k·v, the read-out's sum and the outputs: about 3e-3 in a CPU
+#: emulation of the kernels at T = 512)
+SCAN_GRAD_F32_TOL = 2.0 ** -6
+#: operations a state element a step (an exp counted as one): RWKV-6
+#: forward k·v, u·kv, +, r·M (2), w·S, + ; backward the reverse step's 14
+#: and the recomputed S and M's 6; Mamba forward Δ·a, exp, e·s, x·B, +,
+#: C·s (2); backward h, dC, dx, dB, g, da, dΔ (2 each), the recomputed
+#: exp(Δ·a) (2) and h·e, and the recomputed state's 3
+SCAN_OPS = {("rwkv", False): 7, ("rwkv", True): 20, ("mamba", False): 7,
+            ("mamba", True): 22}
+#: RWKV-6's head width, Mamba's state width (RWKV-6-7B, Jamba)
+SCAN_HD, SCAN_N = 64, 16
+
+
+def _scan_counters():
+    from repro_torch.kernels import scan
+    return {"rwkv6_scan": scan.rwkv6_scan, "mamba_scan": scan.mamba_scan}
+
+
+def _reset_scans() -> None:
+    for c in _scan_counters().values():
+        c.launches = c.bwd_launches = 0
+
+
+def _scan_launches() -> dict:
+    """Forward and backward launches of each scan since the last reset."""
+    return {n: (c.launches, c.bwd_launches)
+            for n, c in _scan_counters().items()}
+
+
+@contextlib.contextmanager
+def _plain_scans():
+    """The models' scans as their plain loops inside the block, on CUDA
+    tensors too: the yardstick the kernels' waves are held to."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+    saved = ssm._rwkv6_scan, ssm._mamba_scan
+    ssm._rwkv6_scan = lambda *a: ref.rwkv6_scan(*a)
+    ssm._mamba_scan = lambda *a: ref.mamba_scan(*a)
+    try:
+        yield
+    finally:
+        ssm._rwkv6_scan, ssm._mamba_scan = saved
+
+
+def _scan_args(kind, b, t, width, dtype, gen):
+    """Seeded inputs of one scan, made on the card: RWKV-6 at d_model
+    ``width`` (heads of 64), Mamba at ``width`` channels (N = 16); decays
+    and deltas in the ranges the models give them."""
+    dev = torch.device("cuda")
+
+    def f(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    if kind == "rwkv":
+        h = width // SCAN_HD
+        shape = (b, t, h, SCAN_HD)
+        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2)
+        return [f(*shape, scale=0.5), f(*shape, scale=0.5), f(*shape),
+                w.to(dtype), f(h, SCAN_HD, scale=0.5),
+                torch.randn((b, h, SCAN_HD, SCAN_HD), generator=gen,
+                            device=dev) * 0.3]
+    delta = torch.nn.functional.softplus(
+        torch.randn((b, t, 1), generator=gen, device=dev) - 1)
+    return [f(b, t, width), delta.to(dtype), f(b, t, SCAN_N),
+            f(b, t, SCAN_N),
+            -torch.exp(torch.randn((width, SCAN_N), generator=gen,
+                                   device=dev) * 0.5),
+            torch.randn((b, width, SCAN_N), generator=gen, device=dev) * 0.3]
+
+
+def _scan_work(kind, bwd, b, t, width) -> tuple:
+    """(operations, bytes) of one scan call at these shapes, bf16
+    activations: :data:`SCAN_OPS` a state element a step; each input read
+    once and each output written once (the backward's workspace is the
+    kernel's choice, not the function's work)."""
+    if kind == "rwkv":
+        h = width // SCAN_HD
+        elems = b * t * h * SCAN_HD * SCAN_HD
+        act, par = b * t * width * 2, width * 2
+        state = b * h * SCAN_HD * SCAN_HD * 4
+        nbytes = (5 * act + par + 2 * state if not bwd else
+                  (5 * act + par + 2 * state) + (4 * act + par + state))
+    else:
+        elems = b * t * width * SCAN_N
+        act, small = b * t * width * 2, b * t * (1 + 2 * SCAN_N) * 2
+        a, state = width * SCAN_N * 4, b * width * SCAN_N * 4
+        nbytes = (2 * act + small + a + 2 * state if not bwd else
+                  (2 * act + small + a + 2 * state) + (act + small + a +
+                                                        state))
+    return SCAN_OPS[kind, bwd] * elems, nbytes
+
+
+def _scan_err(tag, got, want, tol) -> float:
+    """Max abs error of ``got`` against ``want`` (float32 views); fails
+    past rtol ``tol`` with atol ``tol * max|want|``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{tag}: {tuple(got.shape)} {got.dtype} != "
+             f"{tuple(want.shape)} {want.dtype}")
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{tag}: non-finite output")
+    atol = tol * max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=tol, atol=atol):
+        fail(f"{tag}: max abs error {err} past rtol={tol} atol={atol:.3g}")
+    return err
+
+
+def _scan_grads(fn, args, seed):
+    """The gradients of all six inputs of ``fn``'s scan, given seeded
+    cotangents of y and of the last state."""
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    s, y = fn(*xs)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w_s = torch.randn(s.shape, generator=g, device="cuda")
+    w_y = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+    torch.autograd.backward([s, y], [w_s, w_y])
+    return [x.grad for x in xs]
+
+
+def phase_scan() -> list:
+    """The four scan kernels against their plain loops on the card: first
+    float32 at a small odd shape (T = 37, forward and backward), then at
+    the main path's shapes in bf16: one RWKV-6-7B layer (8 x 512 tokens,
+    64 heads of 64) and one Jamba Mamba layer (8 x 512, 8192 channels,
+    N = 16) at the wave's prefill length and at T = 1 decode, forward; and
+    a backward at B = 2, T = 2048.  Each is timed beside its bound and its
+    plain loop (there is no library call: no single PyTorch call computes
+    the recurrence).  Returns the kernels line's four records (their
+    ``launches`` are filled from the main path's phases)."""
+    from repro_torch.kernels import ref, scan
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    kinds = {"rwkv": (scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_scan_fwd,
+                      scan.rwkv6_scan_bwd, 4096, "rwkv6_scan", 66),
+             "mamba": (scan.mamba_scan, ref.mamba_scan, scan.mamba_scan_fwd,
+                       scan.mamba_scan_bwd, 8192, "mamba_scan", 108)}
+    saved = _scan_launches()
+    for kind, (fn, plain, _, _, _, _, _) in kinds.items():
+        args = _scan_args(kind, 2, 37, 256, torch.float32, gen)
+        for got, want, what in zip(fn(*args), plain(*args),
+                                   ("state", "y")):
+            _scan_err(f"scan {kind} float32 {what}", got, want,
+                      SCAN_STATE_TOL if what == "state" else
+                      SCAN_TOL[torch.float32])
+        for i, (got, want) in enumerate(zip(_scan_grads(fn, args, 1),
+                                            _scan_grads(plain, args, 1))):
+            _scan_err(f"scan {kind} float32 gradient {i}", got, want,
+                      SCAN_GRAD_TOL[torch.float32])
+    print(f"[scan] float32, T = 37: both scans' states, outputs and the "
+          f"gradients of all six inputs agree with the plain loops (rtol "
+          f"{SCAN_STATE_TOL} / {SCAN_TOL[torch.float32]} / "
+          f"{SCAN_GRAD_TOL[torch.float32]} of max)")
+    records = []
+    bf16 = torch.bfloat16
+    for kind, (fn, plain, fwd, bwd, width, name, line) in kinds.items():
+        per = {}
+        for tag, b, t, back in (("prefill", SERVE["requests"], 512, False),
+                                ("decode", SERVE["requests"], 1, False),
+                                ("backward", 2, 2048, True)):
+            t1 = time.perf_counter()
+            args = _scan_args(kind, b, t, width, bf16, gen)
+            if not back:
+                got, want = fwd(*args), plain(*args)
+                torch.cuda.synchronize()
+                bitwise = torch.equal(got[0], want[0])
+                err_s = _scan_err(f"scan {kind} {tag} state", got[0],
+                                  want[0], SCAN_STATE_TOL)
+                err = _scan_err(f"scan {kind} {tag} y", got[1], want[1],
+                                SCAN_TOL[bf16])
+                del got, want
+                kern = lambda: fwd(*args)
+                ms = device_ms(kern, reps=_adaptive_reps(kern), replays=3)
+                pl = lambda: plain(*args)
+                plain_ms = call_ms(pl, reps=2 if t > 1 else 50, warm=1)
+                extra = {"state_max_abs_err": err_s,
+                         "state_bitwise": bitwise}
+            else:
+                got = _scan_grads(fn, args, 2)
+                want = _scan_grads(plain, args, 2)
+                torch.cuda.synchronize()
+                errs = [_scan_err(f"scan {kind} backward gradient {i}", g,
+                                  w, SCAN_GRAD_TOL[bf16])
+                        for i, (g, w) in enumerate(zip(got, want))]
+                rel = [e / w.float().abs().max().item()
+                       for e, w in zip(errs, want)]
+                err = max(errs)
+                del want
+                want = _scan_grads(plain, [a.float() for a in args], 2)
+                rel32 = [_scan_err(f"scan {kind} backward gradient {i} "
+                                   f"against float32", g.float(), w,
+                                   SCAN_GRAD_F32_TOL)
+                         / w.abs().max().item()
+                         for i, (g, w) in enumerate(zip(got, want))]
+                del got, want
+                g = torch.Generator(device="cuda").manual_seed(3)
+                s, y = fwd(*args)
+                ds = torch.randn(s.shape, generator=g, device="cuda")
+                dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
+                del s, y
+                ms = call_ms(lambda: bwd(*args, ds, dy), reps=3, warm=1)
+                plain_ms = call_ms(lambda: _scan_grads(plain, args, 4),
+                                   reps=1, warm=1)
+                del ds, dy
+                extra = {"grad_max_abs_err": errs,
+                         "grad_err_share_of_max": rel,
+                         "grad_err_share_of_max_vs_float32": rel32}
+            flop, nbytes = _scan_work(kind, back, b, t, width)
+            t_ops = flop / F32_FLOP_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            per[tag] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "flop": flop, "bytes": nbytes,
+                        "shape": [b, t, width], **extra}
+            print(f"[scan] {name} {'backward' if back else 'forward'} bf16 "
+                  f"{tag} B={b} T={t} width={width}: max abs err vs plain "
+                  f"{err:.3g}" + (f" (state {err_s:.3g}, bitwise {bitwise})"
+                                  if not back else
+                                  " (by input, as a share of max|plain|: "
+                                  + ", ".join(f"{x:.2g}" for x in rel)
+                                  + "; against the loop in float32 on the "
+                                  "same values: "
+                                  + ", ".join(f"{x:.2g}" for x in rel32)
+                                  + ")")
+                  + f"; {ms * 1e3:.2f} us a launch ("
+                  + ("eager, CUDA events" if back else "CUDA graph replay")
+                  + f"), plain {plain_ms * 1e3:.1f} us ("
+                  + ("forward + autograd backward through the loop, "
+                     if back else "the loop, ") + "eager); bound "
+                  f"{bound_ms * 1e3:.2f} us by {bound_by} ({flop / 1e9:.3f} "
+                  f"GFLOP, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of "
+                  f"it; {time.perf_counter() - t1:.1f} s ({smi()})")
+            del args
+            _free()
+        src = f"src/repro_torch/kernels/csrc/{name}.cu"
+        for back, tag in ((False, "prefill"), (True, "backward")):
+            r = per[tag]
+            records.append({
+                "name": f"{name}_{'bwd' if back else 'fwd'}", "route": "cuda",
+                "source": src, "replaces": f"src/repro/models/ssm.py:{line}",
+                "launches": None, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "bound_share": r["bound_ms"] / r["ms"],
+                "shape": r["shape"],
+                **({"decode": per["decode"]} if not back else {})})
+    for n, c in _scan_counters().items():
+        c.launches, c.bwd_launches = saved[n]
+    print(f"[scan] {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# ---------------------------------------------------------------------------
 # the serving path: the model stack and Engine at Kimi-K2's width
 # ---------------------------------------------------------------------------
 
@@ -1465,13 +1754,14 @@ def _serve_prompts(vocab: int):
                   for n in lens]
 
 
-def _serve(cfg, params, prompts, dispatch):
+def _serve(cfg, params, prompts, dispatch, keep_logits=False):
     """One wave of ``prompts`` through the engine on the card, every model
-    call timed; fails on a failed, truncated or malformed request."""
+    call timed (its logits kept when asked); fails on a failed, truncated
+    or malformed request."""
     from repro_torch.serve.engine import Engine, Request
     eng = Engine(cfg, params, slots=SERVE["slots"], max_len=SERVE["max_len"],
                  dispatch=dispatch, device=params["embed"].device)
-    eng.model = timed = _TimedModel(eng.model)
+    eng.model = timed = _TimedModel(eng.model, keep_logits)
     reqs = [Request(rid=i, prompt=p, max_new=SERVE["max_new"])
             for i, p in enumerate(prompts)]
     res = eng.run(reqs)
@@ -1489,10 +1779,13 @@ class _TimedModel:
     ends in a device sync: the engine reads its poison count), a check
     that its logits are finite, and the calls' times kept."""
 
-    def __init__(self, model):
+    def __init__(self, model, keep_logits=False):
         self.model = model
         self.prefill_s: list = []
         self.decode_s: list = []
+        #: each call's logits on the host, when kept (call i commits
+        #: every request's token i)
+        self.logits = [] if keep_logits else None
 
     def _timed(self, fn, into, *args, **kw):
         torch.cuda.synchronize()
@@ -1503,6 +1796,8 @@ class _TimedModel:
         into.append(time.perf_counter() - t0)
         if not torch.isfinite(out[0]).all():
             fail("serve: non-finite logits")
+        if self.logits is not None:
+            self.logits.append(out[0].float().cpu())
         return out
 
     def prefill(self, *args, **kw):
@@ -2500,11 +2795,68 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_ssm() -> None:
+def _n_sublayers(params, kind: str) -> int:
+    """Sublayers of ``kind`` in a parameter tree (keys ``s{j}_{kind}``)."""
+    return sum(k.endswith(f"_{kind}") for g in params["groups"] for k in g)
+
+
+def _check_scans(tag: str, want: dict) -> None:
+    """Fail unless the scans' (forward, backward) launches since the last
+    :func:`_reset_scans` are ``want`` (names not given: none)."""
+    want = {n: want.get(n, (0, 0)) for n in _scan_counters()}
+    if _scan_launches() != want:
+        fail(f"{tag}: scan launches (forward, backward) {_scan_launches()}, "
+             f"want {want}")
+
+
+def _same_tokens(tag, res_k, res_p, timed_k, timed_p) -> dict:
+    """The kernels' wave against the plain loops' wave (both with kept
+    logits): the same tokens, or the same up to the first step where a
+    request's argmax flips between two tokens whose plain logits differ
+    by no more than twice the two runs' largest logit difference on that
+    row (a bf16 tie); later steps then take other inputs and are not
+    compared.  Fails on any other difference."""
+    first = next((s for s in range(SERVE["max_new"]) if any(
+        res_k[i][s] != res_p[i][s] for i in res_p)), None)
+    if first is None:
+        return {"equal": True, "flips": []}
+    flips = []
+    lk, lp = timed_k.logits[first], timed_p.logits[first]
+    for i in sorted(res_p):
+        tk, tp = res_k[i][first], res_p[i][first]
+        if tk == tp:
+            continue
+        gap = (lp[i, tp] - lp[i, tk]).item()
+        dev = (lk[i] - lp[i]).abs().max().item()
+        flips.append({"request": i, "step": first, "kernel_token": tk,
+                      "plain_token": tp, "logit_gap": gap,
+                      "logit_dev": dev})
+        if gap > 2 * dev:
+            fail(f"{tag}: request {i} step {first}: token {tk} (kernels) "
+                 f"against {tp} (plain loops), plain logit gap {gap} past "
+                 f"twice the runs' logit difference {dev}")
+    return {"equal": False, "flips": flips}
+
+
+def _tokens_line(same: dict) -> str:
+    if same["equal"]:
+        return (f"the kernels commit the plain loops' tokens for all "
+                f"{SERVE['requests']} requests and {SERVE['max_new']} steps")
+    return ("bf16 argmax ties flip: " + "; ".join(
+        f"request {f['request']} at step {f['step']} takes {f['kernel_token']}"
+        f" (plain {f['plain_token']}), plain logit gap {f['logit_gap']:.4g} "
+        f"within twice the runs' logit difference {f['logit_dev']:.4g}"
+        for f in same["flips"]) + f"; every earlier step equal")
+
+
+def phase_ssm() -> dict:
     """RWKV-6-7B at full width and full depth (nothing cut) served by the
     engine: one wave of the serving traffic, timed, checked to launch no
-    spec kernel (the family has no MoE), then profiled with the scans'
-    kernels apart from the projections'."""
+    spec kernel (the family has no MoE) and the RWKV-6 forward scan once
+    a layer a call, then the same wave with the scans as their plain loops
+    (the tokens held to the kernels' wave, the loops' times beside), then
+    profiled with the scans' kernels apart from the projections'.  Returns
+    the forward scan's launches a wave and the wave's numbers."""
     from repro_torch.configs import base as cbase
     from repro_torch.models.model import build_model
     _free()
@@ -2519,23 +2871,43 @@ def phase_ssm() -> None:
     _weights_line("ssm", cfg, params, t0,
                   f"all {cfg.n_layers} layers, {cfg.d_model // cfg.hd} "
                   f"rwkv heads of {cfg.hd}")
+    n_rwkv = _n_sublayers(params, "rwkv")
     lens, prompts = _serve_prompts(cfg.vocab)
     _serve(cfg, params, prompts, "spec")  # warm-up
     _reset()
-    res, waves, timed = _serve(cfg, params, prompts, "spec")
+    _reset_scans()
+    res, waves, timed = _serve(cfg, params, prompts, "spec", keep_logits=True)
     torch.cuda.synchronize()
     if _launches() != (0, 0):
         fail(f"ssm: spec kernels launched {_launches()} times")
-    _wave_line("ssm", "spec", int(lens.max()), waves, timed,
-               torch.cuda.max_memory_allocated())
+    calls = 1 + len(timed.decode_s)
+    _check_scans("ssm", {"rwkv6_scan": (n_rwkv * calls, 0)})
+    stats = _wave_line("ssm", "spec", int(lens.max()), waves, timed,
+                       torch.cuda.max_memory_allocated())
+    with _plain_scans():
+        res_p, waves_p, timed_p = _serve(cfg, params, prompts, "spec",
+                                         keep_logits=True)
+    plain = _wave_line("ssm", "spec, the scans as plain loops",
+                       int(lens.max()), waves_p, timed_p)
+    same = _same_tokens("ssm", res, res_p, timed, timed_p)
+    print(f"[ssm] {_tokens_line(same)}; rwkv6_scan forward launched "
+          f"{n_rwkv * calls} times ({n_rwkv} layers x {calls} calls); "
+          f"prefill {plain['prefill_ms'] / stats['prefill_ms']:.1f}x and "
+          f"decode {plain['decode_ms_per_step'] / stats['decode_ms_per_step']:.1f}x "
+          f"faster than the loops")
+    del timed, timed_p
     t0 = time.perf_counter()
+    _reset_scans()
     profile = _serve_profile(lambda: _serve(cfg, params, prompts, "spec"))
+    _check_scans("ssm-profile", {"rwkv6_scan": (n_rwkv * calls, 0)})
     _print_profile("ssm", profile)
     print(f"[ssm] no spec kernel launched; {len(res)} requests, prompt "
           f"lengths {sorted(int(n) for n in lens)}; profile "
           f"{time.perf_counter() - t0:.1f} s")
     del params
     _free()
+    return {"launches": n_rwkv * calls, "stats": stats, "plain": plain,
+            "tokens": same, "profile": profile}
 
 
 def jamba_group_params(cfg, gen, device):
@@ -2574,10 +2946,13 @@ def phase_hybrid() -> dict:
     """Jamba-1.5-large at full width, one layer group of 8 (7 mamba + 1
     attention, MoE on every second sublayer, the MoE sublayers' experts
     shared), served by the engine through dispatch="spec-kernel" (its
-    launches counted: 4 MoE forwards a call) and "spec", which must commit
-    the same tokens and poison counts; profiled; then the two bf16 entries
-    held against their plain versions at Jamba's prefill and decode
-    shapes.  Returns the entries' launches and lines."""
+    launches counted: 4 MoE forwards a call, the Mamba forward scan once
+    a layer a call) and "spec", which must commit the same tokens and
+    poison counts; the spec-kernel wave again with the scans as their
+    plain loops, held to the kernels' tokens; profiled; then the two bf16
+    entries held against their plain versions at Jamba's prefill and
+    decode shapes.  Returns the entries' launches and lines, and the
+    Mamba scan's launches and token comparison."""
     import dataclasses
     from repro_torch.configs import base as cbase
     from repro_torch.models.model import group_pattern
@@ -2601,11 +2976,16 @@ def phase_hybrid() -> dict:
                   f"expert set")
     lens, prompts = _serve_prompts(cfg.vocab)
     plen = int(lens.max())
+    n_mamba = _n_sublayers(params, "mamba")
     _serve(cfg, params, prompts, "spec-kernel")  # warm-up
     g, s = _counters()
     _reset()
-    res_k, waves_k, timed_k = _serve(cfg, params, prompts, "spec-kernel")
+    _reset_scans()
+    res_k, waves_k, timed_k = _serve(cfg, params, prompts, "spec-kernel",
+                                     keep_logits=True)
     torch.cuda.synchronize()
+    calls = 1 + len(timed_k.decode_s)
+    _check_scans("hybrid", {"mamba_scan": (n_mamba * calls, 0)})
     launches = {"spec_gather": (g.launches, dict(g.route_launches),
                                 g.entry_launches["spec_gather_bf16"]),
                 "spec_scatter_add": (s.launches, dict(s.route_launches),
@@ -2638,10 +3018,26 @@ def phase_hybrid() -> dict:
     stats = {"spec-kernel": _wave_line("hybrid", "spec-kernel", plen,
                                        waves_k, timed_k, peak),
              "spec": _wave_line("hybrid", "spec", plen, waves_s, timed_s)}
+    with _plain_scans():
+        res_p, waves_p, timed_p = _serve(cfg, params, prompts,
+                                         "spec-kernel", keep_logits=True)
+    stats["plain"] = _wave_line("hybrid",
+                                "spec-kernel, the scans as plain loops",
+                                plen, waves_p, timed_p)
+    same = _same_tokens("hybrid", res_k, res_p, timed_k, timed_p)
+    print(f"[hybrid] {_tokens_line(same)}; mamba_scan forward "
+          f"launched {n_mamba * calls} times a wave ({n_mamba} layers x "
+          f"{calls} calls); prefill "
+          f"{stats['plain']['prefill_ms'] / stats['spec-kernel']['prefill_ms']:.1f}x"
+          f" and decode "
+          f"{stats['plain']['decode_ms_per_step'] / stats['spec-kernel']['decode_ms_per_step']:.1f}x"
+          f" faster than the loops")
     wave = waves_k[0]
     t0 = time.perf_counter()
+    _reset_scans()
     profile = _serve_profile(lambda: _serve(cfg, params, prompts,
                                             "spec-kernel"))
+    _check_scans("hybrid-profile", {"mamba_scan": (n_mamba * calls, 0)})
     _print_profile("hybrid", profile)
     print(f"[hybrid] same tokens for all {len(res_k)} requests and same "
           f"poison under both dispatches: {wave.moe_poison} of "
@@ -2650,7 +3046,7 @@ def phase_hybrid() -> dict:
           f"at prefill, {cap_d} at decode; launches "
           f"{ {k: v[0] for k, v in launches.items()} } (all by the bf16 "
           f"entry); profile {time.perf_counter() - t0:.1f} s")
-    del params, timed_k, timed_s
+    del params, timed_k, timed_s, timed_p
     _free()
 
     kgen = torch.Generator(device=dev).manual_seed(18)
@@ -2676,12 +3072,14 @@ def phase_hybrid() -> dict:
                   f"{r['library_ms'] * 1e3:.2f} us; byte bound "
                   f"{r['bound_ms'] * 1e3:.2f} us, "
                   f"{r['bound_ms'] / r['ms']:.1%} of it ({smi()})")
-    return {f"{name}_bf16": {
+    out = {f"{name}_bf16": {
         "launches": launches[name][0], "prefill": shapes["prefill"][name],
         "decode": shapes["decode"][name], "stats": stats,
         "profile": profile, "moe_poison": wave.moe_poison,
         "moe_requests": wave.moe_requests}
         for name in ("spec_gather", "spec_scatter_add")}
+    out["mamba_scan"] = {"launches": n_mamba * calls, "tokens": same}
+    return out
 
 
 #: the cross families' runs: 8 rows of the serving prompts, 16 greedy
@@ -2815,20 +3213,24 @@ def _flat(tree):
     return [t for t in tree_leaves(tree) if torch.is_tensor(t)]
 
 
-def phase_train_small() -> None:
+def phase_train_small() -> dict:
     """Every config's float32 smoke variant: 3 steps of the same
     ``make_train_step`` on the card and on the CPU from the same weights
     and batches (stub memory for vlm and encdec); losses within
-    ``rtol = SMOKE_TOL`` and every parameter within ``atol = SMOKE_TOL``.
-    Then a gradient through ``dispatch="spec-kernel"`` and through each
-    kernel entry must raise on CUDA tensors, as ``jax.grad`` through the
-    reference's Pallas kernels does."""
+    ``rtol = SMOKE_TOL`` and every parameter within ``atol = SMOKE_TOL``;
+    the rwkv and jamba configs' scans launched as kernels on the card,
+    forward and backward, once a layer a pass.  Then a gradient through
+    ``dispatch="spec-kernel"`` and through each of the five Pallas sites'
+    entries must raise on CUDA tensors, as ``jax.grad`` through the
+    reference's Pallas kernels does.  Returns the scans' backward
+    launches."""
     from repro_torch.configs import base as cbase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.train.train_step import make_train_step, value_and_grad
     worst = 0.0
+    scan_bwd = {}
     for arch in cbase.ASSIGNED:
         cfg = cbase.smoke(cbase.get(arch))
         init, step_fn, name = make_train_step(
@@ -2840,6 +3242,7 @@ def phase_train_small() -> None:
                            torch.float32)
         runs = {}
         for dev in ("cpu", "cuda"):
+            _reset_scans()
             state, losses = _to(state0, dev, clone=True), []
             for i in range(3):
                 state, m = step_fn(state, _train_batch(cfg, data, i, dev,
@@ -2847,6 +3250,14 @@ def phase_train_small() -> None:
                 losses.append(float(m["loss"]))
             runs[dev] = (losses, [t.cpu() for t in _flat(state.params)],
                          int(state.step))
+        # on the card each scan layer runs forward twice a step (the
+        # group's checkpoint recomputes it) and backward once
+        want = {n: (2 * 3 * k, 3 * k) for n, k in (
+            ("rwkv6_scan", _n_sublayers(state0.params, "rwkv")),
+            ("mamba_scan", _n_sublayers(state0.params, "mamba"))) if k}
+        _check_scans(f"train-small {arch}", want)
+        for n, (_, b) in want.items():
+            scan_bwd[n] = scan_bwd.get(n, 0) + b
         (lc, pc, sc), (lg, pg, sg) = runs["cpu"], runs["cuda"]
         if sc != sg or sg != 3:
             fail(f"train-small {arch}: steps {sc} / {sg}")
@@ -2859,7 +3270,9 @@ def phase_train_small() -> None:
         print(f"[train-small] {arch} smoke config (float32, {name}): 3 "
               f"steps on the card, losses {', '.join(f'{x:.6f}' for x in lg)}"
               f" (CPU {', '.join(f'{x:.6f}' for x in lc)}); parameters "
-              f"within {err:.3g} of the CPU's")
+              f"within {err:.3g} of the CPU's"
+              + "".join(f"; {n} launched {f} forward, {b} backward"
+                        for n, (f, b) in want.items()))
     # a gradient through a kernel raises, on the card as in the reference
     cfg = cbase.smoke(cbase.get("kimi_k2_1t_a32b"))
     model = build_model(cfg, "spec-kernel")
@@ -2909,7 +3322,9 @@ def phase_train_small() -> None:
           f"against CPU (parameters within {worst:.3g}, atol {SMOKE_TOL}); "
           f"on CUDA tensors a gradient through dispatch=spec-kernel and "
           f"through each of the {len(calls)} kernel entries raises "
-          f"NotImplementedError")
+          f"NotImplementedError; the scans' backward kernels launched "
+          f"{scan_bwd}")
+    return scan_bwd
 
 
 def _multiply_params(cfg, params) -> float:
@@ -3175,6 +3590,8 @@ def main() -> None:
     line = phase_line(*phase_full())
     phase_kernels_dense()
     line["kernels"] += phase_api_full()
+    scans = phase_scan()
+    line["kernels"] += scans
     line["kernels"] += phase_serve_full()
     grok = phase_mesh_shards_grok()
     for rec in line["kernels"]:
@@ -3184,13 +3601,25 @@ def main() -> None:
     line["mesh_attn"] = phase_mesh_attn()
     dry = phase_dryrun()
     line["dryrun"] = dry
-    phase_ssm()
+    ssm = phase_ssm()
     hybrid = phase_hybrid()
     for rec in line["kernels"]:
         if rec["name"] in hybrid:
             rec["jamba"] = hybrid[rec["name"]]
     phase_cross()
-    phase_train_small()
+    train_bwd = phase_train_small()
+    # the scans' launches on their main paths: the forward kernels in one
+    # served wave ([ssm], [hybrid]), the backward ones in [train-small]
+    fwd = {"rwkv6_scan": ssm, "mamba_scan": hybrid["mamba_scan"]}
+    for rec in scans:
+        name, way = rec["name"].rsplit("_", 1)
+        rec["launches"] = (fwd[name]["launches"] if way == "fwd" else
+                           train_bwd[name])
+        rec["main_path"] = ("[ssm] RWKV-6-7B wave" if name == "rwkv6_scan"
+                            else "[hybrid] Jamba wave") if way == "fwd" \
+            else "[train-small] smoke configs, 3 steps"
+        if way == "fwd":
+            rec["tokens_vs_plain"] = fwd[name]["tokens"]
     phase_train_dense()
     phase_train_moe()
     phase_train_ckpt()

@@ -83,6 +83,24 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         f"paged_attention_{t}": (_PTR,) * 7 + (_I64,) * 7 + (_PTR,)
         for t in ("f32", "bf16")
     },
+    "rwkv6_scan": {
+        # r, k, v, w, u, s0, y, s_out; B, T, H, hd; stream
+        **{f"rwkv6_scan_fwd_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
+        # r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du, ds0;
+        # B, T, H, hd; stream
+        **{f"rwkv6_scan_bwd_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
+    },
+    "mamba_scan": {
+        # u, delta, B, C, a, s0, y, s_out; batch, T, D, N; stream
+        **{f"mamba_scan_fwd_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
+        # u, delta, B, C, a, s0, dy, ds, ws, du, ddelta, dB, dC, da, ds0;
+        # batch, T, D, N; stream
+        **{f"mamba_scan_bwd_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

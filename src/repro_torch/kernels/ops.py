@@ -1,7 +1,9 @@
 """ops — the public kernel API, the counterpart of ``repro.kernels.ops``.
 
-The same five functions with the same signatures.  Each goes to its
-kernel wrapper, which dispatches on where the tensors lie (see
+The same five functions with the same signatures, and the two SSM scans
+(``rwkv6_scan``, ``mamba_scan``), which the reference runs as
+``lax.scan`` inside its models and which take a gradient.  Each goes to
+its kernel wrapper, which dispatches on where the tensors lie (see
 :mod:`repro_torch.kernels.dispatch`): CUDA tensors launch the
 hand-written kernel or raise, CPU tensors run the plain version in
 :mod:`repro_torch.kernels.ref`.  There is no switch that forces one or
@@ -14,6 +16,8 @@ import torch
 from .flash_attention import flash_attention as _flash
 from .paged_attention import paged_attention as _paged
 from .ragged_matmul import ragged_matmul as _ragged
+from .scan import mamba_scan as _mamba
+from .scan import rwkv6_scan as _rwkv6
 from .spec_gather import spec_gather as _gather
 from .spec_scatter import spec_scatter_add as _scatter
 
@@ -46,3 +50,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     seq_lens: torch.Tensor) -> torch.Tensor:
     """Decode attention of one token per sequence over a paged KV pool."""
     return _paged(q, k_pages, v_pages, page_table, seq_lens)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s: torch.Tensor):
+    """The RWKV-6 recurrence over time: ``(last state, y)``."""
+    return _rwkv6(r, k, v, w, u, s)
+
+
+def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor, s: torch.Tensor):
+    """The Mamba recurrence over time: ``(last state, y)``."""
+    return _mamba(u, delta, bmat, cmat, a, s)

@@ -5,8 +5,9 @@ index* marks a mis-speculated request — a gather returns a zero row for
 it, a scatter drops it, attention leaves it out of the softmax — and an
 index of at least the row count clips to the last row.  Arithmetic
 follows the Pallas kernels: float32 accumulation and softmax state, the
-output in the input's dtype.  The kernel wrappers run these on CPU
-tensors; on the card they are what the CUDA kernels are held against.
+output in the input's dtype.  The SSM scans are the port's first
+versions of the reference's ``lax.scan`` loops, one step a token.  The
+kernel wrappers run these on CPU tensors; on the card they are what the CUDA kernels are held against.
 """
 from __future__ import annotations
 
@@ -130,3 +131,44 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      k.float().transpose(-1, -2)) * (1.0 / d ** 0.5)
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
     return _softmax_pv(s, v, round_p=False)[:, :, 0].to(q.dtype)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s: torch.Tensor):
+    """The RWKV-6 recurrence over time, one step a token.  r, k, v, w:
+    (B, T, H, hd); u: (H, hd); s: (B, H, hd, hd) float32.  Returns the
+    last state and the outputs (B, T, H, hd) in r's dtype.
+
+    Each step rounds where the reference's ``lax.scan`` step, as XLA runs
+    it, rounds: k·v in the activations' dtype, then float32; the state
+    plus u·kv cast to r's dtype for the read-out, whose product sums in
+    float32 and rounds once; the state update in float32."""
+    ub = u[None, :, :, None]
+    outs = []
+    for i in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
+        # the outer product in the activations' dtype, then float32
+        kv = (kt[..., :, None] * vt[..., None, :]).float()
+        outs.append((rt[..., None, :] @ (s + ub * kv).to(rt.dtype))[..., 0, :])
+        s = wt[..., None].float() * s + kv
+    return s, torch.stack(outs, dim=1)
+
+
+def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor, s: torch.Tensor):
+    """The Mamba recurrence over time, one step a token.  u: (B, T, D);
+    delta: (B, T, 1); bmat, cmat: (B, T, N); a: (D, N) float32; s:
+    (B, D, N) float32.  Returns the last state and the outputs (B, T, D)
+    in cmat's dtype.  exp(Δ·A) and the state are float32, Δ·u rounds to
+    the activations' dtype, the read-out takes the state in cmat's dtype
+    and sums in float32."""
+    ys = []
+    for i in range(u.shape[1]):
+        ut, dt, bt, ct = u[:, i], delta[:, i], bmat[:, i], cmat[:, i]
+        da = torch.exp(dt[..., None] * a[None])               # (B, D, N)
+        # dt·u in the activations' dtype; its product with B joins the
+        # float32 state unrounded, as the reference's fused step computes
+        # it (XLA keeps the fused product in float32)
+        s = da * s + (dt * ut).float()[..., None] * bt.float()[:, None, :]
+        ys.append((s.to(ct.dtype) @ ct[..., None])[..., 0])
+    return s, torch.stack(ys, dim=1)

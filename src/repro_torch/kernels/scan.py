@@ -1,0 +1,262 @@
+"""rwkv6_scan, mamba_scan — the SSM recurrences over time (CUDA, sm_90a),
+forward and backward.
+
+The reference runs both as ``jax.lax.scan`` in the JAX package's
+``models/ssm.py`` (``rwkv6_block``, ``mamba_block``), which XLA compiles
+into one loop on the device; no Pallas kernel computes them.  Here each
+is a pair of hand-written kernels behind a ``torch.autograd.Function``:
+``csrc/rwkv6_scan.cu`` (a block per (batch, head), the hd x hd float32
+state a column a thread) and ``csrc/mamba_scan.cu`` (a thread per (batch,
+channel), the N float32 state values in registers).  Each backward runs
+the forward again into a float32 workspace of every step's state, then
+walks time backward; it gives the gradients of all six inputs, the first
+state included, and takes the last state's cotangent (decode chains
+carry the state).  Unlike the five Pallas sites' entries, these take a
+gradient, as the reference's scan does.
+
+CUDA tensors launch the kernels (or raise); CPU tensors run the plain
+loops of :mod:`repro_torch.kernels.ref`, and autograd differentiates
+them.  ``<fn>.launches`` counts forward launches, ``<fn>.bwd_launches``
+backward ones.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .build import check, load
+from .dispatch import on_cuda, stream_of, suffix
+
+#: RWKV-6 head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64)
+#: Mamba state widths the kernel is built for
+STATE_DIMS = (16,)
+
+
+def _check(name: str, acts, f32s, shapes) -> None:
+    """One float dtype of float32 or bfloat16 for ``acts``, float32 for
+    ``f32s``, every tensor contiguous and of its shape."""
+    dtype = acts[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported (float32 or "
+                        f"bfloat16)")
+    for t in acts:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+    for t in f32s:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the state and A must be float32, got "
+                            f"{t.dtype}")
+    for t, shape in zip(acts + f32s, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _grad(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient as the kernels take it: ``like``'s dtype,
+    contiguous."""
+    return g.to(like.dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s: torch.Tensor):
+    """The RWKV-6 recurrence: ``S_t = diag(w_t) S_{t-1} + k_tᵀ v_t``,
+    ``y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)``.
+
+    r, k, v, w: (B, T, H, hd) in float32 or bfloat16, T >= 1; u (H, hd)
+    in their dtype; s (B, H, hd, hd) float32.  Returns the last state
+    (float32) and y (B, T, H, hd) in r's dtype, rounded as
+    :func:`repro_torch.kernels.ref.rwkv6_scan` rounds.  On CUDA tensors
+    (hd in :data:`HEAD_DIMS`) the kernels launch, forward and backward.
+    """
+    cuda = on_cuda(r, k, v, w, u, s)
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan: r must be (B, T, H, hd), got "
+                         f"{tuple(r.shape)}")
+    b, t, h, hd = r.shape
+    _check("rwkv6_scan", [r, k, v, w, u], [s],
+           [(b, t, h, hd)] * 4 + [(h, hd), (b, h, hd, hd)])
+    if t < 1:
+        raise ValueError("rwkv6_scan: T must be at least 1")
+    if not cuda:
+        return ref.rwkv6_scan(r, k, v, w, u, s)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head dim {hd} not in {HEAD_DIMS}")
+    return _RWKV6Scan.apply(r, k, v, w, u, s)
+
+
+def rwkv6_scan_fwd(r, k, v, w, u, s0):
+    """One launch of the forward kernel on checked CUDA tensors:
+    ``(last state, y)``."""
+    b, t, h, hd = r.shape
+    y = torch.empty_like(r)
+    s = torch.empty_like(s0)
+    fn = getattr(load("rwkv6_scan"), f"rwkv6_scan_fwd_{suffix(r.dtype)}")
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), y.data_ptr(), s.data_ptr(),
+                 b, t, h, hd, stream_of(r))
+    check(err, "rwkv6_scan forward")
+    rwkv6_scan.launches += 1
+    return s, y
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, s0, ds, dy):
+    """One launch of the backward entry on checked CUDA tensors, given
+    the cotangents of the last state (or None) and of y: the gradients of
+    r, k, v, w, u and s0.  The workspace holds every step's state before
+    its update, float32: B * H * T * hd * hd * 4 bytes."""
+    b, t, h, hd = r.shape
+    dy = _grad(dy, r)
+    ds = None if ds is None else _grad(ds, s0)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    ds0 = torch.empty_like(s0)
+    ws = torch.empty((b, h, t, hd, hd), dtype=torch.float32, device=r.device)
+    fn = getattr(load("rwkv6_scan"), f"rwkv6_scan_bwd_{suffix(r.dtype)}")
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _ptr(ds),
+                 ws.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), b, t, h, hd,
+                 stream_of(r))
+    check(err, "rwkv6_scan backward")
+    rwkv6_scan.bwd_launches += 1
+    return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
+class _RWKV6Scan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        # an unused last state gives the backward no cotangent (None)
+        ctx.set_materialize_grads(False)
+        return rwkv6_scan_fwd(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        saved = ctx.saved_tensors  # once: a checkpoint unpacks only once
+        dy = torch.zeros_like(saved[0]) if dy is None else dy
+        return rwkv6_scan_bwd(*saved, ds, dy)
+
+
+#: forward and backward kernel launches since the counts were last set
+#: to 0
+rwkv6_scan.launches = 0
+rwkv6_scan.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+
+def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+               cmat: torch.Tensor, a: torch.Tensor, s: torch.Tensor):
+    """The Mamba recurrence: ``s_t = exp(Δ_t A) ⊙ s_{t-1} + Δ_t u_t B_t``,
+    ``y_t = C_t s_t``.
+
+    u: (B, T, D), delta (B, T, 1), bmat and cmat (B, T, N), all in
+    float32 or bfloat16, T >= 1; a (D, N) and s (B, D, N) float32.
+    Returns the last state (float32) and y (B, T, D) in cmat's dtype,
+    rounded as :func:`repro_torch.kernels.ref.mamba_scan` rounds.  On CUDA
+    tensors (N in :data:`STATE_DIMS`) the kernels launch, forward and
+    backward.
+    """
+    cuda = on_cuda(u, delta, bmat, cmat, a, s)
+    if u.dim() != 3 or bmat.dim() != 3:
+        raise ValueError(f"mamba_scan: u and bmat must be (B, T, D) and "
+                         f"(B, T, N), got {tuple(u.shape)}, "
+                         f"{tuple(bmat.shape)}")
+    b, t, d = u.shape
+    n = bmat.shape[2]
+    _check("mamba_scan", [u, delta, bmat, cmat], [a, s],
+           [(b, t, d), (b, t, 1), (b, t, n), (b, t, n), (d, n), (b, d, n)])
+    if t < 1:
+        raise ValueError("mamba_scan: T must be at least 1")
+    if not cuda:
+        return ref.mamba_scan(u, delta, bmat, cmat, a, s)
+    if n not in STATE_DIMS:
+        raise ValueError(f"mamba_scan: state dim {n} not in {STATE_DIMS}")
+    return _MambaScan.apply(u, delta, bmat, cmat, a, s)
+
+
+def mamba_scan_fwd(u, delta, bmat, cmat, a, s0):
+    """One launch of the forward kernel on checked CUDA tensors:
+    ``(last state, y)``."""
+    b, t, d = u.shape
+    y = torch.empty_like(u)
+    s = torch.empty_like(s0)
+    fn = getattr(load("mamba_scan"), f"mamba_scan_fwd_{suffix(u.dtype)}")
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
+                 cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), y.data_ptr(),
+                 s.data_ptr(), b, t, d, bmat.shape[2], stream_of(u))
+    check(err, "mamba_scan forward")
+    mamba_scan.launches += 1
+    return s, y
+
+
+def mamba_scan_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
+    """One launch of the backward entry on checked CUDA tensors, given
+    the cotangents of the last state (or None) and of y: the gradients of
+    u, delta, bmat, cmat, a and s0.  The workspace holds every step's
+    state after its update, float32: B * T * D * N * 4 bytes."""
+    b, t, d = u.shape
+    n = bmat.shape[2]
+    dy = _grad(dy, u)
+    ds = None if ds is None else _grad(ds, s0)
+    du = torch.empty_like(u)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    # the sums over channels and over the batch, by atomic adds
+    ddelta = torch.zeros((b, t, 1), **f32)
+    dbmat = torch.zeros((b, t, n), **f32)
+    dcmat = torch.zeros((b, t, n), **f32)
+    da = torch.zeros((d, n), **f32)
+    ds0 = torch.empty_like(s0)
+    ws = torch.empty((b, t, d, n), **f32)
+    fn = getattr(load("mamba_scan"), f"mamba_scan_bwd_{suffix(u.dtype)}")
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
+                 cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), dy.data_ptr(),
+                 _ptr(ds), ws.data_ptr(), du.data_ptr(), ddelta.data_ptr(),
+                 dbmat.data_ptr(), dcmat.data_ptr(), da.data_ptr(),
+                 ds0.data_ptr(), b, t, d, n, stream_of(u))
+    check(err, "mamba_scan backward")
+    mamba_scan.bwd_launches += 1
+    return (du, ddelta.to(delta.dtype), dbmat.to(bmat.dtype),
+            dcmat.to(cmat.dtype), da, ds0)
+
+
+class _MambaScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, u, delta, bmat, cmat, a, s0):
+        ctx.save_for_backward(u, delta, bmat, cmat, a, s0)
+        # an unused last state gives the backward no cotangent (None)
+        ctx.set_materialize_grads(False)
+        return mamba_scan_fwd(u, delta, bmat, cmat, a, s0)
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        saved = ctx.saved_tensors  # once: a checkpoint unpacks only once
+        dy = torch.zeros_like(saved[0]) if dy is None else dy
+        return mamba_scan_bwd(*saved, ds, dy)
+
+
+#: forward and backward kernel launches since the counts were last set
+#: to 0
+mamba_scan.launches = 0
+mamba_scan.bwd_launches = 0

@@ -275,6 +275,9 @@ class _Repeated(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, counter, n, scan, const, s, *xs):
+        # an output nobody uses gets no gradient (a materialised plain
+        # zero would not be a DTensor)
+        ctx.set_materialize_grads(False)
         ins = [t.detach().requires_grad_(t.requires_grad)
                for t in (const, s) + xs]
         keep = torch.autograd.graph.saved_tensors_hooks(lambda t: t,

@@ -11,6 +11,19 @@ float32 and for bf16 that TMA cannot address): float32 at ``tests/test_kernels.p
 and ``rtol=1e-2, atol=1e-2 * max|want|`` for the GEMM, because the two
 sides sum in other orders and round p and the output to bfloat16.
 
+The SSM scans' four kernels (RWKV-6 and Mamba, forward and backward) are
+held to their plain loops on the card in float32 and bfloat16 at T = 1,
+at odd T and across Mamba's 32-step staging chunks, from a carried
+state: the last state within ``1e-6`` (the kernels keep the loops'
+roundings, so it is bitwise unless ``exp`` differs), outputs at
+``SCAN_TOL`` (another order of the read-out's float32 sum: float32
+``1e-5``, bfloat16 one bf16 ulp, ``2**-7``), and the gradients of all
+six inputs, given both cotangents, against autograd through the plain
+loop at ``SCAN_GRAD_TOL`` of the largest (float32 ``1e-4``; bfloat16
+``2**-3``, because autograd rounds every step's gradient terms to
+bfloat16 where the kernels sum them in float32), and in bfloat16 also
+against the loop in float32 on the same values at ``2**-6``.
+
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
 port is installed::
@@ -685,7 +698,7 @@ def test_cuda_jamba_wave_spec_kernel_matches_spec(cuda):
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "kimi_k2_1t_a32b",
-                                  "jamba_1_5_large_398b"])
+                                  "jamba_1_5_large_398b", "rwkv6_7b"])
 def test_cuda_train_step_matches_cpu(cuda, arch):
     """Three steps of ``make_train_step`` on the card and on the CPU from
     the same float32 smoke weights and batches: losses at rtol 1e-4,
@@ -877,3 +890,117 @@ def test_cuda_mesh_11_nccl_matches_flat(cuda):
         assert spec_gather.entry_launches["spec_gather_bf16"] - g0 == 1
     assert int(pois) == int(n_flat) > 0
     assert torch.equal(out, flat)
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans
+# ---------------------------------------------------------------------------
+
+#: outputs against the plain loop: rtol, and atol as a share of max|want|
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: gradients against autograd through the plain loop: atol as a share of
+#: max|want|
+SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -3}
+#: bf16 gradients against autograd through the loop in float32 on the
+#: same values, as a share of max|want|
+SCAN_GRAD_F32_TOL = 2.0 ** -6
+
+
+def _scan_case(kind, dev, dtype, b, t, width, seed=31):
+    """Seeded inputs of one scan on ``dev``: RWKV-6 with 2 heads of
+    ``width``, Mamba with ``width`` channels and N = 16."""
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
+
+    if kind == "rwkv":
+        h = 2
+        w = torch.sigmoid(torch.randn((b, t, h, width), generator=g) + 2)
+        return [f(b, t, h, width, scale=0.5), f(b, t, h, width, scale=0.5),
+                f(b, t, h, width), w.to(dtype).to(dev),
+                f(h, width, scale=0.5),
+                (torch.randn((b, h, width, width), generator=g) * 0.3
+                 ).to(dev)]
+    delta = torch.nn.functional.softplus(torch.randn((b, t, 1), generator=g))
+    return [f(b, t, width), delta.to(dtype).to(dev), f(b, t, 16),
+            f(b, t, 16), -torch.exp(torch.randn((width, 16), generator=g)
+                                    * 0.5).to(dev),
+            (torch.randn((b, width, 16), generator=g) * 0.3).to(dev)]
+
+
+SCAN_CASES = [("rwkv", 64, 1), ("rwkv", 64, 37), ("rwkv", 16, 9),
+              ("rwkv", 32, 2), ("mamba", 300, 1), ("mamba", 300, 33),
+              ("mamba", 128, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,width,t", SCAN_CASES)
+def test_cuda_scan_forward_matches_plain(cuda, kind, width, t, dtype):
+    from repro_torch.kernels import scan
+    fn, plain = ((scan.rwkv6_scan, ref.rwkv6_scan) if kind == "rwkv" else
+                 (scan.mamba_scan, ref.mamba_scan))
+    args = _scan_case(kind, cuda, dtype, 3, t, width)
+    n0 = fn.launches
+    s, y = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ws, wy = plain(*args)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(s, ws, rtol=1e-6, atol=1e-6)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol,
+                               atol=tol * wy.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,width,t", SCAN_CASES)
+def test_cuda_scan_backward_matches_autograd(cuda, kind, width, t, dtype):
+    """The gradients of all six inputs, given the outputs' and the last
+    state's cotangents, against autograd through the plain loop."""
+    from repro_torch.kernels import scan
+    fn, plain = ((scan.rwkv6_scan, ref.rwkv6_scan) if kind == "rwkv" else
+                 (scan.mamba_scan, ref.mamba_scan))
+    args = _scan_case(kind, cuda, dtype, 3, t, width)
+    g = torch.Generator().manual_seed(32)
+    grads = {}
+    for name, f in (("kernel", fn), ("plain", plain)):
+        xs = [a.clone().requires_grad_(True) for a in args]
+        s, y = f(*xs)
+        if name == "kernel":
+            w_s = torch.randn(s.shape, generator=g).to(cuda)
+            w_y = torch.randn(y.shape, generator=g).to(cuda)
+        n0 = fn.bwd_launches
+        ((y.float() * w_y).sum() + (s * w_s).sum()).backward()
+        torch.cuda.synchronize()
+        assert fn.bwd_launches == n0 + (name == "kernel")
+        grads[name] = [x.grad for x in xs]
+    if dtype == torch.bfloat16:
+        # the loop in float32 on the same values: within SCAN_GRAD_F32_TOL
+        xs = [a.float().requires_grad_(True) for a in args]
+        s, y = plain(*xs)
+        ((y * w_y).sum() + (s * w_s).sum()).backward()
+        grads["float32"] = [x.grad for x in xs]
+    for i, (got, want) in enumerate(zip(grads["kernel"], grads["plain"])):
+        assert got.dtype == want.dtype, i
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= SCAN_GRAD_TOL[dtype] * scale, (i, err, scale)
+        if dtype == torch.bfloat16:
+            want = grads["float32"][i]
+            err = (got.float() - want).abs().max().item()
+            assert err <= SCAN_GRAD_F32_TOL * want.abs().max().item(), i
+
+
+def test_cuda_scan_refuses_what_it_is_not_built_for(cuda):
+    from repro_torch.kernels import scan
+    args = _scan_case("rwkv", cuda, torch.float32, 2, 3, 8)
+    with pytest.raises(ValueError, match="head dim"):
+        scan.rwkv6_scan(*args)
+    args = _scan_case("mamba", cuda, torch.float32, 2, 3, 64)
+    args[2], args[3] = args[2][..., :8].contiguous(), \
+        args[3][..., :8].contiguous()
+    args[4], args[5] = args[4][:, :8].contiguous(), \
+        args[5][..., :8].contiguous()
+    with pytest.raises(ValueError, match="state dim"):
+        scan.mamba_scan(*args)
