@@ -65,17 +65,23 @@ card, whose final memory must equal the simulated SPEC variant's bit for
 bit; pagerank and join compiled cold and warm through the frontend's
 compile cache with ``verify=True``, the warm objects run on the card
 bitwise; and the soundness verifier's sweeps with mutants, in-process.
-After the kernel API, ``[scan]`` holds the SSM scans' four kernels
-(``repro_torch.kernels.scan``: RWKV-6 and Mamba, forward and backward)
-against their plain loops, float32 at a small odd T, then bf16 at one
-RWKV-6-7B layer's and one Jamba Mamba layer's shapes (8 x 512 prefill
-and T = 1 decode forward, a backward at B = 2, T = 2048), timed beside
-their bounds and the loops.
+After the kernel API, ``[scan]`` holds the SSM scans' kernels
+(``repro_torch.kernels.scan``: RWKV-6 and Mamba, forward by each route
+and backward) against their plain loops: float32 at a small odd T by the
+step routes; the new bf16 routes (RWKV-6 chunked, Mamba chunk) against
+the loop run in float32 on the same values at T from 2 to 2048 in three
+decay regimes, no further from it than the bf16 loop; then bf16 at one
+RWKV-6-7B layer's and one Jamba Mamba layer's shapes: 8 x 512 prefill by
+the new route and by the step route on the same inputs, T = 1 decode by
+RWKV-6's step route and Mamba's decode route (bitwise the loops) beside
+Mamba's step kernel, a backward at B = 2, T = 2048, each timed beside its
+route's bound, the step-serial bound and the loop.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
 and depth through the engine (no spec kernel may launch; the RWKV-6
-forward scan kernel once a layer a call), serves the wave again with
+forward scan once a layer a call: the prefill by the chunked route, the
+decode steps by the step route), serves the wave again with
 the scans as their plain loops (the same tokens, or a bf16 argmax tie
 reported with its logit gap) and profiles the wave with the scans'
 kernels apart; ``[hybrid]`` serves one
@@ -83,7 +89,8 @@ Jamba-1.5-large group at full width (7 Mamba + 1 attention sublayers,
 its four MoE sublayers sharing one expert set to fit the card) through
 ``dispatch="spec-kernel"`` and ``"spec"``, which must commit the same
 tokens and poison counts with 68 launches of each bf16 entry and the
-Mamba forward scan once a layer a call, against the plain loops as
+Mamba forward scan once a layer a call (the prefill by the chunk route,
+the decode steps by the decode route), against the plain loops as
 ``[ssm]`` is, profiles
 it and holds the bf16 entries to their plain versions at its shapes;
 ``[cross]`` runs Llama-3.2-Vision-90B (one layer group) and
@@ -1462,13 +1469,21 @@ def phase_api_full() -> list:
 # ---------------------------------------------------------------------------
 
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), for
-#: the scans' operation bound (step-serial float32 on the CUDA cores)
+#: the step routes' operation bound (step-serial float32 on the CUDA cores)
 F32_FLOP_PER_S = 67e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet), for the RWKV-6
+#: chunked route's operation bound
+TF32_FLOP_PER_S = 495e12
+#: exps a clock on each SM's special-function units (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput, compute capability 9.0) and
+#: the H100 SXM's SMs, for the Mamba chunk route's exp bound
+SFU_EXP_PER_CLOCK, N_SM = 16, 132
 #: the scans' outputs against their plain loops: rtol, and atol as a share
 #: of max|want| (the read-out's float32 sum in another order; one bf16 ulp)
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
-#: the last state: rtol, and atol as a share of max|want| (the kernels keep
-#: the loops' roundings, so it is bitwise unless exp differs)
+#: the last state: rtol, and atol as a share of max|want| (the step and
+#: decode routes keep the loops' roundings, so it is bitwise unless exp
+#: differs)
 SCAN_STATE_TOL = 1e-5
 #: gradients against autograd through the plain loop, as a share of
 #: max|want| (autograd rounds every step's gradient terms to bf16 where
@@ -1484,11 +1499,18 @@ SCAN_GRAD_F32_TOL = 2.0 ** -6
 #: forward k·v, u·kv, +, r·M (2), w·S, + ; backward the reverse step's 14
 #: and the recomputed S and M's 6; Mamba forward Δ·a, exp, e·s, x·B, +,
 #: C·s (2); backward h, dC, dx, dB, g, da, dΔ (2 each), the recomputed
-#: exp(Δ·a) (2) and h·e, and the recomputed state's 3
+#: exp(Δ·a) (2) and h·e, and the recomputed state's 3.  The step routes'
+#: bound, and the old one beside the new routes'.
 SCAN_OPS = {("rwkv", False): 7, ("rwkv", True): 20, ("mamba", False): 7,
             ("mamba", True): 22}
 #: RWKV-6's head width, Mamba's state width (RWKV-6-7B, Jamba)
 SCAN_HD, SCAN_N = 64, 16
+#: tokens a chunk of the RWKV-6 chunked route (csrc/rwkv6_chunk_sm90.cu)
+SCAN_CHUNK = 16
+#: the new routes against the float32 loop: T, and the decay regimes
+#: (the models' own; near 0; near 1), at full width, B = 2
+SCAN_SWEEP_T = (2, 17, 64, 65, 512, 2048)
+SCAN_REGIMES = ("model", "near0", "near1")
 
 
 def _scan_counters():
@@ -1499,12 +1521,18 @@ def _scan_counters():
 def _reset_scans() -> None:
     for c in _scan_counters().values():
         c.launches = c.bwd_launches = 0
+        c.route_launches = dict.fromkeys(c.route_launches, 0)
 
 
 def _scan_launches() -> dict:
     """Forward and backward launches of each scan since the last reset."""
     return {n: (c.launches, c.bwd_launches)
             for n, c in _scan_counters().items()}
+
+
+def _scan_routes() -> dict:
+    """Forward launches of each scan by route since the last reset."""
+    return {n: dict(c.route_launches) for n, c in _scan_counters().items()}
 
 
 @contextlib.contextmanager
@@ -1522,53 +1550,105 @@ def _plain_scans():
         ssm._rwkv6_scan, ssm._mamba_scan = saved
 
 
-def _scan_args(kind, b, t, width, dtype, gen):
+def _scan_args(kind, b, t, width, dtype, gen, regime="model"):
     """Seeded inputs of one scan, made on the card: RWKV-6 at d_model
-    ``width`` (heads of 64), Mamba at ``width`` channels (N = 16); decays
-    and deltas in the ranges the models give them."""
+    ``width`` (heads of 64), Mamba at ``width`` channels (N = 16).  Decays
+    and deltas in the ranges the models give them (``regime="model"``:
+    w = sigmoid(x + 2), delta = softplus(x - 1)), near 0 (w <= 1e-3, a
+    fifth of the channels exactly 0; delta a <= -20) or near 1 (w >=
+    0.999 before the bf16 rounding, which takes it to 1 or 0.998; delta a
+    >= -1e-3)."""
     dev = torch.device("cuda")
 
     def f(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             dtype)
 
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
     if kind == "rwkv":
         h = width // SCAN_HD
         shape = (b, t, h, SCAN_HD)
-        w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev) + 2)
+        if regime == "model":
+            w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)
+                              + 2)
+        elif regime == "near0":
+            w = rand(*shape) * 1e-3
+            w[..., ::5] = 0.0
+        else:
+            w = 1 - rand(*shape) * 1e-3
         return [f(*shape, scale=0.5), f(*shape, scale=0.5), f(*shape),
                 w.to(dtype), f(h, SCAN_HD, scale=0.5),
                 torch.randn((b, h, SCAN_HD, SCAN_HD), generator=gen,
                             device=dev) * 0.3]
-    delta = torch.nn.functional.softplus(
-        torch.randn((b, t, 1), generator=gen, device=dev) - 1)
+    x = torch.randn((b, t, 1), generator=gen, device=dev)
+    if regime == "model":
+        delta = torch.nn.functional.softplus(x - 1)
+        a = -torch.exp(torch.randn((width, SCAN_N), generator=gen,
+                                   device=dev) * 0.5)
+    elif regime == "near0":
+        delta = torch.nn.functional.softplus(x) + 2
+        a = -(10 + 5 * rand(width, SCAN_N))
+    else:
+        delta = rand(b, t, 1) * 1e-4
+        a = -(1 + 9 * rand(width, SCAN_N))
     return [f(b, t, width), delta.to(dtype), f(b, t, SCAN_N),
-            f(b, t, SCAN_N),
-            -torch.exp(torch.randn((width, SCAN_N), generator=gen,
-                                   device=dev) * 0.5),
+            f(b, t, SCAN_N), a,
             torch.randn((b, width, SCAN_N), generator=gen, device=dev) * 0.3]
 
 
-def _scan_work(kind, bwd, b, t, width) -> tuple:
-    """(operations, bytes) of one scan call at these shapes, bf16
-    activations: :data:`SCAN_OPS` a state element a step; each input read
-    once and each output written once (the backward's workspace is the
-    kernel's choice, not the function's work)."""
+def _scan_bytes(kind, bwd, b, t, width) -> int:
+    """Bytes of one scan call at these shapes, bf16 activations: each
+    input read once and each output written once (the backward's
+    workspace is the kernel's choice, not the function's work)."""
     if kind == "rwkv":
-        h = width // SCAN_HD
-        elems = b * t * h * SCAN_HD * SCAN_HD
         act, par = b * t * width * 2, width * 2
-        state = b * h * SCAN_HD * SCAN_HD * 4
-        nbytes = (5 * act + par + 2 * state if not bwd else
-                  (5 * act + par + 2 * state) + (4 * act + par + state))
+        state = b * (width // SCAN_HD) * SCAN_HD * SCAN_HD * 4
+        fwd = 5 * act + par + 2 * state
+        return fwd + (4 * act + par + state if bwd else 0)
+    act, small = b * t * width * 2, b * t * (1 + 2 * SCAN_N) * 2
+    a, state = width * SCAN_N * 4, b * width * SCAN_N * 4
+    fwd = 2 * act + small + a + 2 * state
+    return fwd + (act + small + a + state if bwd else 0)
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _scan_bound(kind, route, bwd, b, t, width, clock) -> dict:
+    """The least time of one scan call by this route at these shapes: the
+    larger of the bytes over 3.35 TB/s and the route's operations over
+    their rate.  Step routes (and the backward): :data:`SCAN_OPS` float32
+    operations a state element a step at 67 TFLOP/s.  RWKV-6 chunked: the
+    chunked form's products, 4 hd^2 + 4 C hd a (token, head), at the
+    TF32 rate.  Mamba chunk: one exp a state element a step on the
+    special-function units.  Also the step-serial count's bound (``old``)
+    beside every forward route's, for comparison."""
+    nbytes = _scan_bytes(kind, bwd, b, t, width)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    elems = b * t * width * (SCAN_HD if kind == "rwkv" else SCAN_N)
+    old_ops = SCAN_OPS[kind, bwd] * elems
+    t_old = max(t_bytes, old_ops / F32_FLOP_PER_S * 1e3)
+    if route == "chunked":
+        ops, kind_ops = elems * 4 + 4 * SCAN_CHUNK * b * t * width, "tf32"
+        t_ops = ops / TF32_FLOP_PER_S * 1e3
+    elif route == "chunk":
+        ops, kind_ops = elems, "sfu exp"
+        t_ops = ops / (SFU_EXP_PER_CLOCK * N_SM * clock) * 1e3
     else:
-        elems = b * t * width * SCAN_N
-        act, small = b * t * width * 2, b * t * (1 + 2 * SCAN_N) * 2
-        a, state = width * SCAN_N * 4, b * width * SCAN_N * 4
-        nbytes = (2 * act + small + a + 2 * state if not bwd else
-                  (2 * act + small + a + 2 * state) + (act + small + a +
-                                                        state))
-    return SCAN_OPS[kind, bwd] * elems, nbytes
+        ops, kind_ops = old_ops, "float32"
+        t_ops = ops / F32_FLOP_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": by,
+            "bound_kind": "bytes" if by == "bytes" else kind_ops,
+            "ops": ops, "bytes": nbytes, "step_serial_bound_ms": t_old}
 
 
 def _scan_err(tag, got, want, tol) -> float:
@@ -1587,6 +1667,25 @@ def _scan_err(tag, got, want, tol) -> float:
     return err
 
 
+def _against_float32(tag, got, args, plain) -> dict:
+    """A route that rounds otherwise than the loop, held to the loop run
+    in float32 on the same values: state and y finite, each no further
+    from it than the bf16 loop's own error.  Returns both errors."""
+    want = plain(*[a.float() for a in args])
+    loop = plain(*args)
+    out = {}
+    for g, w, lp, what in zip(got, want, loop, ("state", "y")):
+        if not torch.isfinite(g.float()).all():
+            fail(f"{tag} {what}: non-finite output")
+        err = (g.float() - w).abs().max().item()
+        own = (lp.float() - w).abs().max().item()
+        if err > own:
+            fail(f"{tag} {what}: {err} from the float32 loop, past the bf16 "
+                 f"loop's own {own}")
+        out[what] = (err, own)
+    return out
+
+
 def _scan_grads(fn, args, seed):
     """The gradients of all six inputs of ``fn``'s scan, given seeded
     cotangents of y and of the last state."""
@@ -1599,137 +1698,256 @@ def _scan_grads(fn, args, seed):
     return [x.grad for x in xs]
 
 
-def phase_scan() -> list:
-    """The four scan kernels against their plain loops on the card: first
-    float32 at a small odd shape (T = 37, forward and backward), then at
-    the main path's shapes in bf16: one RWKV-6-7B layer (8 x 512 tokens,
-    64 heads of 64) and one Jamba Mamba layer (8 x 512, 8192 channels,
-    N = 16) at the wave's prefill length and at T = 1 decode, forward; and
-    a backward at B = 2, T = 2048.  Each is timed beside its bound and its
-    plain loop (there is no library call: no single PyTorch call computes
-    the recurrence).  Returns the kernels line's four records (their
-    ``launches`` are filled from the main path's phases)."""
+def _scan_kinds():
     from repro_torch.kernels import ref, scan
+    return {
+        "rwkv": dict(fn=scan.rwkv6_scan, plain=ref.rwkv6_scan,
+                     plan=scan.rwkv6_plan, step=scan.rwkv6_scan_fwd,
+                     new=scan.rwkv6_chunked_fwd, route="chunked",
+                     decode=None, bwd=scan.rwkv6_scan_bwd, width=4096,
+                     name="rwkv6_scan", line=66,
+                     src="rwkv6_chunk_sm90.cu"),
+        "mamba": dict(fn=scan.mamba_scan, plain=ref.mamba_scan,
+                      plan=scan.mamba_plan, step=scan.mamba_scan_fwd,
+                      new=scan.mamba_chunk_fwd, route="chunk",
+                      decode=scan.mamba_decode_fwd, bwd=scan.mamba_scan_bwd,
+                      width=8192, name="mamba_scan", line=108,
+                      src="mamba_scan.cu")}
+
+
+def _scan_record(k, way, route, src, r) -> dict:
+    """One scan route's record of the kernels line (``launches`` filled
+    from the main path's phases)."""
+    return {"name": k["name"] + (f"_fwd_{route}" if way == "fwd" else
+                                 "_bwd"), "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/models/ssm.py:{k['line']}",
+            "launches": None, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_share": r["bound_ms"] / r["ms"], "scan": k["name"],
+            "scan_route": route if way == "fwd" else "bwd",
+            **{x: r[x] for x in r if x not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}}
+
+
+def _scan_line(tag, name, b, t, width, r, what) -> None:
+    print(f"[scan] {name} {tag} B={b} T={t} width={width}: {what}; "
+          f"{r['ms'] * 1e3:.2f} us a launch, plain {r['plain_ms'] * 1e3:.1f} "
+          f"us (the loop, eager); bound {r['bound_ms'] * 1e3:.2f} us by "
+          f"{r['bound_kind']} ({r['ops'] / 1e9:.3f} G operations, "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['bound_ms'] / r['ms']:.1%} of it; "
+          f"step-serial bound {r['step_serial_bound_ms'] * 1e3:.2f} us "
+          f"({smi()})")
+
+
+def phase_scan() -> list:
+    """The scans' kernels against their plain loops on the card, route by
+    route.  First float32 at a small odd shape (T = 37, forward by the
+    step routes and backward).  Then the new bf16 routes (RWKV-6
+    chunked, Mamba chunk) against the loop run in float32 on the same
+    values at T in :data:`SCAN_SWEEP_T` and three decay regimes, at full
+    width (B = 2): state and y finite and no further from it than the
+    bf16 loop is.  Then the main path's shapes in bf16, one RWKV-6-7B
+    layer (64 heads of 64) and one Jamba Mamba layer (8192 channels, N =
+    16): prefill (8 x 512) by the new route and by the step route on the
+    same inputs, the step route's state bitwise the bf16 loop's; decode
+    (T = 1) by RWKV-6's step route and Mamba's decode route, both
+    bitwise, beside Mamba's step kernel at T = 1; a backward at B = 2, T =
+    2048.  Each timed beside its route's bound, the step-serial bound and
+    its plain loop (no library call computes the recurrence).  Returns the
+    kernels line's records, one a route (``launches`` filled from the
+    main path's phases)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(25)
-    kinds = {"rwkv": (scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_scan_fwd,
-                      scan.rwkv6_scan_bwd, 4096, "rwkv6_scan", 66),
-             "mamba": (scan.mamba_scan, ref.mamba_scan, scan.mamba_scan_fwd,
-                       scan.mamba_scan_bwd, 8192, "mamba_scan", 108)}
-    saved = _scan_launches()
-    for kind, (fn, plain, _, _, _, _, _) in kinds.items():
+    kinds = _scan_kinds()
+    clock = _sm_clock_hz()
+    saved = _scan_launches(), _scan_routes()
+    for kind, k in kinds.items():
         args = _scan_args(kind, 2, 37, 256, torch.float32, gen)
-        for got, want, what in zip(fn(*args), plain(*args),
+        if k["plan"](*args) != "step":
+            fail(f"scan {kind} float32: plan {k['plan'](*args)}, want step")
+        for got, want, what in zip(k["fn"](*args), k["plain"](*args),
                                    ("state", "y")):
             _scan_err(f"scan {kind} float32 {what}", got, want,
                       SCAN_STATE_TOL if what == "state" else
                       SCAN_TOL[torch.float32])
-        for i, (got, want) in enumerate(zip(_scan_grads(fn, args, 1),
-                                            _scan_grads(plain, args, 1))):
+        for i, (got, want) in enumerate(zip(_scan_grads(k["fn"], args, 1),
+                                            _scan_grads(k["plain"], args,
+                                                        1))):
             _scan_err(f"scan {kind} float32 gradient {i}", got, want,
                       SCAN_GRAD_TOL[torch.float32])
-    print(f"[scan] float32, T = 37: both scans' states, outputs and the "
-          f"gradients of all six inputs agree with the plain loops (rtol "
-          f"{SCAN_STATE_TOL} / {SCAN_TOL[torch.float32]} / "
+    print(f"[scan] float32, T = 37 (step routes): both scans' states, "
+          f"outputs and the gradients of all six inputs agree with the "
+          f"plain loops (rtol {SCAN_STATE_TOL} / {SCAN_TOL[torch.float32]} / "
           f"{SCAN_GRAD_TOL[torch.float32]} of max)")
-    records = []
     bf16 = torch.bfloat16
-    for kind, (fn, plain, fwd, bwd, width, name, line) in kinds.items():
-        per = {}
-        for tag, b, t, back in (("prefill", SERVE["requests"], 512, False),
-                                ("decode", SERVE["requests"], 1, False),
-                                ("backward", 2, 2048, True)):
-            t1 = time.perf_counter()
-            args = _scan_args(kind, b, t, width, bf16, gen)
-            if not back:
-                got, want = fwd(*args), plain(*args)
-                torch.cuda.synchronize()
-                bitwise = torch.equal(got[0], want[0])
-                err_s = _scan_err(f"scan {kind} {tag} state", got[0],
-                                  want[0], SCAN_STATE_TOL)
-                err = _scan_err(f"scan {kind} {tag} y", got[1], want[1],
-                                SCAN_TOL[bf16])
-                del got, want
-                kern = lambda: fwd(*args)
-                ms = device_ms(kern, reps=_adaptive_reps(kern), replays=3)
-                pl = lambda: plain(*args)
-                plain_ms = call_ms(pl, reps=2 if t > 1 else 50, warm=1)
-                extra = {"state_max_abs_err": err_s,
-                         "state_bitwise": bitwise}
-            else:
-                got = _scan_grads(fn, args, 2)
-                want = _scan_grads(plain, args, 2)
-                torch.cuda.synchronize()
-                errs = [_scan_err(f"scan {kind} backward gradient {i}", g,
-                                  w, SCAN_GRAD_TOL[bf16])
-                        for i, (g, w) in enumerate(zip(got, want))]
-                rel = [e / w.float().abs().max().item()
-                       for e, w in zip(errs, want)]
-                err = max(errs)
-                del want
-                want = _scan_grads(plain, [a.float() for a in args], 2)
-                rel32 = [_scan_err(f"scan {kind} backward gradient {i} "
-                                   f"against float32", g.float(), w,
-                                   SCAN_GRAD_F32_TOL)
-                         / w.abs().max().item()
-                         for i, (g, w) in enumerate(zip(got, want))]
-                del got, want
-                g = torch.Generator(device="cuda").manual_seed(3)
-                s, y = fwd(*args)
-                ds = torch.randn(s.shape, generator=g, device="cuda")
-                dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
-                del s, y
-                ms = call_ms(lambda: bwd(*args, ds, dy), reps=3, warm=1)
-                plain_ms = call_ms(lambda: _scan_grads(plain, args, 4),
-                                   reps=1, warm=1)
-                del ds, dy
-                extra = {"grad_max_abs_err": errs,
-                         "grad_err_share_of_max": rel,
-                         "grad_err_share_of_max_vs_float32": rel32}
-            flop, nbytes = _scan_work(kind, back, b, t, width)
-            t_ops = flop / F32_FLOP_PER_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            per[tag] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "flop": flop, "bytes": nbytes,
-                        "shape": [b, t, width], **extra}
-            print(f"[scan] {name} {'backward' if back else 'forward'} bf16 "
-                  f"{tag} B={b} T={t} width={width}: max abs err vs plain "
-                  f"{err:.3g}" + (f" (state {err_s:.3g}, bitwise {bitwise})"
-                                  if not back else
-                                  " (by input, as a share of max|plain|: "
-                                  + ", ".join(f"{x:.2g}" for x in rel)
-                                  + "; against the loop in float32 on the "
-                                  "same values: "
-                                  + ", ".join(f"{x:.2g}" for x in rel32)
-                                  + ")")
-                  + f"; {ms * 1e3:.2f} us a launch ("
-                  + ("eager, CUDA events" if back else "CUDA graph replay")
-                  + f"), plain {plain_ms * 1e3:.1f} us ("
-                  + ("forward + autograd backward through the loop, "
-                     if back else "the loop, ") + "eager); bound "
-                  f"{bound_ms * 1e3:.2f} us by {bound_by} ({flop / 1e9:.3f} "
-                  f"GFLOP, {nbytes / 1e6:.1f} MB), {bound_ms / ms:.1%} of "
-                  f"it; {time.perf_counter() - t1:.1f} s ({smi()})")
-            del args
-            _free()
-        src = f"src/repro_torch/kernels/csrc/{name}.cu"
-        for back, tag in ((False, "prefill"), (True, "backward")):
-            r = per[tag]
-            records.append({
-                "name": f"{name}_{'bwd' if back else 'fwd'}", "route": "cuda",
-                "source": src, "replaces": f"src/repro/models/ssm.py:{line}",
-                "launches": None, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None, "bound_share": r["bound_ms"] / r["ms"],
-                "shape": r["shape"],
-                **({"decode": per["decode"]} if not back else {})})
+    t1 = time.perf_counter()
+    for kind, k in kinds.items():
+        for regime in SCAN_REGIMES:
+            errs = []
+            for t in SCAN_SWEEP_T:
+                args = _scan_args(kind, 2, t, k["width"], bf16, gen, regime)
+                if k["plan"](*args) != k["route"]:
+                    fail(f"scan {kind} T={t}: plan {k['plan'](*args)}, "
+                         f"want {k['route']}")
+                got = k["new"](*args)
+                e = _against_float32(f"scan {kind} {k['route']} {regime} "
+                                     f"T={t}", got, args, k["plain"])
+                errs.append((t, e))
+                del args, got
+            print(f"[scan] {k['name']} {k['route']} bf16 B=2 width="
+                  f"{k['width']} {regime}: max abs error against the loop in "
+                  f"float32, state / y (the bf16 loop's own): " + "; ".join(
+                      f"T={t} {e['state'][0]:.3g} ({e['state'][1]:.3g}) / "
+                      f"{e['y'][0]:.3g} ({e['y'][1]:.3g})" for t, e in errs)
+                  + "; all finite")
+        _free()
+    print(f"[scan] the new routes no further from the float32 loop than "
+          f"the bf16 loop at every T in {SCAN_SWEEP_T} and decay regime "
+          f"({time.perf_counter() - t1:.1f} s)")
+    records = []
+    b = SERVE["requests"]
+    for kind, k in kinds.items():
+        width, name = k["width"], k["name"]
+        # prefill: the new route and the step route on the same inputs
+        args = _scan_args(kind, b, 512, width, bf16, gen)
+        plain_ms = call_ms(lambda: k["plain"](*args), reps=2, warm=1)
+        got = k["new"](*args)
+        e = _against_float32(f"scan {kind} prefill {k['route']}", got, args,
+                             k["plain"])
+        del got
+        new = {"ms": device_ms(lambda: k["new"](*args), reps=50, replays=3),
+               "plain_ms": plain_ms, "max_abs_err": e["y"][0],
+               "state_max_abs_err": e["state"][0],
+               "bf16_loop_err": {"state": e["state"][1], "y": e["y"][1]},
+               "err_against": "the loop in float32 on the same bf16 values",
+               "shape": [b, 512, width],
+               **_scan_bound(kind, k["route"], False, b, 512, width, clock)}
+        got, want = k["step"](*args), k["plain"](*args)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got[0], want[0])
+        err_s = _scan_err(f"scan {kind} prefill step state", got[0], want[0],
+                          SCAN_STATE_TOL)
+        err = _scan_err(f"scan {kind} prefill step y", got[1], want[1],
+                        SCAN_TOL[bf16])
+        del got, want
+        step = {"ms": device_ms(lambda: k["step"](*args), reps=20,
+                                replays=3),
+                "plain_ms": plain_ms, "max_abs_err": err,
+                "state_max_abs_err": err_s, "state_bitwise": bitwise,
+                "shape": [b, 512, width],
+                **_scan_bound(kind, "step", False, b, 512, width, clock)}
+        _scan_line("prefill, route " + k["route"], name, b, 512, width, new,
+                   f"against the loop in float32, state {e['state'][0]:.3g}"
+                   f" and y {e['y'][0]:.3g} (the bf16 loop's own "
+                   f"{e['state'][1]:.3g} and {e['y'][1]:.3g})")
+        _scan_line("prefill, route step", name, b, 512, width, step,
+                   f"max abs err vs the bf16 loop {err:.3g} (state "
+                   f"{err_s:.3g}, bitwise {bitwise})")
+        print(f"[scan] {name} prefill: route {k['route']} "
+              f"{new['ms'] * 1e3:.2f} us, route step {step['ms'] * 1e3:.2f} "
+              f"us on the same inputs, {step['ms'] / new['ms']:.2f}x")
+        del args
+        _free()
+        # decode: RWKV-6's step route; Mamba's decode route beside its
+        # step kernel at T = 1
+        args = _scan_args(kind, b, 1, width, bf16, gen)
+        plain_ms = call_ms(lambda: k["plain"](*args), reps=50, warm=1)
+        want = k["plain"](*args)
+        step_y = k["step"](*args)[1]
+        decode = {}
+        for route, fn in (("decode", k["decode"]), ("step", k["step"])):
+            if fn is None:
+                continue
+            got = fn(*args)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(got[0], want[0])
+            # the decode route: the state bitwise the loop's, y the step
+            # kernel's bit for bit (the same sum in the same order)
+            if route == "decode" and not (bitwise and torch.equal(got[1],
+                                                                  step_y)):
+                fail(f"scan {kind} decode route: state bitwise the loop's "
+                     f"{bitwise}, y the step kernel's "
+                     f"{torch.equal(got[1], step_y)}")
+            err_s = _scan_err(f"scan {kind} decode {route} state", got[0],
+                              want[0], SCAN_STATE_TOL)
+            err = _scan_err(f"scan {kind} decode {route} y", got[1], want[1],
+                            SCAN_TOL[bf16])
+            decode[route] = {
+                "ms": device_ms(lambda: fn(*args), reps=200, replays=3),
+                "plain_ms": plain_ms, "max_abs_err": err,
+                "state_max_abs_err": err_s, "state_bitwise": bitwise,
+                "shape": [b, 1, width],
+                **_scan_bound(kind, route, False, b, 1, width, clock)}
+            _scan_line(f"decode, route {route}", name, b, 1, width,
+                       decode[route], f"max abs err vs the bf16 loop {err:.3g}"
+                       f" (state {err_s:.3g}, bitwise {bitwise})")
+            del got
+        if "decode" in decode:
+            print(f"[scan] {name} decode: route decode "
+                  f"{decode['decode']['ms'] * 1e3:.2f} us, step kernel "
+                  f"{decode['step']['ms'] * 1e3:.2f} us at T = 1, "
+                  f"{decode['step']['ms'] / decode['decode']['ms']:.2f}x")
+        del args, want, step_y
+        _free()
+        # backward
+        t1 = time.perf_counter()
+        args = _scan_args(kind, 2, 2048, width, bf16, gen)
+        got = _scan_grads(k["fn"], args, 2)
+        want = _scan_grads(k["plain"], args, 2)
+        torch.cuda.synchronize()
+        errs = [_scan_err(f"scan {kind} backward gradient {i}", g, w,
+                          SCAN_GRAD_TOL[bf16])
+                for i, (g, w) in enumerate(zip(got, want))]
+        rel = [x / w.float().abs().max().item() for x, w in zip(errs, want)]
+        del want
+        want = _scan_grads(k["plain"], [a.float() for a in args], 2)
+        rel32 = [_scan_err(f"scan {kind} backward gradient {i} against "
+                           f"float32", g.float(), w, SCAN_GRAD_F32_TOL)
+                 / w.abs().max().item()
+                 for i, (g, w) in enumerate(zip(got, want))]
+        del got, want
+        g = torch.Generator(device="cuda").manual_seed(3)
+        s, y = k["step"](*args)
+        ds = torch.randn(s.shape, generator=g, device="cuda")
+        dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
+        del s, y
+        back = {"ms": call_ms(lambda: k["bwd"](*args, ds, dy), reps=3,
+                              warm=1),
+                "plain_ms": call_ms(lambda: _scan_grads(k["plain"], args, 4),
+                                    reps=1, warm=1),
+                "max_abs_err": max(errs), "grad_max_abs_err": errs,
+                "grad_err_share_of_max": rel,
+                "grad_err_share_of_max_vs_float32": rel32,
+                "shape": [2, 2048, width],
+                **_scan_bound(kind, "step", True, 2, 2048, width, clock)}
+        del ds, dy, args
+        _free()
+        print(f"[scan] {name} backward bf16 B=2 T=2048 width={width}: max "
+              f"abs err vs plain {max(errs):.3g} (by input, as a share of "
+              f"max|plain|: " + ", ".join(f"{x:.2g}" for x in rel)
+              + "; against the loop in float32 on the same values: "
+              + ", ".join(f"{x:.2g}" for x in rel32) + f"); "
+              f"{back['ms'] * 1e3:.2f} us a launch (eager, CUDA events), "
+              f"plain {back['plain_ms'] * 1e3:.1f} us (forward + autograd "
+              f"backward through the loop, eager); bound "
+              f"{back['bound_ms'] * 1e3:.2f} us by {back['bound_kind']}, "
+              f"{back['bound_ms'] / back['ms']:.1%} of it; "
+              f"{time.perf_counter() - t1:.1f} s ({smi()})")
+        src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
+        records.append(_scan_record(k, "fwd", k["route"], k["src"], new))
+        if "decode" in decode:
+            records.append(_scan_record(k, "fwd", "decode", src,
+                                        decode["decode"]))
+        records.append(_scan_record(k, "fwd", "step", src,
+                                    {**step, "decode": decode["step"]}))
+        records.append(_scan_record(k, "bwd", "step", src, back))
     for n, c in _scan_counters().items():
-        c.launches, c.bwd_launches = saved[n]
-    print(f"[scan] {time.perf_counter() - t_phase:.1f} s")
+        c.launches, c.bwd_launches = saved[0][n]
+        c.route_launches = saved[1][n]
+    print(f"[scan] SM clock {clock / 1e9:.3f} GHz (max, nvidia-smi) for the "
+          f"exp bound; {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
@@ -2800,13 +3018,18 @@ def _n_sublayers(params, kind: str) -> int:
     return sum(k.endswith(f"_{kind}") for g in params["groups"] for k in g)
 
 
-def _check_scans(tag: str, want: dict) -> None:
+def _check_scans(tag: str, want: dict, routes: dict) -> None:
     """Fail unless the scans' (forward, backward) launches since the last
-    :func:`_reset_scans` are ``want`` (names not given: none)."""
+    :func:`_reset_scans` are ``want`` and their forward launches by route
+    ``routes`` (names and routes not given: none)."""
     want = {n: want.get(n, (0, 0)) for n in _scan_counters()}
     if _scan_launches() != want:
         fail(f"{tag}: scan launches (forward, backward) {_scan_launches()}, "
              f"want {want}")
+    full = {n: {**dict.fromkeys(c.route_launches, 0), **routes.get(n, {})}
+            for n, c in _scan_counters().items()}
+    if _scan_routes() != full:
+        fail(f"{tag}: scan launches by route {_scan_routes()}, want {full}")
 
 
 def _same_tokens(tag, res_k, res_p, timed_k, timed_p) -> dict:
@@ -2881,7 +3104,10 @@ def phase_ssm() -> dict:
     if _launches() != (0, 0):
         fail(f"ssm: spec kernels launched {_launches()} times")
     calls = 1 + len(timed.decode_s)
-    _check_scans("ssm", {"rwkv6_scan": (n_rwkv * calls, 0)})
+    # the bf16 prefill by the chunked route, the T = 1 steps by the step one
+    routes = {"rwkv6_scan": {"chunked": n_rwkv,
+                             "step": n_rwkv * (calls - 1)}}
+    _check_scans("ssm", {"rwkv6_scan": (n_rwkv * calls, 0)}, routes)
     stats = _wave_line("ssm", "spec", int(lens.max()), waves, timed,
                        torch.cuda.max_memory_allocated())
     with _plain_scans():
@@ -2891,7 +3117,8 @@ def phase_ssm() -> dict:
                        int(lens.max()), waves_p, timed_p)
     same = _same_tokens("ssm", res, res_p, timed, timed_p)
     print(f"[ssm] {_tokens_line(same)}; rwkv6_scan forward launched "
-          f"{n_rwkv * calls} times ({n_rwkv} layers x {calls} calls); "
+          f"{n_rwkv * calls} times ({n_rwkv} layers x {calls} calls; by "
+          f"route {routes['rwkv6_scan']}); "
           f"prefill {plain['prefill_ms'] / stats['prefill_ms']:.1f}x and "
           f"decode {plain['decode_ms_per_step'] / stats['decode_ms_per_step']:.1f}x "
           f"faster than the loops")
@@ -2899,15 +3126,16 @@ def phase_ssm() -> dict:
     t0 = time.perf_counter()
     _reset_scans()
     profile = _serve_profile(lambda: _serve(cfg, params, prompts, "spec"))
-    _check_scans("ssm-profile", {"rwkv6_scan": (n_rwkv * calls, 0)})
+    _check_scans("ssm-profile", {"rwkv6_scan": (n_rwkv * calls, 0)}, routes)
     _print_profile("ssm", profile)
     print(f"[ssm] no spec kernel launched; {len(res)} requests, prompt "
           f"lengths {sorted(int(n) for n in lens)}; profile "
           f"{time.perf_counter() - t0:.1f} s")
     del params
     _free()
-    return {"launches": n_rwkv * calls, "stats": stats, "plain": plain,
-            "tokens": same, "profile": profile}
+    return {"launches": n_rwkv * calls, "routes": routes["rwkv6_scan"],
+            "stats": stats, "plain": plain, "tokens": same,
+            "profile": profile}
 
 
 def jamba_group_params(cfg, gen, device):
@@ -2985,7 +3213,11 @@ def phase_hybrid() -> dict:
                                      keep_logits=True)
     torch.cuda.synchronize()
     calls = 1 + len(timed_k.decode_s)
-    _check_scans("hybrid", {"mamba_scan": (n_mamba * calls, 0)})
+    # the bf16 prefill by the chunk route, the T = 1 steps by decode
+    scan_routes = {"mamba_scan": {"chunk": n_mamba,
+                                  "decode": n_mamba * (calls - 1)}}
+    _check_scans("hybrid", {"mamba_scan": (n_mamba * calls, 0)},
+                 scan_routes)
     launches = {"spec_gather": (g.launches, dict(g.route_launches),
                                 g.entry_launches["spec_gather_bf16"]),
                 "spec_scatter_add": (s.launches, dict(s.route_launches),
@@ -3027,7 +3259,7 @@ def phase_hybrid() -> dict:
     same = _same_tokens("hybrid", res_k, res_p, timed_k, timed_p)
     print(f"[hybrid] {_tokens_line(same)}; mamba_scan forward "
           f"launched {n_mamba * calls} times a wave ({n_mamba} layers x "
-          f"{calls} calls); prefill "
+          f"{calls} calls; by route {scan_routes['mamba_scan']}); prefill "
           f"{stats['plain']['prefill_ms'] / stats['spec-kernel']['prefill_ms']:.1f}x"
           f" and decode "
           f"{stats['plain']['decode_ms_per_step'] / stats['spec-kernel']['decode_ms_per_step']:.1f}x"
@@ -3037,7 +3269,8 @@ def phase_hybrid() -> dict:
     _reset_scans()
     profile = _serve_profile(lambda: _serve(cfg, params, prompts,
                                             "spec-kernel"))
-    _check_scans("hybrid-profile", {"mamba_scan": (n_mamba * calls, 0)})
+    _check_scans("hybrid-profile", {"mamba_scan": (n_mamba * calls, 0)},
+                 scan_routes)
     _print_profile("hybrid", profile)
     print(f"[hybrid] same tokens for all {len(res_k)} requests and same "
           f"poison under both dispatches: {wave.moe_poison} of "
@@ -3078,7 +3311,8 @@ def phase_hybrid() -> dict:
         "profile": profile, "moe_poison": wave.moe_poison,
         "moe_requests": wave.moe_requests}
         for name in ("spec_gather", "spec_scatter_add")}
-    out["mamba_scan"] = {"launches": n_mamba * calls, "tokens": same}
+    out["mamba_scan"] = {"launches": n_mamba * calls,
+                         "routes": scan_routes["mamba_scan"], "tokens": same}
     return out
 
 
@@ -3222,15 +3456,15 @@ def phase_train_small() -> dict:
     forward and backward, once a layer a pass.  Then a gradient through
     ``dispatch="spec-kernel"`` and through each of the five Pallas sites'
     entries must raise on CUDA tensors, as ``jax.grad`` through the
-    reference's Pallas kernels does.  Returns the scans' backward
-    launches."""
+    reference's Pallas kernels does.  Returns the scans' launches:
+    backward, and forward by route (float32 takes the step routes)."""
     from repro_torch.configs import base as cbase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.train.train_step import make_train_step, value_and_grad
     worst = 0.0
-    scan_bwd = {}
+    scan_bwd, scan_fwd = {}, {}
     for arch in cbase.ASSIGNED:
         cfg = cbase.smoke(cbase.get(arch))
         init, step_fn, name = make_train_step(
@@ -3255,9 +3489,11 @@ def phase_train_small() -> dict:
         want = {n: (2 * 3 * k, 3 * k) for n, k in (
             ("rwkv6_scan", _n_sublayers(state0.params, "rwkv")),
             ("mamba_scan", _n_sublayers(state0.params, "mamba"))) if k}
-        _check_scans(f"train-small {arch}", want)
-        for n, (_, b) in want.items():
+        _check_scans(f"train-small {arch}", want,
+                     {n: {"step": f} for n, (f, _) in want.items()})
+        for n, (f, b) in want.items():
             scan_bwd[n] = scan_bwd.get(n, 0) + b
+            scan_fwd[n] = scan_fwd.get(n, 0) + f
         (lc, pc, sc), (lg, pg, sg) = runs["cpu"], runs["cuda"]
         if sc != sg or sg != 3:
             fail(f"train-small {arch}: steps {sc} / {sg}")
@@ -3323,8 +3559,9 @@ def phase_train_small() -> dict:
           f"on CUDA tensors a gradient through dispatch=spec-kernel and "
           f"through each of the {len(calls)} kernel entries raises "
           f"NotImplementedError; the scans' backward kernels launched "
-          f"{scan_bwd}")
-    return scan_bwd
+          f"{scan_bwd}, their forward ones (all by the step routes) "
+          f"{scan_fwd}")
+    return {"bwd": scan_bwd, "fwd_step": scan_fwd}
 
 
 def _multiply_params(cfg, params) -> float:
@@ -3607,19 +3844,26 @@ def main() -> None:
         if rec["name"] in hybrid:
             rec["jamba"] = hybrid[rec["name"]]
     phase_cross()
-    train_bwd = phase_train_small()
-    # the scans' launches on their main paths: the forward kernels in one
-    # served wave ([ssm], [hybrid]), the backward ones in [train-small]
-    fwd = {"rwkv6_scan": ssm, "mamba_scan": hybrid["mamba_scan"]}
+    train = phase_train_small()
+    # the scans' launches by route on their main paths: the bf16 forward
+    # routes in one served wave ([ssm], [hybrid]), the float32 step routes
+    # and the backward kernels in [train-small]
+    small = "[train-small] smoke configs (float32), 3 steps"
+    served = {"rwkv6_scan": (ssm, "[ssm] RWKV-6-7B wave"),
+              "mamba_scan": (hybrid["mamba_scan"], "[hybrid] Jamba wave")}
     for rec in scans:
-        name, way = rec["name"].rsplit("_", 1)
-        rec["launches"] = (fwd[name]["launches"] if way == "fwd" else
-                           train_bwd[name])
-        rec["main_path"] = ("[ssm] RWKV-6-7B wave" if name == "rwkv6_scan"
-                            else "[hybrid] Jamba wave") if way == "fwd" \
-            else "[train-small] smoke configs, 3 steps"
-        if way == "fwd":
-            rec["tokens_vs_plain"] = fwd[name]["tokens"]
+        name, route = rec["scan"], rec["scan_route"]
+        wave, where = served[name]
+        if route == "bwd":
+            rec["launches"], rec["main_path"] = train["bwd"][name], small
+        elif wave["routes"].get(route):
+            rec["launches"], rec["main_path"] = wave["routes"][route], where
+            rec["tokens_vs_plain"] = wave["tokens"]
+        else:
+            rec["launches"] = train["fwd_step"][name]
+            rec["main_path"] = small
+        if not rec["launches"]:
+            fail(f"{rec['name']}: no launch on its main path")
     phase_train_dense()
     phase_train_moe()
     phase_train_ckpt()

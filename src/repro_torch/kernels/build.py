@@ -92,9 +92,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         **{f"rwkv6_scan_bwd_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
            for t in ("f32", "bf16")},
     },
+    # r, k, v, w, u, s0, y, s_out; B, T, H, hd; stream
+    "rwkv6_chunk_sm90": {
+        "rwkv6_scan_chunked_bf16": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,),
+    },
     "mamba_scan": {
         # u, delta, B, C, a, s0, y, s_out; batch, T, D, N; stream
         **{f"mamba_scan_fwd_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
+        "mamba_scan_chunk_bf16": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,),
+        # the same at T = 1: batch, D, N
+        **{f"mamba_scan_decode_{t}": (_PTR,) * 8 + (_I64,) * 3 + (_PTR,)
            for t in ("f32", "bf16")},
         # u, delta, B, C, a, s0, dy, ds, ws, du, ddelta, dB, dC, da, ds0;
         # batch, T, D, N; stream

@@ -172,3 +172,64 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
         s = da * s + (dt * ut).float()[..., None] * bt.float()[:, None, :]
         ys.append((s.to(ct.dtype) @ ct[..., None])[..., 0])
     return s, torch.stack(ys, dim=1)
+
+
+def _excl_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """Products of ``x`` over dim 1 before each position (1 at the first):
+    taken directly, never as a quotient."""
+    return torch.cat([torch.ones_like(x[:, :1]),
+                      torch.cumprod(x, dim=1)[:, :-1]], dim=1)
+
+
+def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
+                       chunk: int = 16, sub: int = 16):
+    """The RWKV-6 recurrence in chunked form, in float32: the algorithm of
+    the ``chunked`` route (``csrc/rwkv6_chunk_sm90.cu``, which carries the
+    state every 16 tokens: ``chunk = sub = 16``), for tests; the kernels'
+    wrappers never call it.  Arguments and results as
+    :func:`rwkv6_scan`'s; y comes back in r's dtype.
+
+    The state enters each chunk of ``chunk`` tokens once: its read-out is
+    ``(r_t ⊙ Π_{τ<t} w_τ) S`` and its update ``diag(Π_τ w_τ) S + Σ_s (k_s ⊙
+    Π_{τ>s} w_τ)ᵀ v_s``.  Inside a chunk, token t reads token s < t with
+    the score ``Σ_i r_t[i] k_s[i] Π_{s<τ<t} w_τ[i]`` and itself with the
+    bonus ``Σ_i r_t[i] u[i] k_t[i]``.  Pairs within one sub-chunk of
+    ``sub`` tokens take their decays elementwise; a pair across sub-chunks
+    splits its decay at the start b of t's sub-chunk, ``Π_{b≤τ<t} ·
+    Π_{s<τ<b}``, so a score block is one product of two decayed matrices.
+    Every decay is a product of w's taken directly: at most 1 for w ≤ 1,
+    exact zeros for w = 0, no quotient and no log, so nothing overflows
+    and no log-w floor is needed."""
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
+    dtype = r.dtype
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    s = s.float()
+    outs = []
+    for c0 in range(0, r.shape[1], chunk):
+        rc, kc, vc, wc = (x[:, c0:c0 + chunk] for x in (r, k, v, w))
+        n = rc.shape[1]
+        pre = _excl_cumprod(wc)                                # Π_{τ<t}
+        post = _excl_cumprod(wc.flip(1)).flip(1)               # Π_{τ>s}
+        y = torch.einsum("bthi,bhij->bthj", rc * pre, s)
+        scores = rc.new_zeros(rc.shape[0], rc.shape[2], n, n)  # (B, H, t, s)
+        for q0 in range(0, n, sub):
+            q1 = min(q0 + sub, n)
+            for t in range(q0, q1):
+                d = torch.ones_like(rc[:, t])
+                for j in range(t - 1, q0 - 1, -1):
+                    scores[:, :, t, j] = (rc[:, t] * kc[:, j] * d).sum(-1)
+                    d = d * wc[:, j]
+                scores[:, :, t, t] = (rc[:, t] * uf * kc[:, t]).sum(-1)
+            if q0:
+                a_q = rc[:, q0:q1] * _excl_cumprod(wc[:, q0:q1])
+                k_q = kc[:, :q0] * _excl_cumprod(wc[:, :q0].flip(1)).flip(1)
+                scores[:, :, q0:q1, :q0] = torch.einsum("bthi,bshi->bhts",
+                                                        a_q, k_q)
+        outs.append(y + torch.einsum("bhts,bshj->bthj", scores, vc))
+        decay = pre[:, -1] * wc[:, -1]                         # Π_τ w_τ
+        s = decay[..., None] * s + torch.einsum("bshi,bshj->bhij",
+                                                kc * post, vc)
+    return s, torch.cat(outs, dim=1).to(dtype)

@@ -14,10 +14,32 @@ state included, and takes the last state's cotangent (decode chains
 carry the state).  Unlike the five Pallas sites' entries, these take a
 gradient, as the reference's scan does.
 
+Each forward has more than one route, picked by :func:`rwkv6_plan` and
+:func:`mamba_plan` from the dtype, T and the tensors' alignment:
+
+* RWKV-6 ``"chunked"`` — bfloat16, T >= :data:`CHUNKED_MIN_T`:
+  ``csrc/rwkv6_chunk_sm90.cu``, the recurrence in chunks of 16 tokens on
+  the tensor cores (TF32), the state carried in registers from chunk to
+  chunk; ``"step"`` — float32 and T = 1: the step-serial kernel of
+  ``csrc/rwkv6_scan.cu``, bitwise the loop's state.
+* Mamba ``"decode"`` — T = 1, both dtypes: one step without staging, the
+  step kernel's arithmetic, bitwise the loop's state; ``"chunk"`` —
+  bfloat16 prefill with D a multiple of 8: ``ex2.approx`` exponentials,
+  fused updates, Δ·u and the read-out's state in float32, 16-byte loads
+  and stores of u and y; ``"step"`` —
+  float32 prefill: the step-serial kernel.  Both in ``csrc/mamba_scan.cu``.
+
+The ``chunked`` and ``chunk`` routes round otherwise than the loops (the
+loops round as the reference's step does), so they are held to the loop
+run in float32 on the same bfloat16 values: no further from it than the
+bfloat16 loop is.  The backward is the same for every route: the step
+kernels' pair (the forward's states recomputed step by step, then the
+walk back), so its gradient is the loop's.
+
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
 loops of :mod:`repro_torch.kernels.ref`, and autograd differentiates
-them.  ``<fn>.launches`` counts forward launches, ``<fn>.bwd_launches``
-backward ones.
+them.  ``<fn>.launches`` counts forward launches (by route in
+``<fn>.route_launches``), ``<fn>.bwd_launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -25,12 +47,17 @@ import torch
 
 from . import ref
 from .build import check, load
-from .dispatch import on_cuda, stream_of, suffix
+from .dispatch import aligned16, on_cuda, stream_of, suffix
 
-#: RWKV-6 head widths the kernel is built for
+#: RWKV-6 head widths the kernels are built for (both routes)
 HEAD_DIMS = (16, 32, 64)
-#: Mamba state widths the kernel is built for
+#: Mamba state widths the kernels are built for
 STATE_DIMS = (16,)
+#: the forward routes of each scan
+RWKV6_ROUTES = ("chunked", "step")
+MAMBA_ROUTES = ("decode", "chunk", "step")
+#: the shortest T that the RWKV-6 chunked route takes
+CHUNKED_MIN_T = 2
 
 
 def _check(name: str, acts, f32s, shapes) -> None:
@@ -64,6 +91,31 @@ def _grad(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return g.to(like.dtype).contiguous()
 
 
+def rwkv6_plan(r, k, v, w, u, s) -> str:
+    """The forward route of a checked RWKV-6 call: ``"chunked"`` for
+    bfloat16 with T >= :data:`CHUNKED_MIN_T` and r, k, v, w and the state
+    16-byte aligned (the kernel loads 16-byte vectors), else ``"step"``."""
+    if (r.dtype == torch.bfloat16 and r.shape[1] >= CHUNKED_MIN_T
+            and all(aligned16(t) for t in (r, k, v, w, s))):
+        return "chunked"
+    return "step"
+
+
+def mamba_plan(u, delta, bmat, cmat, a, s) -> str:
+    """The forward route of a checked Mamba call: ``"decode"`` at T = 1,
+    ``"chunk"`` for bfloat16 prefill with D a multiple of 8, else
+    ``"step"``; both new routes take B, C, A and the state as 16-byte
+    vectors (and the chunk route u), so an unaligned one goes by
+    ``"step"``."""
+    vectors = [bmat, cmat, a, s]
+    if u.shape[1] == 1:
+        return "decode" if all(aligned16(t) for t in vectors) else "step"
+    if (u.dtype == torch.bfloat16 and u.shape[2] % 8 == 0
+            and all(aligned16(t) for t in vectors + [u])):
+        return "chunk"
+    return "step"
+
+
 # ---------------------------------------------------------------------------
 # RWKV-6
 # ---------------------------------------------------------------------------
@@ -77,8 +129,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w: (B, T, H, hd) in float32 or bfloat16, T >= 1; u (H, hd)
     in their dtype; s (B, H, hd, hd) float32.  Returns the last state
     (float32) and y (B, T, H, hd) in r's dtype, rounded as
-    :func:`repro_torch.kernels.ref.rwkv6_scan` rounds.  On CUDA tensors
-    (hd in :data:`HEAD_DIMS`) the kernels launch, forward and backward.
+    :func:`repro_torch.kernels.ref.rwkv6_scan` rounds, except on the
+    chunked route (:func:`rwkv6_plan`), whose TF32 products stand closer
+    to the float32 loop.  On CUDA tensors (hd in :data:`HEAD_DIMS`) the
+    kernels launch, forward and backward.
     """
     cuda = on_cuda(r, k, v, w, u, s)
     if r.dim() != 4:
@@ -97,19 +151,40 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rwkv6_scan_fwd(r, k, v, w, u, s0):
-    """One launch of the forward kernel on checked CUDA tensors:
-    ``(last state, y)``."""
+    """One launch of the step route's forward kernel on checked CUDA
+    tensors (either dtype, any T): ``(last state, y)``."""
+    return _rwkv6_launch("step", "rwkv6_scan",
+                         f"rwkv6_scan_fwd_{suffix(r.dtype)}", r, k, v, w, u,
+                         s0)
+
+
+def rwkv6_chunked_fwd(r, k, v, w, u, s0):
+    """One launch of the chunked route's kernel on checked bfloat16 CUDA
+    tensors, 16-byte aligned: ``(last state, y)``."""
+    if r.dtype != torch.bfloat16:
+        raise TypeError(f"rwkv6_scan chunked route: bfloat16 only, got "
+                        f"{r.dtype}")
+    return _rwkv6_launch("chunked", "rwkv6_chunk_sm90",
+                         "rwkv6_scan_chunked_bf16", r, k, v, w, u, s0)
+
+
+def _rwkv6_launch(route, lib, entry, r, k, v, w, u, s0):
     b, t, h, hd = r.shape
     y = torch.empty_like(r)
     s = torch.empty_like(s0)
-    fn = getattr(load("rwkv6_scan"), f"rwkv6_scan_fwd_{suffix(r.dtype)}")
+    fn = getattr(load(lib), entry)
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), y.data_ptr(), s.data_ptr(),
                  b, t, h, hd, stream_of(r))
-    check(err, "rwkv6_scan forward")
+    check(err, f"rwkv6_scan forward ({route})")
     rwkv6_scan.launches += 1
+    rwkv6_scan.route_launches[route] += 1
     return s, y
+
+
+#: each route's one launch
+_RWKV6_FWD = {"chunked": rwkv6_chunked_fwd, "step": rwkv6_scan_fwd}
 
 
 def rwkv6_scan_bwd(r, k, v, w, u, s0, ds, dy):
@@ -143,7 +218,7 @@ class _RWKV6Scan(torch.autograd.Function):
         ctx.save_for_backward(r, k, v, w, u, s0)
         # an unused last state gives the backward no cotangent (None)
         ctx.set_materialize_grads(False)
-        return rwkv6_scan_fwd(r, k, v, w, u, s0)
+        return _RWKV6_FWD[rwkv6_plan(r, k, v, w, u, s0)](r, k, v, w, u, s0)
 
     @staticmethod
     def backward(ctx, ds, dy):
@@ -153,9 +228,10 @@ class _RWKV6Scan(torch.autograd.Function):
 
 
 #: forward and backward kernel launches since the counts were last set
-#: to 0
+#: to 0, and the forward launches by route (:data:`RWKV6_ROUTES`)
 rwkv6_scan.launches = 0
 rwkv6_scan.bwd_launches = 0
+rwkv6_scan.route_launches = dict.fromkeys(RWKV6_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +247,11 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
     u: (B, T, D), delta (B, T, 1), bmat and cmat (B, T, N), all in
     float32 or bfloat16, T >= 1; a (D, N) and s (B, D, N) float32.
     Returns the last state (float32) and y (B, T, D) in cmat's dtype,
-    rounded as :func:`repro_torch.kernels.ref.mamba_scan` rounds.  On CUDA
-    tensors (N in :data:`STATE_DIMS`) the kernels launch, forward and
-    backward.
+    rounded as :func:`repro_torch.kernels.ref.mamba_scan` rounds, except
+    on the chunk route (:func:`mamba_plan`), which keeps Δ·u and the
+    read-out's state in float32 and takes its exponentials from
+    ``ex2.approx``.  On CUDA tensors (N in
+    :data:`STATE_DIMS`) the kernels launch, forward and backward.
     """
     cuda = on_cuda(u, delta, bmat, cmat, a, s)
     if u.dim() != 3 or bmat.dim() != 3:
@@ -194,19 +272,51 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
 
 
 def mamba_scan_fwd(u, delta, bmat, cmat, a, s0):
-    """One launch of the forward kernel on checked CUDA tensors:
-    ``(last state, y)``."""
+    """One launch of the step route's forward kernel on checked CUDA
+    tensors (either dtype, any T): ``(last state, y)``."""
+    return _mamba_launch("step", f"mamba_scan_fwd_{suffix(u.dtype)}", True,
+                         u, delta, bmat, cmat, a, s0)
+
+
+def mamba_decode_fwd(u, delta, bmat, cmat, a, s0):
+    """One launch of the decode route's kernel on checked CUDA tensors at
+    T = 1, B, C, A and the state 16-byte aligned: ``(last state, y)``."""
+    if u.shape[1] != 1:
+        raise ValueError(f"mamba_scan decode route: T = 1 only, got "
+                         f"{u.shape[1]}")
+    return _mamba_launch("decode", f"mamba_scan_decode_{suffix(u.dtype)}",
+                         False, u, delta, bmat, cmat, a, s0)
+
+
+def mamba_chunk_fwd(u, delta, bmat, cmat, a, s0):
+    """One launch of the chunk route's kernel on checked bfloat16 CUDA
+    tensors, D a multiple of 8, 16-byte aligned: ``(last state, y)``."""
+    if u.dtype != torch.bfloat16:
+        raise TypeError(f"mamba_scan chunk route: bfloat16 only, got "
+                        f"{u.dtype}")
+    return _mamba_launch("chunk", "mamba_scan_chunk_bf16", True, u, delta,
+                         bmat, cmat, a, s0)
+
+
+def _mamba_launch(route, entry, with_t, u, delta, bmat, cmat, a, s0):
     b, t, d = u.shape
     y = torch.empty_like(u)
     s = torch.empty_like(s0)
-    fn = getattr(load("mamba_scan"), f"mamba_scan_fwd_{suffix(u.dtype)}")
+    fn = getattr(load("mamba_scan"), entry)
+    dims = (b, t, d) if with_t else (b, d)
     with torch.cuda.device(u.device):
         err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), y.data_ptr(),
-                 s.data_ptr(), b, t, d, bmat.shape[2], stream_of(u))
-    check(err, "mamba_scan forward")
+                 s.data_ptr(), *dims, bmat.shape[2], stream_of(u))
+    check(err, f"mamba_scan forward ({route})")
     mamba_scan.launches += 1
+    mamba_scan.route_launches[route] += 1
     return s, y
+
+
+#: each route's one launch
+_MAMBA_FWD = {"decode": mamba_decode_fwd, "chunk": mamba_chunk_fwd,
+              "step": mamba_scan_fwd}
 
 
 def mamba_scan_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
@@ -247,7 +357,8 @@ class _MambaScan(torch.autograd.Function):
         ctx.save_for_backward(u, delta, bmat, cmat, a, s0)
         # an unused last state gives the backward no cotangent (None)
         ctx.set_materialize_grads(False)
-        return mamba_scan_fwd(u, delta, bmat, cmat, a, s0)
+        return _MAMBA_FWD[mamba_plan(u, delta, bmat, cmat, a, s0)](
+            u, delta, bmat, cmat, a, s0)
 
     @staticmethod
     def backward(ctx, ds, dy):
@@ -257,6 +368,7 @@ class _MambaScan(torch.autograd.Function):
 
 
 #: forward and backward kernel launches since the counts were last set
-#: to 0
+#: to 0, and the forward launches by route (:data:`MAMBA_ROUTES`)
 mamba_scan.launches = 0
 mamba_scan.bwd_launches = 0
+mamba_scan.route_launches = dict.fromkeys(MAMBA_ROUTES, 0)

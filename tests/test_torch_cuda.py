@@ -11,18 +11,26 @@ float32 and for bf16 that TMA cannot address): float32 at ``tests/test_kernels.p
 and ``rtol=1e-2, atol=1e-2 * max|want|`` for the GEMM, because the two
 sides sum in other orders and round p and the output to bfloat16.
 
-The SSM scans' four kernels (RWKV-6 and Mamba, forward and backward) are
-held to their plain loops on the card in float32 and bfloat16 at T = 1,
-at odd T and across Mamba's 32-step staging chunks, from a carried
-state: the last state within ``1e-6`` (the kernels keep the loops'
-roundings, so it is bitwise unless ``exp`` differs), outputs at
+The SSM scans' kernels (RWKV-6 and Mamba, forward by each route and
+backward) are held to their plain loops on the card in float32 and
+bfloat16 at T = 1, at odd T and across Mamba's 32-step staging chunks,
+from a carried state.  The step routes and Mamba's decode route keep the
+loops' roundings: the last state within ``1e-6`` (bitwise unless ``exp``
+differs; decode bitwise, state and y), outputs at
 ``SCAN_TOL`` (another order of the read-out's float32 sum: float32
 ``1e-5``, bfloat16 one bf16 ulp, ``2**-7``), and the gradients of all
 six inputs, given both cotangents, against autograd through the plain
 loop at ``SCAN_GRAD_TOL`` of the largest (float32 ``1e-4``; bfloat16
 ``2**-3``, because autograd rounds every step's gradient terms to
 bfloat16 where the kernels sum them in float32), and in bfloat16 also
-against the loop in float32 on the same values at ``2**-6``.
+against the loop in float32 on the same values at ``2**-6``.  The
+chunked (RWKV-6) and chunk (Mamba) routes round otherwise by design (TF32
+products; ``ex2``-based exponentials, Δ·u and the read-out's state
+unrounded): their state and y
+are held to the loop run in float32 on the same bf16 values, no further
+from it than the bf16 loop's own, at odd T, one and 64 heads, every head
+width and three decay regimes.  Launches are counted by route, and a
+CUDA tensor never reaches the plain loop.
 
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
@@ -906,16 +914,16 @@ SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -3}
 SCAN_GRAD_F32_TOL = 2.0 ** -6
 
 
-def _scan_case(kind, dev, dtype, b, t, width, seed=31):
-    """Seeded inputs of one scan on ``dev``: RWKV-6 with 2 heads of
-    ``width``, Mamba with ``width`` channels and N = 16."""
+def _scan_case(kind, dev, dtype, b, t, width, seed=31, heads=2):
+    """Seeded inputs of one scan on ``dev``: RWKV-6 with ``heads`` heads
+    of ``width``, Mamba with ``width`` channels and N = 16."""
     g = torch.Generator().manual_seed(seed)
 
     def f(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
 
     if kind == "rwkv":
-        h = 2
+        h = heads
         w = torch.sigmoid(torch.randn((b, t, h, width), generator=g) + 2)
         return [f(b, t, h, width, scale=0.5), f(b, t, h, width, scale=0.5),
                 f(b, t, h, width), w.to(dtype).to(dev),
@@ -934,23 +942,165 @@ SCAN_CASES = [("rwkv", 64, 1), ("rwkv", 64, 37), ("rwkv", 16, 9),
               ("mamba", 128, 70)]
 
 
+def _scan_fns(kind):
+    from repro_torch.kernels import scan
+    return ((scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_plan)
+            if kind == "rwkv" else
+            (scan.mamba_scan, ref.mamba_scan, scan.mamba_plan))
+
+
+def _no_worse_than_bf16_loop(got, args, plain):
+    """A route that rounds otherwise than the loop, held to the loop run
+    in float32 on the same values: state and y finite, each no further
+    from it than the bf16 loop's own."""
+    want = plain(*[a.float() for a in args])
+    loop = plain(*args)
+    for g, w, lp, what in zip(got, want, loop, ("state", "y")):
+        assert torch.isfinite(g.float()).all(), what
+        err = (g.float() - w).abs().max().item()
+        own = (lp.float() - w).abs().max().item()
+        assert err <= own, (what, err, own)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,width,t", SCAN_CASES)
 def test_cuda_scan_forward_matches_plain(cuda, kind, width, t, dtype):
-    from repro_torch.kernels import scan
-    fn, plain = ((scan.rwkv6_scan, ref.rwkv6_scan) if kind == "rwkv" else
-                 (scan.mamba_scan, ref.mamba_scan))
+    """The step and decode routes keep the loop's roundings: the state
+    within 1e-6 (bitwise unless exp differs), y at SCAN_TOL; the chunked
+    and chunk routes (bf16, T >= 2) are held to the float32 loop."""
+    fn, plain, plan = _scan_fns(kind)
     args = _scan_case(kind, cuda, dtype, 3, t, width)
-    n0 = fn.launches
+    route = plan(*args)
+    n0, r0 = fn.launches, fn.route_launches[route]
     s, y = fn(*args)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + 1
-    ws, wy = plain(*args)
+    assert fn.launches == n0 + 1 and fn.route_launches[route] == r0 + 1
     assert y.dtype == dtype and s.dtype == torch.float32
+    if route in ("chunked", "chunk"):
+        _no_worse_than_bf16_loop((s, y), args, plain)
+        return
+    ws, wy = plain(*args)
     torch.testing.assert_close(s, ws, rtol=1e-6, atol=1e-6)
     tol = SCAN_TOL[dtype]
     torch.testing.assert_close(y.float(), wy.float(), rtol=tol,
                                atol=tol * wy.float().abs().max().item())
+
+
+def _regime(args, kind, regime, g):
+    """The scan's decays in one regime: the models' own (as made), near 0
+    (RWKV w <= 1e-3 with a fifth exactly 0; Mamba delta a <= -20) or near
+    1 (w >= 0.999; delta a >= -1e-3)."""
+    if regime == "model":
+        return args
+    dev, dtype = args[0].device, args[0].dtype
+    if kind == "rwkv":
+        shape = args[3].shape
+        if regime == "near0":
+            w = torch.rand(shape, generator=g) * 1e-3
+            w[..., ::5] = 0.0
+        else:
+            w = 1 - torch.rand(shape, generator=g) * 1e-3
+        args[3] = w.to(dtype).to(dev)
+        return args
+    d = args[4].shape[0]
+    if regime == "near0":
+        delta = torch.nn.functional.softplus(
+            torch.randn(args[1].shape, generator=g)) + 2
+        a = -(10 + 5 * torch.rand((d, 16), generator=g))
+    else:
+        delta = torch.rand(args[1].shape, generator=g) * 1e-4
+        a = -(1 + 9 * torch.rand((d, 16), generator=g))
+    args[1], args[4] = delta.to(dtype).to(dev), a.to(dev)
+    return args
+
+
+#: the new routes' cases: (kind, heads or channels, head width, T)
+ROUTE_CASES = [("rwkv", 1, 16, 3), ("rwkv", 64, 16, 33), ("rwkv", 1, 32, 77),
+               ("rwkv", 64, 32, 17), ("rwkv", 1, 64, 65),
+               ("rwkv", 64, 64, 129), ("mamba", 512, 16, 3),
+               ("mamba", 1024, 16, 77), ("mamba", 2056, 16, 33)]
+
+
+@pytest.mark.parametrize("regime", ["model", "near0", "near1"])
+@pytest.mark.parametrize("kind,n,hd,t", ROUTE_CASES)
+def test_cuda_scan_new_routes_no_worse_than_bf16_loop(cuda, kind, n, hd, t,
+                                                      regime):
+    """The chunked (RWKV-6) and chunk (Mamba) routes at odd T, H in {1,
+    64}, every head width, three decay regimes: finite, and no further
+    from the loop in float32 than the bf16 loop is."""
+    fn, plain, plan = _scan_fns(kind)
+    g = torch.Generator().manual_seed(40 + t)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, t, hd, heads=n)
+    else:
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, t, n)
+    args = _regime(args, kind, regime, g)
+    route = plan(*args)
+    assert route == ("chunked" if kind == "rwkv" else "chunk")
+    r0 = fn.route_launches[route]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.route_launches[route] == r0 + 1
+    _no_worse_than_bf16_loop(got, args, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [300, 8192])
+def test_cuda_mamba_decode_is_bitwise_the_loop(cuda, width, dtype):
+    """The decode route's state is the loop's bit for bit, and its y the
+    step kernel's (the same sum in the same order; the loop's read-out is
+    a matmul that sums in its own order, held at SCAN_TOL)."""
+    from repro_torch.kernels import scan
+    args = _scan_case("mamba", cuda, dtype, 8, 1, width)
+    assert scan.mamba_plan(*args) == "decode"
+    s, y = scan.mamba_scan(*args)
+    ws, wy = ref.mamba_scan(*args)
+    ss, ys = scan.mamba_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(s, ws) and torch.equal(s, ss)
+    assert torch.equal(y, ys)
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol,
+                               atol=tol * wy.float().abs().max().item())
+
+
+def test_cuda_scan_launches_by_route(cuda):
+    """Each call counts one launch, on the route its plan names."""
+    from repro_torch.kernels import scan
+    cases = [("rwkv", torch.bfloat16, 5, "chunked"),
+             ("rwkv", torch.bfloat16, 1, "step"),
+             ("rwkv", torch.float32, 5, "step"),
+             ("mamba", torch.bfloat16, 5, "chunk"),
+             ("mamba", torch.float32, 1, "decode"),
+             ("mamba", torch.bfloat16, 1, "decode"),
+             ("mamba", torch.float32, 5, "step")]
+    for kind, dtype, t, route in cases:
+        fn, _, _ = _scan_fns(kind)
+        args = _scan_case(kind, cuda, dtype, 2, t, 64)
+        before = dict(fn.route_launches)
+        fn(*args)
+        torch.cuda.synchronize()
+        after = dict(fn.route_launches)
+        before[route] += 1
+        assert after == before, (kind, dtype, t, route)
+
+
+def test_cuda_scan_never_reaches_the_loop(cuda, monkeypatch):
+    """A CUDA tensor launches a route's kernel on every route: the plain
+    loops, made to raise, are never called."""
+    from repro_torch.kernels import scan
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain loop")
+
+    monkeypatch.setattr(ref, "rwkv6_scan", refuse)
+    monkeypatch.setattr(ref, "mamba_scan", refuse)
+    for kind in ("rwkv", "mamba"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for t in (1, 5):
+                fn, _, _ = _scan_fns(kind)
+                fn(*_scan_case(kind, cuda, dtype, 2, t, 64))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
