@@ -74,8 +74,17 @@ decay regimes, no further from it than the bf16 loop; then bf16 at one
 RWKV-6-7B layer's and one Jamba Mamba layer's shapes: 8 x 512 prefill by
 the new route and by the step route on the same inputs, T = 1 decode by
 RWKV-6's step route and Mamba's decode route (bitwise the loops) beside
-Mamba's step kernel, a backward at B = 2, T = 2048, each timed beside its
-route's bound, the step-serial bound and the loop.
+Mamba's step kernel, each timed beside its route's bound, the step-serial
+bound and the loop.  The backward follows (the thirteenth slice): the new
+chunked backward routes (RWKV-6 ``chunked``,
+``csrc/rwkv6_chunk_bwd_sm90.cu``; Mamba ``chunk``, in
+``csrc/mamba_scan.cu``) through autograd at full width, B = 2, T from 2
+to 2048, and at the shapes ``[train-ssm]`` gives them, in the three
+decay regimes, with and without a cotangent of the last state: all six gradients within ``SCAN_GRAD_TOL`` of autograd
+through the bf16 loop and ``SCAN_GRAD_F32_TOL`` of the loop in float32;
+then at B = 2, T = 2048 the new route and the step pair on the same
+inputs, each timed beside the loop, its bound and the step-serial bound,
+with the workspace it allocates.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
@@ -107,7 +116,13 @@ whole (AdamW) and ``[train-moe]`` one Grok-1-314B group at full width
 (``dispatch="spec"``, Adafactor, as the whole model takes it), 2048
 tokens a step: step ms, tokens/s, losses, peak memory, the FLOP and
 optimizer byte bounds, and a profiled step split into forward, backward
-and optimizer by kind of kernel; ``[train-ckpt]`` saves a bf16 smoke
+and optimizer by kind of kernel; ``[train-ssm]`` trains RWKV-6-7B at its
+published width with 8 of its 32 layers (AdamW, as the whole model
+takes it), 2 sequences of 1024 tokens a step, the same lines plus the
+scan backward's device time in the profiled step, and fails unless the
+backward took the chunked route once a layer a step and no plain loop
+was reached; then Jamba's smoke config in bf16 trains 3 steps on the
+card through the Mamba chunk backward; ``[train-ckpt]`` saves a bf16 smoke
 run on the card asynchronously, restores it bitwise and continues it
 through a fresh ``train()``.
 Phases print as they finish; the last lines are one
@@ -221,15 +236,28 @@ def device_ms(fn, reps: int = 200, replays: int = 5) -> float:
 
 
 def _sass_counts(path) -> dict:
-    """Tensor-core and TMA instructions in a built library's SASS, or {}
-    without ``cuobjdump``."""
+    """Tensor-core and TMA instructions in a built library's SASS, and its
+    local-memory loads and stores (``LDL``/``STL``: arrays the compiler
+    could not keep in registers, and spills) with the kernels that have
+    any, or {} without ``cuobjdump``."""
+    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    out = {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    local = {}
+    for block in sass.split("Function : ")[1:]:
+        n = len(re.findall(r"\b(?:LDL|STL)\b", block))
+        if n:
+            name = re.search(r"\d\d?((?:rwkv6|mamba|spec|ragged|flash|paged|"
+                             r"colsum)\w*?_kernel)", block.split("\n", 1)[0])
+            local[name.group(1) if name else block[:40]] = n
+    out["LDL/STL"] = sum(local.values())
+    out["kernels with local memory"] = local or "none"
+    return out
 
 
 def phase_build() -> None:
@@ -1522,6 +1550,7 @@ def _reset_scans() -> None:
     for c in _scan_counters().values():
         c.launches = c.bwd_launches = 0
         c.route_launches = dict.fromkeys(c.route_launches, 0)
+        c.bwd_route_launches = dict.fromkeys(c.bwd_route_launches, 0)
 
 
 def _scan_launches() -> dict:
@@ -1533,6 +1562,12 @@ def _scan_launches() -> dict:
 def _scan_routes() -> dict:
     """Forward launches of each scan by route since the last reset."""
     return {n: dict(c.route_launches) for n, c in _scan_counters().items()}
+
+
+def _scan_bwd_routes() -> dict:
+    """Backward launches of each scan by route since the last reset."""
+    return {n: dict(c.bwd_route_launches)
+            for n, c in _scan_counters().items()}
 
 
 @contextlib.contextmanager
@@ -1627,17 +1662,22 @@ def _scan_bound(kind, route, bwd, b, t, width, clock) -> dict:
     larger of the bytes over 3.35 TB/s and the route's operations over
     their rate.  Step routes (and the backward): :data:`SCAN_OPS` float32
     operations a state element a step at 67 TFLOP/s.  RWKV-6 chunked: the
-    chunked form's products, 4 hd^2 + 4 C hd a (token, head), at the
-    TF32 rate.  Mamba chunk: one exp a state element a step on the
-    special-function units.  Also the step-serial count's bound (``old``)
-    beside every forward route's, for comparison."""
+    chunked form's products at the TF32 rate, 4 hd^2 + 4 C hd a (token,
+    head) forward (the state update and read-out, the scores and their
+    product with v), 10 hd^2 + 6 C hd backward (the boundary passes' two
+    updates, S dy, G v and (k q) G; v.dy, the scores and their product
+    with dy).  Mamba chunk: one exp a state element a step on the
+    special-function units, forward and backward.  Also the step-serial
+    count's bound (``old``) beside every route's, for comparison."""
     nbytes = _scan_bytes(kind, bwd, b, t, width)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     elems = b * t * width * (SCAN_HD if kind == "rwkv" else SCAN_N)
     old_ops = SCAN_OPS[kind, bwd] * elems
     t_old = max(t_bytes, old_ops / F32_FLOP_PER_S * 1e3)
     if route == "chunked":
-        ops, kind_ops = elems * 4 + 4 * SCAN_CHUNK * b * t * width, "tf32"
+        per = (10, 6) if bwd else (4, 4)
+        ops = elems * per[0] + per[1] * SCAN_CHUNK * b * t * width
+        kind_ops = "tf32"
         t_ops = ops / TF32_FLOP_PER_S * 1e3
     elif route == "chunk":
         ops, kind_ops = elems, "sfu exp"
@@ -1689,13 +1729,31 @@ def _against_float32(tag, got, args, plain) -> dict:
 def _scan_grads(fn, args, seed):
     """The gradients of all six inputs of ``fn``'s scan, given seeded
     cotangents of y and of the last state."""
-    xs = [a.detach().clone().requires_grad_(True) for a in args]
-    s, y = fn(*xs)
+    return _scan_grads_both(fn, args, seed)[0]
+
+
+def _scan_cots(s, y, seed):
+    """Seeded cotangents of a scan's last state (float32) and of y (y's
+    dtype)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     w_s = torch.randn(s.shape, generator=g, device="cuda")
-    w_y = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
-    torch.autograd.backward([s, y], [w_s, w_y])
-    return [x.grad for x in xs]
+    return w_s, torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+
+
+def _scan_grads_both(fn, args, seed):
+    """The gradients of all six inputs of ``fn``'s scan from one forward,
+    given seeded cotangents of y: with a seeded cotangent of the last
+    state, then without one (an input nothing reaches gets zeros)."""
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    s, y = fn(*xs)
+    w_s, w_y = _scan_cots(s, y, seed)
+    out = []
+    for outs, cots in (([s, y], [w_s, w_y]), ([y], [w_y])):
+        grads = torch.autograd.grad(outs, xs, cots, allow_unused=True,
+                                    retain_graph=not out)
+        out.append([torch.zeros_like(x) if gr is None else gr
+                    for x, gr in zip(xs, grads)])
+    return out
 
 
 def _scan_kinds():
@@ -1706,27 +1764,32 @@ def _scan_kinds():
                      new=scan.rwkv6_chunked_fwd, route="chunked",
                      decode=None, bwd=scan.rwkv6_scan_bwd, width=4096,
                      name="rwkv6_scan", line=66,
-                     src="rwkv6_chunk_sm90.cu"),
+                     src="rwkv6_chunk_sm90.cu", bwd_plan=scan.rwkv6_bwd_plan,
+                     bwd_new=scan.rwkv6_chunked_bwd,
+                     bwd_step=scan.rwkv6_step_bwd, bwd_route="chunked",
+                     bwd_src="rwkv6_chunk_bwd_sm90.cu"),
         "mamba": dict(fn=scan.mamba_scan, plain=ref.mamba_scan,
                       plan=scan.mamba_plan, step=scan.mamba_scan_fwd,
                       new=scan.mamba_chunk_fwd, route="chunk",
                       decode=scan.mamba_decode_fwd, bwd=scan.mamba_scan_bwd,
                       width=8192, name="mamba_scan", line=108,
-                      src="mamba_scan.cu")}
+                      src="mamba_scan.cu", bwd_plan=scan.mamba_bwd_plan,
+                      bwd_new=scan.mamba_chunk_bwd,
+                      bwd_step=scan.mamba_step_bwd, bwd_route="chunk",
+                      bwd_src="mamba_scan.cu")}
 
 
 def _scan_record(k, way, route, src, r) -> dict:
     """One scan route's record of the kernels line (``launches`` filled
     from the main path's phases)."""
-    return {"name": k["name"] + (f"_fwd_{route}" if way == "fwd" else
-                                 "_bwd"), "route": "cuda",
+    return {"name": f"{k['name']}_{way}_{route}", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/models/ssm.py:{k['line']}",
             "launches": None, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "bound_share": r["bound_ms"] / r["ms"], "scan": k["name"],
-            "scan_route": route if way == "fwd" else "bwd",
+            "scan_route": route if way == "fwd" else f"bwd_{route}",
             **{x: r[x] for x in r if x not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}}
 
@@ -1741,6 +1804,239 @@ def _scan_line(tag, name, b, t, width, r, what) -> None:
           f"({smi()})")
 
 
+def _kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms a launch of each kernel of ``fn()``, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up call: the
+    mean over the launches the trace holds (a trace of these calls loses
+    some of their kernels now and then, so a sum over it would be short),
+    the names shortened to the kernel's own."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = collections.Counter(), collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU:
+            continue
+        name = ev.name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0].split("::")[-1]
+        total[name] += (ev.time_range.end - ev.time_range.start) / 1e3
+        count[name] += 1
+    return {n: total[n] / count[n] for n, _ in total.most_common()}
+
+
+def _workspace(fn) -> dict:
+    """One ``fn()`` (a backward entry): the device memory it allocated at
+    its peak beyond what was allocated before, what it returns, and the
+    difference, its workspace (bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = sum(t.numel() * t.element_size() for t in out)
+    del out
+    return {"peak_bytes": peak, "out_bytes": kept,
+            "workspace_bytes": peak - kept}
+
+
+def _bwd_main_shape(kind) -> tuple:
+    """B, T and width of the chunked backward on its main path,
+    ``[train-ssm]``: RWKV-6-7B's d_model at :data:`TRAIN_SSM`'s tokens;
+    Jamba's smoke config (its d_model is the Mamba channels) at
+    :data:`TRAIN_SSM_JAMBA`'s."""
+    from repro_torch.configs import base as cbase
+    if kind == "rwkv":
+        return (TRAIN_SSM["batch"], TRAIN_SSM["seq_len"],
+                cbase.get("rwkv6_7b").d_model)
+    return (TRAIN_SSM_JAMBA["batch"], TRAIN_SSM_JAMBA["seq_len"],
+            cbase.smoke(cbase.get("jamba_1_5_large_398b")).d_model)
+
+
+def _bwd_sweep(kind, k, gen) -> dict:
+    """The new backward route through autograd at B = 2, full width, T in
+    :data:`SCAN_SWEEP_T`, and at its main path's shape
+    (:func:`_bwd_main_shape`), in every decay regime, with and without a
+    cotangent of the last state: all six gradients finite, within
+    ``SCAN_GRAD_TOL`` of autograd through the bf16 loop and
+    ``SCAN_GRAD_F32_TOL`` of the loop in float32 on the same values (as a
+    share of the largest).  Returns the worst shares by regime."""
+    bf16, worst = torch.bfloat16, {}
+    route = k["bwd_route"]
+    shapes = [(2, t, k["width"]) for t in SCAN_SWEEP_T]
+    shapes.append(_bwd_main_shape(kind))
+    for regime in SCAN_REGIMES:
+        w_loop = w_f32 = 0.0
+        for b, t, width in shapes:
+            args = _scan_args(kind, b, t, width, bf16, gen, regime)
+            with torch.no_grad():
+                s, y = k["fn"](*args)
+            dy = torch.zeros_like(y)
+            for ds in (s, None):
+                if k["bwd_plan"](*args, ds, dy) != route:
+                    fail(f"scan {kind} backward B={b} T={t} width={width}: "
+                         f"plan {k['bwd_plan'](*args, ds, dy)}, want {route}")
+            del s, y, dy
+            n0 = k["fn"].bwd_route_launches[route]
+            got = _scan_grads_both(k["fn"], args, 5 + t)
+            if k["fn"].bwd_route_launches[route] != n0 + 2:
+                fail(f"scan {kind} backward B={b} T={t} width={width}: "
+                     f"the {route} route "
+                     f"launched {k['fn'].bwd_route_launches[route] - n0} "
+                     f"times, want 2")
+            for f32, tol in ((False, SCAN_GRAD_TOL[bf16]),
+                             (True, SCAN_GRAD_F32_TOL)):
+                want = _scan_grads_both(
+                    k["plain"], [a.float() for a in args] if f32 else args,
+                    5 + t)
+                for last, gs, ws in zip(("with", "without"), got, want):
+                    for i, (g, w) in enumerate(zip(gs, ws)):
+                        tag = (f"scan {kind} {route} backward {regime} B={b} "
+                               f"T={t} width={width} {last} ds, gradient "
+                               f"{i} against the "
+                               f"{'float32' if f32 else 'bf16'} loop")
+                        err = _scan_err(tag, g.float(), w.float(), tol)
+                        share = err / max(w.float().abs().max().item(),
+                                          1e-30)
+                        if f32:
+                            w_f32 = max(w_f32, share)
+                        else:
+                            w_loop = max(w_loop, share)
+                del want
+            del got, args
+        worst[regime] = (w_loop, w_f32)
+        _free()
+    return worst
+
+
+def _scan_backward(kind, k, gen, clock) -> dict:
+    """The backward at B = 2, T = 2048, one layer's width: the new route's
+    sweep (:func:`_bwd_sweep`), then the new route and the step pair on
+    the same inputs, each timed (CUDA events around eager calls) beside
+    the loop (forward and autograd backward through it), its bound, the
+    step-serial bound, and the workspace it allocates.  Returns both
+    routes' records."""
+    bf16, width, name = torch.bfloat16, k["width"], k["name"]
+    route = k["bwd_route"]
+    t1 = time.perf_counter()
+    worst = _bwd_sweep(kind, k, gen)
+    print(f"[scan] {name} backward, route {route}, bf16 B=2 width={width}: "
+          f"all six gradients finite and within {SCAN_GRAD_TOL[bf16]} of "
+          f"autograd through the bf16 loop and {SCAN_GRAD_F32_TOL} of the "
+          f"loop in float32 (shares of the largest) at every T in "
+          f"{SCAN_SWEEP_T} and at the main path's B, T, width "
+          f"{_bwd_main_shape(kind)}, with and without a cotangent of the "
+          f"last state; "
+          f"worst shares (bf16 loop / float32 loop): " + "; ".join(
+              f"{r} {a:.3g} / {b:.3g}" for r, (a, b) in worst.items())
+          + f" ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    args = _scan_args(kind, 2, 2048, width, bf16, gen)
+    got = _scan_grads(k["fn"], args, 2)
+    want = _scan_grads(k["plain"], args, 2)
+    errs = [_scan_err(f"scan {kind} backward gradient {i}", g, w,
+                      SCAN_GRAD_TOL[bf16])
+            for i, (g, w) in enumerate(zip(got, want))]
+    rel = [x / w.float().abs().max().item() for x, w in zip(errs, want)]
+    # the step pair on the same cotangents, against the same loop
+    w_s, w_y = _scan_cots(args[5], args[0], 2)
+    errs_step = [_scan_err(f"scan {kind} backward step pair gradient {i}",
+                           g, w, SCAN_GRAD_TOL[bf16])
+                 for i, (g, w) in enumerate(zip(
+                     k["bwd_step"](*args, w_s, w_y), want))]
+    del want, w_s, w_y
+    want = _scan_grads(k["plain"], [a.float() for a in args], 2)
+    rel32 = [_scan_err(f"scan {kind} backward gradient {i} against "
+                       f"float32", g.float(), w, SCAN_GRAD_F32_TOL)
+             / w.abs().max().item()
+             for i, (g, w) in enumerate(zip(got, want))]
+    del got, want
+    _free()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        s, y = k["fn"](*args)
+    ds = torch.randn(s.shape, generator=g, device="cuda")
+    dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
+    del s, y
+    # the step pair (the bf16 loop's roundings) against the new route
+    new_g, step_g = k["bwd_new"](*args, ds, dy), k["bwd_step"](*args, ds, dy)
+    pair = [_scan_err(f"scan {kind} backward {route} against step, "
+                      f"gradient {i}", a.float(), b.float(),
+                      SCAN_GRAD_TOL[bf16])
+            for i, (a, b) in enumerate(zip(new_g, step_g))]
+    del new_g, step_g
+    _free()
+    plain_ms = call_ms(lambda: _scan_grads(k["plain"], args, 4), reps=1,
+                       warm=1)
+    out = {}
+    for r, fn, reps in ((route, k["bwd_new"], 10), ("step", k["bwd_step"], 3),
+                        (route + "_again", k["bwd_new"], 10)):
+        ms = call_ms(lambda: fn(*args, ds, dy), reps=reps, warm=1)
+        if r.endswith("_again"):
+            out[route]["ms_again"] = ms
+            continue
+        ws = _workspace(lambda: fn(*args, ds, dy))
+        _free()
+        split = _kernel_ms(lambda: fn(*args, ds, dy))
+        _free()
+        out[r] = {"ms": ms, "plain_ms": plain_ms, "kernels_ms": split,
+                  "max_abs_err": max(errs) if r == route else None,
+                  "shape": [2, 2048, width], **ws,
+                  **_scan_bound(kind, r, True, 2, 2048, width, clock)}
+    out[route].update(grad_max_abs_err=errs, grad_err_share_of_max=rel,
+                      grad_err_share_of_max_vs_float32=rel32,
+                      sweep_worst_share=worst,
+                      vs_step_max_abs_err=pair)
+    out["step"].update(max_abs_err=max(errs_step),
+                       grad_max_abs_err=errs_step)
+    del ds, dy, args
+    _free()
+    new, step = out[route], out["step"]
+    print(f"[scan] {name} backward bf16 B=2 T=2048 width={width}: route "
+          f"{route} max abs err vs autograd through the bf16 loop "
+          f"{max(errs):.3g} (by input, as a share of max: "
+          + ", ".join(f"{x:.2g}" for x in rel)
+          + "; against the loop in float32 on the same values: "
+          + ", ".join(f"{x:.2g}" for x in rel32) + ")")
+    for r, rec in ((route, new), ("step", step)):
+        print(f"[scan] {name} backward B=2 T=2048, route {r}: "
+              f"{rec['ms'] * 1e3:.2f} us a launch (eager, CUDA events"
+              + (f"; again after the step pair {rec['ms_again'] * 1e3:.2f}"
+                 if "ms_again" in rec else "")
+              + f"), plain {plain_ms * 1e3:.1f} us (forward + autograd "
+              f"backward through the loop); bound {rec['bound_ms'] * 1e3:.2f}"
+              f" us by {rec['bound_kind']} ({rec['ops'] / 1e9:.3f} G "
+              f"operations, {rec['bytes'] / 1e6:.1f} MB), "
+              f"{rec['bound_ms'] / rec['ms']:.1%} of it; step-serial bound "
+              f"{rec['step_serial_bound_ms'] * 1e3:.2f} us; workspace "
+              f"{rec['workspace_bytes'] / 1e9:.4f} GB (peak "
+              f"{rec['peak_bytes'] / 1e9:.4f} GB, outputs "
+              f"{rec['out_bytes'] / 1e9:.4f} GB); by kernel, us a launch "
+              f"(profiled): " + (", ".join(f"{n} {v * 1e3:.1f}" for n, v in
+                                           rec["kernels_ms"].items())
+                                 or "not captured")
+              + f" ({smi()})")
+    print(f"[scan] {name} backward B=2 T=2048: route {route} "
+          f"{new['ms'] * 1e3:.2f} us, step pair {step['ms'] * 1e3:.2f} us on "
+          f"the same inputs, {step['ms'] / new['ms']:.2f}x; workspace "
+          f"{new['workspace_bytes'] / 1e9:.4f} GB against "
+          f"{step['workspace_bytes'] / 1e9:.4f} GB "
+          f"({new['workspace_bytes'] / step['workspace_bytes']:.4f}); the "
+          f"two routes' gradients agree within {max(pair):.3g}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    if step["ms"] < 5 * new["ms"] or \
+            16 * new["workspace_bytes"] > step["workspace_bytes"]:
+        print(f"[scan] {name} backward: route {route} short of 5x the step "
+              f"pair's speed or a sixteenth of its workspace")
+    return out
+
+
 def phase_scan() -> list:
     """The scans' kernels against their plain loops on the card, route by
     route.  First float32 at a small odd shape (T = 37, forward by the
@@ -1753,16 +2049,19 @@ def phase_scan() -> list:
     16): prefill (8 x 512) by the new route and by the step route on the
     same inputs, the step route's state bitwise the bf16 loop's; decode
     (T = 1) by RWKV-6's step route and Mamba's decode route, both
-    bitwise, beside Mamba's step kernel at T = 1; a backward at B = 2, T =
-    2048.  Each timed beside its route's bound, the step-serial bound and
-    its plain loop (no library call computes the recurrence).  Returns the
-    kernels line's records, one a route (``launches`` filled from the
-    main path's phases)."""
+    bitwise, beside Mamba's step kernel at T = 1; the backward by the new
+    route and by the step pair (:func:`_scan_backward`).  Each timed
+    beside its route's bound, the step-serial bound and its plain loop
+    (no library call computes the recurrence).  Returns the kernels
+    line's records, one a route (``launches`` filled from the main path's
+    phases)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(25)
     kinds = _scan_kinds()
     clock = _sm_clock_hz()
-    saved = _scan_launches(), _scan_routes()
+    saved = _scan_launches(), {n: (dict(c.route_launches),
+                                   dict(c.bwd_route_launches))
+                               for n, c in _scan_counters().items()}
     for kind, k in kinds.items():
         args = _scan_args(kind, 2, 37, 256, torch.float32, gen)
         if k["plan"](*args) != "step":
@@ -1891,50 +2190,8 @@ def phase_scan() -> list:
                   f"{decode['step']['ms'] / decode['decode']['ms']:.2f}x")
         del args, want, step_y
         _free()
-        # backward
-        t1 = time.perf_counter()
-        args = _scan_args(kind, 2, 2048, width, bf16, gen)
-        got = _scan_grads(k["fn"], args, 2)
-        want = _scan_grads(k["plain"], args, 2)
-        torch.cuda.synchronize()
-        errs = [_scan_err(f"scan {kind} backward gradient {i}", g, w,
-                          SCAN_GRAD_TOL[bf16])
-                for i, (g, w) in enumerate(zip(got, want))]
-        rel = [x / w.float().abs().max().item() for x, w in zip(errs, want)]
-        del want
-        want = _scan_grads(k["plain"], [a.float() for a in args], 2)
-        rel32 = [_scan_err(f"scan {kind} backward gradient {i} against "
-                           f"float32", g.float(), w, SCAN_GRAD_F32_TOL)
-                 / w.abs().max().item()
-                 for i, (g, w) in enumerate(zip(got, want))]
-        del got, want
-        g = torch.Generator(device="cuda").manual_seed(3)
-        s, y = k["step"](*args)
-        ds = torch.randn(s.shape, generator=g, device="cuda")
-        dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
-        del s, y
-        back = {"ms": call_ms(lambda: k["bwd"](*args, ds, dy), reps=3,
-                              warm=1),
-                "plain_ms": call_ms(lambda: _scan_grads(k["plain"], args, 4),
-                                    reps=1, warm=1),
-                "max_abs_err": max(errs), "grad_max_abs_err": errs,
-                "grad_err_share_of_max": rel,
-                "grad_err_share_of_max_vs_float32": rel32,
-                "shape": [2, 2048, width],
-                **_scan_bound(kind, "step", True, 2, 2048, width, clock)}
-        del ds, dy, args
-        _free()
-        print(f"[scan] {name} backward bf16 B=2 T=2048 width={width}: max "
-              f"abs err vs plain {max(errs):.3g} (by input, as a share of "
-              f"max|plain|: " + ", ".join(f"{x:.2g}" for x in rel)
-              + "; against the loop in float32 on the same values: "
-              + ", ".join(f"{x:.2g}" for x in rel32) + f"); "
-              f"{back['ms'] * 1e3:.2f} us a launch (eager, CUDA events), "
-              f"plain {back['plain_ms'] * 1e3:.1f} us (forward + autograd "
-              f"backward through the loop, eager); bound "
-              f"{back['bound_ms'] * 1e3:.2f} us by {back['bound_kind']}, "
-              f"{back['bound_ms'] / back['ms']:.1%} of it; "
-              f"{time.perf_counter() - t1:.1f} s ({smi()})")
+        # backward: the new route and the step pair on the same inputs
+        back = _scan_backward(kind, k, gen, clock)
         src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
         records.append(_scan_record(k, "fwd", k["route"], k["src"], new))
         if "decode" in decode:
@@ -1942,10 +2199,12 @@ def phase_scan() -> list:
                                         decode["decode"]))
         records.append(_scan_record(k, "fwd", "step", src,
                                     {**step, "decode": decode["step"]}))
-        records.append(_scan_record(k, "bwd", "step", src, back))
+        records.append(_scan_record(k, "bwd", k["bwd_route"], k["bwd_src"],
+                                    back[k["bwd_route"]]))
+        records.append(_scan_record(k, "bwd", "step", src, back["step"]))
     for n, c in _scan_counters().items():
         c.launches, c.bwd_launches = saved[0][n]
-        c.route_launches = saved[1][n]
+        c.route_launches, c.bwd_route_launches = saved[1][n]
     print(f"[scan] SM clock {clock / 1e9:.3f} GHz (max, nvidia-smi) for the "
           f"exp bound; {time.perf_counter() - t_phase:.1f} s")
     return records
@@ -3018,10 +3277,12 @@ def _n_sublayers(params, kind: str) -> int:
     return sum(k.endswith(f"_{kind}") for g in params["groups"] for k in g)
 
 
-def _check_scans(tag: str, want: dict, routes: dict) -> None:
+def _check_scans(tag: str, want: dict, routes: dict,
+                 bwd_routes: dict = None) -> None:
     """Fail unless the scans' (forward, backward) launches since the last
-    :func:`_reset_scans` are ``want`` and their forward launches by route
-    ``routes`` (names and routes not given: none)."""
+    :func:`_reset_scans` are ``want``, their forward launches by route
+    ``routes`` and their backward ones ``bwd_routes`` (names and routes
+    not given: none)."""
     want = {n: want.get(n, (0, 0)) for n in _scan_counters()}
     if _scan_launches() != want:
         fail(f"{tag}: scan launches (forward, backward) {_scan_launches()}, "
@@ -3030,6 +3291,12 @@ def _check_scans(tag: str, want: dict, routes: dict) -> None:
             for n, c in _scan_counters().items()}
     if _scan_routes() != full:
         fail(f"{tag}: scan launches by route {_scan_routes()}, want {full}")
+    full = {n: {**dict.fromkeys(c.bwd_route_launches, 0),
+                **(bwd_routes or {}).get(n, {})}
+            for n, c in _scan_counters().items()}
+    if _scan_bwd_routes() != full:
+        fail(f"{tag}: scan backward launches by route {_scan_bwd_routes()}, "
+             f"want {full}")
 
 
 def _same_tokens(tag, res_k, res_p, timed_k, timed_p) -> dict:
@@ -3490,7 +3757,8 @@ def phase_train_small() -> dict:
             ("rwkv6_scan", _n_sublayers(state0.params, "rwkv")),
             ("mamba_scan", _n_sublayers(state0.params, "mamba"))) if k}
         _check_scans(f"train-small {arch}", want,
-                     {n: {"step": f} for n, (f, _) in want.items()})
+                     {n: {"step": f} for n, (f, _) in want.items()},
+                     {n: {"step": b} for n, (_, b) in want.items()})
         for n, (f, b) in want.items():
             scan_bwd[n] = scan_bwd.get(n, 0) + b
             scan_fwd[n] = scan_fwd.get(n, 0) + f
@@ -3559,8 +3827,8 @@ def phase_train_small() -> dict:
           f"on CUDA tensors a gradient through dispatch=spec-kernel and "
           f"through each of the {len(calls)} kernel entries raises "
           f"NotImplementedError; the scans' backward kernels launched "
-          f"{scan_bwd}, their forward ones (all by the step routes) "
-          f"{scan_fwd}")
+          f"{scan_bwd}, their forward ones {scan_fwd} (float32: all by the "
+          f"step routes, forward and backward)")
     return {"bwd": scan_bwd, "fwd_step": scan_fwd}
 
 
@@ -3613,6 +3881,7 @@ def _train_profile(run) -> dict:
     fwd, opt = spans["train.forward"], spans["train.optimizer"]
     parts = {p: collections.Counter() for p in
              ("forward", "backward", "optimizer", "rest")}
+    names = collections.Counter()
     busy, end = 0.0, window[0]
     for kb, ke, name in kernels:
         kb, ke = max(kb, window[0]), min(ke, window[1])
@@ -3623,21 +3892,27 @@ def _train_profile(run) -> dict:
                 "optimizer" if opt[0] <= mid <= opt[1] else
                 "backward" if fwd[1] < mid < opt[0] else "rest")
         parts[part][_train_kind(name)] += ke - kb
+        names[name] += ke - kb
         busy += max(0.0, ke - max(kb, end))
         end = max(end, ke)
     wms = (window[1] - window[0]) / 1e3
     return {"window_ms": wms, "busy_ms": busy / 1e3,
             "idle_share": 1 - busy / 1e3 / wms,
             "parts": {p: {k: v / 1e3 for k, v in c.most_common()}
-                      for p, c in parts.items()}}
+                      for p, c in parts.items()},
+            "by_name": {k: v / 1e3 for k, v in names.most_common()}}
 
 
-def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
+def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
+                batch=None, seq_len=None) -> dict:
     """The training phase at full width: weights and optimizer state
     drawn on the card (the optimizer must be ``opt``), the MoE poison
     share of the first batch, 1 warm-up step, ``TRAIN["timed"]`` steps
-    timed by the host clock ending in a sync, one profiled step; no
-    kernel of the port may launch."""
+    timed by the host clock ending in a sync, one profiled step, at
+    ``batch`` sequences of ``seq_len`` tokens (``TRAIN``'s by default);
+    no kernel of the port but the scans may launch (the caller checks
+    the scans'; the returned ``scans`` holds their launches over the
+    warm-up and timed steps)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
     from repro_torch.train.train_step import make_train_step
@@ -3652,9 +3927,11 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
     state = init(torch.Generator(device=dev).manual_seed(TRAIN["seed"]), dev)
     torch.cuda.synchronize()
     _weights_line(tag, cfg, state.params, t0, cut)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
-                                  global_batch=TRAIN["batch"]))
-    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    n_seq = batch or TRAIN["batch"]
+    seq_len = seq_len or TRAIN["seq_len"]
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                  global_batch=n_seq))
+    tokens = n_seq * seq_len
     n_params = sum(t.numel() for t in _flat(state.params))
     n_mult = _multiply_params(cfg, state.params)
     flop_ms = 8 * n_mult * tokens / BF16_FLOP_PER_S * 1e3
@@ -3664,6 +3941,7 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
                                                              dev))
     _reset()
     _reset_dense()
+    _reset_scans()
     losses, times = [], []
     for i in range(1 + TRAIN["timed"]):
         batch = _train_batch(cfg, data, i, dev)
@@ -3673,6 +3951,7 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
         losses.append(float(m["loss"]))  # waits for the step
         times.append(time.perf_counter() - t1)
     _no_kernel_launched(tag)
+    scans = (_scan_launches(), _scan_routes(), _scan_bwd_routes())
     peak = torch.cuda.max_memory_allocated()
     if not np.all(np.isfinite(losses)) or not (
             0.5 * np.log(cfg.vocab) < losses[0] < 2.5 * np.log(cfg.vocab)):
@@ -3680,8 +3959,8 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
     if int(state.step) != len(losses):
         fail(f"{tag}: step {int(state.step)} after {len(losses)} steps")
     step_ms = float(np.median(times[1:])) * 1e3
-    print(f"[{tag}] {opt_name}, dispatch={dispatch}, {TRAIN['batch']} x "
-          f"{TRAIN['seq_len']} tokens a step: step ms "
+    print(f"[{tag}] {opt_name}, dispatch={dispatch}, {n_seq} x "
+          f"{seq_len} tokens a step: step ms "
           + ", ".join(f"{t * 1e3:.1f}" for t in times[1:])
           + f" (median {step_ms:.1f}; warm-up {times[0] * 1e3:.1f}); "
           f"{tokens / step_ms * 1e3:.0f} tokens/s; losses "
@@ -3694,7 +3973,8 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
           f"{flop_ms / step_ms:.1%} of the median step); optimizer byte "
           f"bound {opt_ms:.2f} ms ({OPT_BYTES[opt_name]} bytes x "
           f"{n_params / 1e9:.3f}e9 parameters over 3.35 TB/s); no kernel "
-          f"of the port launched")
+          f"of the port launched"
+          + (" but the scans" if any(map(any, scans[0].values())) else ""))
     batch = _train_batch(cfg, data, len(losses), dev)
     prof = _train_profile(lambda: step_fn(state, batch))
     parts = prof["parts"]
@@ -3706,7 +3986,8 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None) -> dict:
               for p, k in parts.items()) + f" ({smi()})")
     return {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
             "losses": losses, "peak_bytes": peak, "flop_ms": flop_ms,
-            "opt_ms": opt_ms, "profile": prof}
+            "opt_ms": opt_ms, "profile": prof, "scans": scans,
+            "steps": len(losses)}
 
 
 def _train_poison(tag, model, params, batch) -> None:
@@ -3761,6 +4042,135 @@ def phase_train_moe() -> None:
                 f"one [attn, moe] group, {cfg.n_experts} experts "
                 f"top-{cfg.top_k}", "adafactor", opt_cfg=full)
     _free()
+
+
+#: [train-ssm]: RWKV-6-7B's layers kept, and the tokens of a step (2
+#: sequences of 1024: RWKV-6 trains at long contexts)
+TRAIN_SSM = dict(n_layers=8, batch=2, seq_len=1024)
+#: [train-ssm]'s second run: Jamba's smoke config in bf16, the sequences
+#: and tokens of a step
+TRAIN_SSM_JAMBA = dict(batch=2, seq_len=64)
+#: kernel-name fragments of the scans' chunked backward kernels
+SCAN_BWD_KERNELS = ("rwkv6_bound_kernel", "rwkv6_grad_kernel",
+                    "mamba_bound_kernel", "mamba_grad_kernel", "colsum_kernel")
+
+
+@contextlib.contextmanager
+def _no_plain_scans():
+    """The plain loops and plain chunked backward raise if called: a
+    CUDA path must never reach them."""
+    from repro_torch.kernels import ref
+    names = ("rwkv6_scan", "mamba_scan", "rwkv6_scan_bwd_chunked",
+             "mamba_scan_bwd_chunked")
+    saved = {n: getattr(ref, n) for n in names}
+
+    def refuse(*args, **kw):
+        fail("a CUDA tensor reached a plain scan")
+
+    for n in names:
+        setattr(ref, n, refuse)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ref, n, f)
+
+
+def _scan_bwd_ms(by_name: dict, fragments) -> float:
+    return sum(v for k, v in by_name.items()
+               if any(f in k for f in fragments))
+
+
+def phase_train_ssm() -> dict:
+    """RWKV-6-7B at its published width (d_model 4096, 64 heads of 64,
+    d_ff 14336, vocab 65536, bf16), n_layers 32 cut to 8, AdamW as
+    ``make_optimizer(get("rwkv6_7b"))`` picks for the whole model,
+    ``dispatch="spec"``, 2 sequences of 1024 tokens a step through
+    :func:`_train_full`: the scans' backward launched by the chunked
+    route once a layer a step, never by the step pair, and no plain loop
+    reached.  The profiled step's scan backward device time is the
+    kernels of both backward routes.  Then the Jamba smoke config in
+    bf16, 3 steps on the card: the Mamba backward by its chunk route
+    once a Mamba layer a step.  Returns the backward launches by route
+    of both runs."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import make_train_step
+    full = cbase.get("rwkv6_7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_SSM["n_layers"])
+    cut = (f"n_layers {full.n_layers} cut to {cfg.n_layers} "
+           f"({cbase.param_count(full)[0] / 1e9:.2f}e9 parameters whole "
+           f"need ~{12 * cbase.param_count(full)[0] / 1e9:.0f} GB of bf16 "
+           f"weights and gradients and float32 AdamW moments; "
+           f"{cbase.param_count(cfg)[0] / 1e9:.2f}e9 kept)")
+    print(f"[train-ssm] optimizer from make_optimizer(get('rwkv6_7b')): "
+          f"{cbase.param_count(full)[0] / 1e9:.2f}e9 parameters pick adamw; "
+          f"{cut}")
+    with _no_plain_scans():
+        res = _train_full("train-ssm", cfg, cut, "adamw",
+                          opt_cfg=full, batch=TRAIN_SSM["batch"],
+                          seq_len=TRAIN_SSM["seq_len"])
+    (launches, fwd, bwd), steps = res["scans"], res["steps"]
+    n = cfg.n_layers
+    want = {"rwkv6_scan": (2 * n * steps, n * steps)}
+    if launches != {**dict.fromkeys(launches, (0, 0)), **want} or \
+            bwd["rwkv6_scan"] != {"chunked": n * steps, "step": 0} or \
+            fwd["rwkv6_scan"]["chunked"] != 2 * n * steps:
+        fail(f"train-ssm: scan launches {launches}, forward by route {fwd}, "
+             f"backward by route {bwd}; want {want}, every forward chunked "
+             f"and every backward by the chunked route")
+    by_name = res["profile"]["by_name"]
+    bwd_ms = _scan_bwd_ms(by_name, SCAN_BWD_KERNELS)
+    fwd_ms = _scan_bwd_ms(by_name, ("rwkv6_chunk_kernel",))
+    print(f"[train-ssm] the scans in the profiled step: backward "
+          f"{bwd_ms:.3f} ms of device time by the chunked route "
+          f"({n} launches), "
+          f"forward {fwd_ms:.3f} ms (chunked route, {2 * n} launches with "
+          f"the checkpoint's recompute); over the {steps} steps the "
+          f"backward launched {bwd['rwkv6_scan']} by route and the forward "
+          f"{fwd['rwkv6_scan']}; no plain loop reached ({smi()})")
+    out = {"rwkv6_scan": dict(bwd["rwkv6_scan"]), "train": {
+        k: res[k] for k in ("step_ms", "tokens_s", "losses", "peak_bytes",
+                            "flop_ms")} | {"scan_bwd_ms": bwd_ms,
+                                           "scan_fwd_ms": fwd_ms}}
+    _free()
+    # the Mamba chunk backward on a training path: Jamba's smoke config in
+    # bf16 on the card
+    scfg = dataclasses.replace(cbase.smoke(cbase.get("jamba_1_5_large_398b")),
+                               dtype="bfloat16")
+    model = build_model(scfg, "spec")
+    init, step_fn, name = make_train_step(model, peak_lr=1e-3, warmup=1,
+                                          total=10)
+    state = init(torch.Generator(device="cuda").manual_seed(11), "cuda")
+    data = SyntheticLM(DataConfig(vocab=scfg.vocab,
+                                  seq_len=TRAIN_SSM_JAMBA["seq_len"],
+                                  global_batch=TRAIN_SSM_JAMBA["batch"]))
+    n_mamba = _n_sublayers(state.params, "mamba")
+    _reset_scans()
+    losses = []
+    with _no_plain_scans():
+        for i in range(3):
+            state, m = step_fn(state, _train_batch(scfg, data, i, "cuda"))
+            losses.append(float(m["loss"]))
+    _check_scans("train-ssm jamba smoke", {
+        "mamba_scan": (2 * 3 * n_mamba, 3 * n_mamba)},
+        {"mamba_scan": {"chunk": 2 * 3 * n_mamba}},
+        {"mamba_scan": {"chunk": 3 * n_mamba}})
+    lv = np.log(scfg.vocab)
+    if not np.all(np.isfinite(losses)) or not 0.5 * lv < losses[0] < 2.5 * lv:
+        fail(f"train-ssm jamba smoke: losses {losses}")
+    print(f"[train-ssm] {scfg.name} smoke config in bf16 ({name}), 3 steps "
+          f"on the card: losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"(log vocab {lv:.4f}); the Mamba scan launched "
+          f"{2 * 3 * n_mamba} forward by the chunk route and "
+          f"{3 * n_mamba} backward by the chunk route")
+    out["mamba_scan"] = dict(_scan_bwd_routes()["mamba_scan"])
+    _reset_scans()
+    del state, model
+    _free()
+    return out
 
 
 def phase_train_ckpt() -> None:
@@ -3845,17 +4255,30 @@ def main() -> None:
             rec["jamba"] = hybrid[rec["name"]]
     phase_cross()
     train = phase_train_small()
+    phase_train_dense()
+    phase_train_moe()
+    ssm_train = phase_train_ssm()
     # the scans' launches by route on their main paths: the bf16 forward
-    # routes in one served wave ([ssm], [hybrid]), the float32 step routes
-    # and the backward kernels in [train-small]
+    # routes in one served wave ([ssm], [hybrid]); the float32 step routes,
+    # forward and backward, in [train-small]; the chunked backward routes
+    # in [train-ssm] (RWKV-6-7B at full width; Jamba's smoke config in
+    # bf16)
     small = "[train-small] smoke configs (float32), 3 steps"
     served = {"rwkv6_scan": (ssm, "[ssm] RWKV-6-7B wave"),
               "mamba_scan": (hybrid["mamba_scan"], "[hybrid] Jamba wave")}
+    trained = {"rwkv6_scan": f"[train-ssm] RWKV-6-7B, {TRAIN_SSM['n_layers']} "
+                             f"layers at full width, bf16",
+               "mamba_scan": "[train-ssm] Jamba smoke config, bf16, 3 steps"}
     for rec in scans:
         name, route = rec["scan"], rec["scan_route"]
         wave, where = served[name]
-        if route == "bwd":
+        if route == "bwd_step":
             rec["launches"], rec["main_path"] = train["bwd"][name], small
+        elif route.startswith("bwd_"):
+            rec["launches"] = ssm_train[name][route.removeprefix("bwd_")]
+            rec["main_path"] = trained[name]
+            if name == "rwkv6_scan":
+                rec["train_ssm"] = ssm_train["train"]
         elif wave["routes"].get(route):
             rec["launches"], rec["main_path"] = wave["routes"][route], where
             rec["tokens_vs_plain"] = wave["tokens"]
@@ -3864,8 +4287,6 @@ def main() -> None:
             rec["main_path"] = small
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its main path")
-    phase_train_dense()
-    phase_train_moe()
     phase_train_ckpt()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

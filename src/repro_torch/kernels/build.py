@@ -96,6 +96,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "rwkv6_chunk_sm90": {
         "rwkv6_scan_chunked_bf16": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,),
     },
+    # r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du, ds0; B, T, H, hd;
+    # stream
+    "rwkv6_chunk_bwd_sm90": {
+        "rwkv6_scan_bwd_chunked_bf16": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,),
+    },
     "mamba_scan": {
         # u, delta, B, C, a, s0, y, s_out; batch, T, D, N; stream
         **{f"mamba_scan_fwd_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
@@ -108,6 +113,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # batch, T, D, N; stream
         **{f"mamba_scan_bwd_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
            for t in ("f32", "bf16")},
+        # u, delta, B, C, a, s0, dy, ds, ws, du, sums (dB, dC, ddelta), da,
+        # ds0; batch, T, D, N; stream
+        "mamba_scan_bwd_chunk_bf16": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,),
     },
 }
 

@@ -60,109 +60,12 @@
 // 4 hd^2 + 4 C hd = 20,480 operations a (token, head), 5.37 GFLOP, 10.9 us
 // at 495 TFLOP/s (TF32): the bytes bound it.  B * H blocks of 128 threads
 // (512 at prefill), four resident on an SM (47.6 KB of shared memory each).
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "rwkv6_chunk.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr int kC = 16;         // tokens a chunk
 constexpr int kThreads = 128;  // four warps
 constexpr int kStages = 2;     // cp.async ring of chunk tiles
-
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
-
-// bf16 bits as float32 bits: exact, so exact in tf32 as well
-__device__ __forceinline__ uint32_t bf_bits(bf16 x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
-}
-
-// x as a pair of tf32 operands, hi + lo: hi is x with its low 13 mantissa
-// bits cut, lo = x - hi exactly, and the tensor core reads lo to tf32
-// precision, so hi + lo is x to 2**-20.  Two instructions, where each
-// cvt.rna.tf32 is four.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// D += A B, m16n8k8, A row-major (16 x 8), B column-major (8 x 8), TF32
-// operands, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// N channels of one staged bf16 row as float32
-template <int N>
-__device__ __forceinline__ void ld_row(float (&out)[N], const bf16* p) {
-  if constexpr (N == 1) {
-    out[0] = bf(p[0]);
-  } else {
-#pragma unroll
-    for (int x = 0; x < N; x += 2) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + x));
-      out[x] = f.x;
-      out[x + 1] = f.y;
-    }
-  }
-}
-
-// c ? a : b as one selp, so that the compiler cannot turn a choice
-// between two elements of a register array into an indexed load from
-// local memory
-__device__ __forceinline__ float sel(bool c, float a, float b) {
-  float out;
-  asm("{\n .reg .pred p;\n setp.ne.u32 p, %1, 0;\n"
-      " selp.f32 %0, %2, %3, p;\n}"
-      : "=f"(out) : "r"(static_cast<uint32_t>(c)), "f"(a), "f"(b));
-  return out;
-}
-
-// One level of the butterfly below: lanes that differ in lane bit M trade
-// halves p[0..M) and p[M..2M) and keep the sum of theirs
-template <int V, int M>
-__device__ __forceinline__ void reduce_level(float (&p)[V], int lane) {
-  const bool hi = lane & M;
-#pragma unroll
-  for (int q = 0; q < M; ++q) {
-    const float send = sel(hi, p[q], p[q + M]);
-    const float keep = sel(hi, p[q + M], p[q]);
-    p[q] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-  }
-  if constexpr (M > 1) reduce_level<V, M / 2>(p, lane);
-}
-
-// Sum V values p[0..V) over the lanes that differ in the low log2(V) lane
-// bits (a butterfly reduce-scatter): the result is the sum of index
-// lane % V.  V - 1 shuffles.  Each level is its own instance, so every
-// index is a constant and p stays in registers.
-template <int V>
-__device__ __forceinline__ float reduce_scatter(float (&p)[V], int lane) {
-  reduce_level<V, V / 2>(p, lane);
-  return p[0];
-}
 
 template <int HD>
 struct Tiles {
@@ -188,7 +91,6 @@ rwkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   constexpr int kNT = HD / 8;               // 8-column tiles of S and y
   constexpr int kYW = kNT < 4 ? kNT : 4;    // warps that compute y
   constexpr int kYT = kNT / kYW;            // y's column tiles a warp
-  constexpr int kCH = HD / 16;              // channels a thread in (c)
   constexpr int kV = HD / 8;                // 16-byte vectors a row
   static_assert(kMT * 32 <= kThreads && kYW * kYT == kNT &&
                     4 * kC * kV % kThreads == 0, "tiling");
@@ -278,66 +180,8 @@ rwkv6_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       }
     }
 
-    // (c) the scores, float32: tokens ta = tq and tb = 15 - tq, channels
-    // [cg * kCH, cg * kCH + kCH)
-    {
-      const int tq = tid >> 4, cg = tid & 15;
-      const int ta = tq, tb = kC - 1 - tq;
-      const int i0 = cg * kCH;
-      float pa[kC / 2], pb[kC];
-#pragma unroll
-      for (int x = 0; x < kC; ++x) {
-        pb[x] = 0.f;
-        if (x < kC / 2) pa[x] = 0.f;
-      }
-      float ra[kCH], rb[kCH], ka[kCH], kb[kCH], da[kCH], db[kCH];
-      ld_row(ra, &in_r[ta][i0]);
-      ld_row(rb, &in_r[tb][i0]);
-      ld_row(ka, &in_k[ta][i0]);
-      ld_row(kb, &in_k[tb][i0]);
-      float bonus_a = 0.f, bonus_b = 0.f;
-#pragma unroll
-      for (int x = 0; x < kCH; ++x) {
-        const float ui = sm.u[i0 + x];
-        bonus_a = fmaf(ra[x] * ui, ka[x], bonus_a);
-        bonus_b = fmaf(rb[x] * ui, kb[x], bonus_b);
-        da[x] = db[x] = 1.f;
-      }
-      // s walks down from t - 1: the factor of s is prod_{s < tau < t}
-#pragma unroll
-      for (int s = kC - 2; s >= 0; --s) {
-        float ks[kCH], ws[kCH];
-        ld_row(ks, &in_k[s][i0]);
-        ld_row(ws, &in_w[s][i0]);
-        if (s < tb) {
-#pragma unroll
-          for (int x = 0; x < kCH; ++x) {
-            pb[s] = fmaf(rb[x] * ks[x], db[x], pb[s]);
-            db[x] *= ws[x];
-          }
-        }
-        if (s < kC / 2 - 1 && s < ta) {
-#pragma unroll
-          for (int x = 0; x < kCH; ++x) {
-            pa[s] = fmaf(ra[x] * ks[x], da[x], pa[s]);
-            da[x] *= ws[x];
-          }
-        }
-      }
-      const float sb = reduce_scatter<kC>(pb, lane);
-      float sa = reduce_scatter<kC / 2>(pa, lane);
-      sa += __shfl_xor_sync(0xffffffffu, sa, kC / 2);
-      // the bonuses sum over the group's 16 lanes and join the diagonal in
-      // the lane of its column (a register array indexed by ta or tb
-      // would live in local memory)
-#pragma unroll
-      for (int m = kC / 2; m >= 1; m /= 2) {
-        bonus_a += __shfl_xor_sync(0xffffffffu, bonus_a, m);
-        bonus_b += __shfl_xor_sync(0xffffffffu, bonus_b, m);
-      }
-      sm.sc[tb][cg] = cg == tb ? sb + bonus_b : sb;
-      sm.sc[ta][cg] = cg == ta ? sa + bonus_a : cg < kC / 2 ? sa : 0.f;
-    }
+    // (c) the scores, float32
+    chunk_scores<HD, kP>(in_r, in_k, in_w, sm.u, sm.sc, tid);
     __syncthreads();
 
     // (d) the state update: S <- diag(P) S + kd^T V

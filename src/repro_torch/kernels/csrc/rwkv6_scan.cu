@@ -55,6 +55,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scan.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -72,25 +74,6 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) {
 // a float32 value rounded to T and widened again
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-// Sum V values p[0..V) over the lanes that differ in the low log2(V) lane
-// bits (a butterfly reduce-scatter): the result is the sum of index
-// lane % V.  V - 1 shuffles.
-template <int V>
-__device__ __forceinline__ float reduce_scatter(float (&p)[V], int lane,
-                                                unsigned mask) {
-#pragma unroll
-  for (int m = V / 2; m >= 1; m /= 2) {
-    const bool hi = lane & m;
-#pragma unroll
-    for (int q = 0; q < m; ++q) {
-      const float send = hi ? p[q] : p[q + m];
-      const float keep = hi ? p[q + m] : p[q];
-      p[q] = keep + __shfl_xor_sync(mask, send, m);
-    }
-  }
-  return p[0];
-}
 
 // OUT: write y and the last state; SAVE: write S_{t-1} of every step
 // into ws (B, H, T, hd, hd)

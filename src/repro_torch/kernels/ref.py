@@ -233,3 +233,203 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = decay[..., None] * s + torch.einsum("bshi,bshj->bhij",
                                                 kc * post, vc)
     return s, torch.cat(outs, dim=1).to(dtype)
+
+
+def _suffix_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """Products of ``x`` over dim 1 after each position (1 at the last)."""
+    return _excl_cumprod(x.flip(1)).flip(1)
+
+
+def _chunk_update(st: torch.Tensor, a: torch.Tensor, vv: torch.Tensor,
+                  wc: torch.Tensor, suffix: bool) -> torch.Tensor:
+    """One chunk of an RWKV-6 boundary pass: ``diag(Π w) st + (a ⊙ d)ᵀ
+    vv`` with d the products of w after each token (``suffix``: the
+    state, forward) or before it (the cotangent, backward).  a, vv, wc:
+    (B, C, H, hd) float32; st: (B, H, hd, hd)."""
+    dec = _suffix_cumprod(wc) if suffix else _excl_cumprod(wc)
+    total = torch.prod(wc, dim=1)                                # (B, H, hd)
+    return total[..., None] * st + torch.einsum("bshi,bshj->bhij", a * dec,
+                                                vv)
+
+
+def _pair_decays(wc: torch.Tensor) -> torch.Tensor:
+    """``D[s, t] = Π_{s<τ<t} w_τ`` for s < t, 0 elsewhere, per channel,
+    each a direct product: wc (B, H, C, hd) -> (B, H, C, C, hd)."""
+    n = wc.shape[2]
+    d = wc.new_zeros(wc.shape[:2] + (n, n) + wc.shape[3:])
+    for t in range(1, n):
+        d[:, :, :t - 1, t] = d[:, :, :t - 1, t - 1] * wc[:, :, t - 1, None]
+        d[:, :, t - 1, t] = 1.0
+    return d
+
+
+def rwkv6_scan_bwd_chunked(r, k, v, w, u, s, ds, dy, chunk: int = 16,
+                           unit: int = 64):
+    """The gradients of :func:`rwkv6_scan` by the chunked backward's
+    passes, in float32: the algorithm of ``csrc/rwkv6_chunk_bwd_sm90.cu``
+    (``chunk = 16``, ``unit = 64``), for tests; the kernels' wrappers
+    never call it.  ``ds`` (the last state's cotangent, or None) and
+    ``dy`` (y's) given, returns the gradients of r, k, v, w (r's dtype),
+    u (u's dtype) and s (float32), as the step kernels' backward does,
+    with the forward's roundings taken as the identity.
+
+    1. The state entering every ``unit`` tokens, chunk by chunk forward:
+       ``S <- diag(Π w) S + (k ⊙ Π_{τ>s} w)ᵀ v``.
+    2. The state's cotangent leaving every unit, chunk by chunk backward:
+       ``G <- diag(Π w) G + (r ⊙ Π_{τ<s} w)ᵀ dy`` (the kernel's step
+       ``G_{t-1} = diag(w_t) G_t + r_tᵀ dy_t`` over a chunk); the last
+       one is the first state's gradient.
+    3. Each unit alone, its chunks from the last: the state entering the
+       chunk recomputed from the unit's (S), the cotangent leaving it
+       carried (G), and with ``p``, ``q`` the products of w before and
+       after each token and ``D[s, t]`` those strictly between:
+
+       dr_t = p_t (S dy_t) + Σ_{s<t} D[s,t] k_s (v_s·dy_t) + u k_t (v_t·dy_t)
+       dk_t = q_t (G v_t) + Σ_{s>t} D[t,s] r_s (v_t·dy_s) + u r_t (v_t·dy_t)
+       dv_t = (k_t q_t) G + Σ_{s>t} score[s,t] dy_s + bonus_t dy_t
+       du   = Σ_t r_t k_t (v_t·dy_t)
+
+       and dw_t = Σ_j G_t[i,j] S_{t-1}[i,j] on the states inside the
+       chunk, written through the Gram products of the vectors those
+       states are made of (S and G rows, v, dy), never through a
+       quotient or a log of w: ``p q (S∘G)1 + q Σ_{s<t} D k (G v_s) + p
+       Σ_{s>t} D r (S dy_s) + Σ_{s'<t<s} D[s',t] D[t,s] k_{s'} r_s
+       (v_{s'}·dy_s)``.
+    """
+    if unit % chunk:
+        raise ValueError(f"unit {unit} is not a multiple of chunk {chunk}")
+    dtype, udtype = r.dtype, u.dtype
+    b, t, h, hd = r.shape
+    r, k, v, w, dy = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()[None, :, None, :]                     # (1, H, 1, hd)
+    n_u = -(-t // unit)
+    pad = n_u * unit - t
+    if pad:
+        r, k, v, dy = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                       for x in (r, k, v, dy))
+        w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    per = unit // chunk
+    n_c = n_u * per
+    at = [(x[:, c * chunk:(c + 1) * chunk]) for x in (r, k, v, w, dy)
+          for c in range(n_c)]
+    rc, kc, vc, wc, dyc = (at[i * n_c:(i + 1) * n_c] for i in range(5))
+    # 1. the state entering each unit
+    enter, st = [], s.float()
+    for c in range(n_c):
+        if c % per == 0:
+            enter.append(st)
+        st = _chunk_update(st, kc[c], vc[c], wc[c], suffix=True)
+    # 2. the cotangent leaving each unit
+    leave = [None] * n_u
+    g = torch.zeros_like(s, dtype=torch.float32) if ds is None else \
+        ds.float()
+    for c in reversed(range(n_c)):
+        if c % per == per - 1:
+            leave[c // per] = g
+        g = _chunk_update(g, rc[c], dyc[c], wc[c], suffix=False)
+    ds0 = g
+    # 3. each unit, its chunks from the last
+    grads = {n: [None] * n_c for n in ("r", "k", "v", "w")}
+    du = torch.zeros(h, hd, dtype=torch.float32, device=r.device)
+    for n in range(n_u):
+        gc = leave[n]
+        for j in reversed(range(per)):
+            c = n * per + j
+            sc = enter[n]
+            for i in range(n * per, c):
+                sc = _chunk_update(sc, kc[i], vc[i], wc[i], suffix=True)
+            rt, kt, vt, wt, dyt = (x[c].transpose(1, 2) for x in
+                                   (rc, kc, vc, wc, dyc))  # (B, H, C, hd)
+            p, q = _excl_cumprod(wt.transpose(1, 2)).transpose(1, 2), \
+                _suffix_cumprod(wt.transpose(1, 2)).transpose(1, 2)
+            dm = _pair_decays(wt)                           # (B,H,s,t,hd)
+            ds_ = torch.einsum("bhtj,bhij->bhti", dyt, sc)  # S dy_t
+            gv = torch.einsum("bhtj,bhij->bhti", vt, gc)    # G v_t
+            kg = torch.einsum("bhti,bhij->bhtj", kt * q, gc)
+            vdy = torch.einsum("bhsj,bhtj->bhst", vt, dyt)  # v_s · dy_t
+            diag = torch.diagonal(vdy, dim1=-2, dim2=-1)[..., None]
+            sg = (sc * gc).sum(-1)[:, :, None, :]           # (S∘G)1
+            grads["r"][c] = (p * ds_ + torch.einsum(
+                "bhsti,bhsi,bhst->bhti", dm, kt, vdy) + uf * kt * diag)
+            grads["k"][c] = (q * gv + torch.einsum(
+                "bhtsi,bhsi,bhts->bhti", dm, rt, vdy) + uf * rt * diag)
+            score = torch.einsum("bhti,bhsi,bhsti->bhts", rt, kt, dm)
+            bonus = (rt * uf * kt).sum(-1)
+            score = score + torch.diag_embed(bonus)
+            grads["v"][c] = kg + torch.einsum("bhst,bhsj->bhtj", score, dyt)
+            grads["w"][c] = (
+                p * q * sg
+                + q * torch.einsum("bhsti,bhsi->bhti", dm, kt * gv)
+                + p * torch.einsum("bhtsi,bhsi->bhti", dm, rt * ds_)
+                + torch.einsum("bhati,bhtci,bhai,bhci,bhac->bhti", dm, dm,
+                               kt, rt, vdy))
+            du += (rt * kt * diag).sum((0, 2))
+            gc = _chunk_update(gc, rc[c], dyc[c], wc[c], suffix=False)
+    out = [torch.cat(grads[n], dim=2).transpose(1, 2)[:, :t].to(dtype)
+           for n in ("r", "k", "v", "w")]
+    return (*out, du.to(udtype), ds0)
+
+
+def mamba_scan_bwd_chunked(u, delta, bmat, cmat, a, s, ds, dy,
+                           unit: int = 64):
+    """The gradients of :func:`mamba_scan` by the chunked backward's
+    passes, in float32: the algorithm of the ``chunk`` backward route in
+    ``csrc/mamba_scan.cu`` (``unit = 64``), for tests; the kernels'
+    wrappers never call it.  Its arithmetic is the ``chunk`` forward
+    route's: Δ·u and the read-out's state unrounded, so the forward's
+    roundings are taken as the identity.  Returns the gradients of u,
+    delta, bmat, cmat (their dtypes), a and s (float32).
+
+    1. The state entering every ``unit`` steps, step by step forward.
+    2. The state's cotangent leaving every unit, step by step backward
+       (``h <- exp(Δ_t a) (h + dy_t C_t)``); the last one is the first
+       state's gradient.
+    3. Each unit alone: its states recomputed from the one entering it,
+       then walked back from the cotangent leaving it, as the step
+       kernels' backward walks (the sums over channels of dB, dC and
+       ddelta, and da's over time and the batch, taken per unit).
+    """
+    b, t, d = u.shape
+    uf, dl, bm, cm, dyf = (x.float() for x in (u, delta, bmat, cmat, dy))
+    x = dl * uf                                          # (B, T, D)
+    e = torch.exp(dl[..., None] * a[None, None])         # (B, T, D, N)
+    n_u = -(-t // unit)
+    enter, st = [], s.float()
+    for i in range(t):
+        if i % unit == 0:
+            enter.append(st)
+        st = e[:, i] * st + x[:, i, :, None] * bm[:, i, None, :]
+    leave = [None] * n_u
+    g = torch.zeros_like(s, dtype=torch.float32) if ds is None else \
+        ds.float()
+    for i in reversed(range(t)):
+        if i == t - 1 or i % unit == unit - 1:
+            leave[i // unit] = g
+        g = e[:, i] * (g + dyf[:, i, :, None] * cm[:, i, None, :])
+    ds0 = g
+    du = torch.zeros_like(uf)
+    ddelta = torch.zeros_like(dl)
+    dbm, dcm = torch.zeros_like(bm), torch.zeros_like(cm)
+    da = torch.zeros_like(a, dtype=torch.float32)
+    for n in range(n_u):
+        t0, t1 = n * unit, min((n + 1) * unit, t)
+        prev, st = [], enter[n]
+        for i in range(t0, t1):
+            prev.append(st)
+            st = e[:, i] * st + x[:, i, :, None] * bm[:, i, None, :]
+        hc = leave[n]
+        for i in reversed(range(t0, t1)):
+            sp = prev[i - t0]
+            s_t = e[:, i] * sp + x[:, i, :, None] * bm[:, i, None, :]
+            hc = hc + dyf[:, i, :, None] * cm[:, i, None, :]
+            dcm[:, i] = (dyf[:, i, :, None] * s_t).sum(1)
+            dx = (hc * bm[:, i, None, :]).sum(-1)                # (B, D)
+            dbm[:, i] = (hc * x[:, i, :, None]).sum(1)
+            gg = hc * sp * e[:, i]
+            da += (gg * dl[:, i, :, None]).sum(0)
+            ddelta[:, i, 0] = ((gg * a[None]).sum((1, 2))
+                               + (dx * uf[:, i]).sum(1))
+            du[:, i] = dx * dl[:, i]
+            hc = hc * e[:, i]
+    return (du.to(u.dtype), ddelta.to(delta.dtype), dbm.to(bmat.dtype),
+            dcm.to(cmat.dtype), da, ds0)

@@ -7,12 +7,11 @@ into one loop on the device; no Pallas kernel computes them.  Here each
 is a pair of hand-written kernels behind a ``torch.autograd.Function``:
 ``csrc/rwkv6_scan.cu`` (a block per (batch, head), the hd x hd float32
 state a column a thread) and ``csrc/mamba_scan.cu`` (a thread per (batch,
-channel), the N float32 state values in registers).  Each backward runs
-the forward again into a float32 workspace of every step's state, then
-walks time backward; it gives the gradients of all six inputs, the first
-state included, and takes the last state's cotangent (decode chains
-carry the state).  Unlike the five Pallas sites' entries, these take a
-gradient, as the reference's scan does.
+channel), the N float32 state values in registers).  Each backward gives
+the gradients of all six inputs, the first state included, and takes the
+last state's cotangent (decode chains carry the state).  Unlike the five
+Pallas sites' entries, these take a gradient, as the reference's scan
+does.
 
 Each forward has more than one route, picked by :func:`rwkv6_plan` and
 :func:`mamba_plan` from the dtype, T and the tensors' alignment:
@@ -32,14 +31,26 @@ Each forward has more than one route, picked by :func:`rwkv6_plan` and
 The ``chunked`` and ``chunk`` routes round otherwise than the loops (the
 loops round as the reference's step does), so they are held to the loop
 run in float32 on the same bfloat16 values: no further from it than the
-bfloat16 loop is.  The backward is the same for every route: the step
-kernels' pair (the forward's states recomputed step by step, then the
-walk back), so its gradient is the loop's.
+bfloat16 loop is.
+
+Each backward has two routes, picked by :func:`rwkv6_bwd_plan` and
+:func:`mamba_bwd_plan`: the inputs the forward's ``chunked`` (``chunk``)
+route takes go by a ``chunked`` (``chunk``) backward, parallel in T
+(``csrc/rwkv6_chunk_bwd_sm90.cu``; ``mamba_scan_bwd_chunk_bf16`` in
+``csrc/mamba_scan.cu``): one pass keeps the state entering and the
+cotangent leaving every :data:`BWD_UNIT` tokens, then every (batch, head
+or channel block, unit) recomputes its states and emits its gradients
+(plain versions: ``ref.rwkv6_scan_bwd_chunked``,
+``ref.mamba_scan_bwd_chunked``).  The rest (float32, T = 1, unaligned
+tensors) go by the ``step`` pair (the forward's states recomputed step by
+step into a workspace, then the walk back), whose gradient is the
+loop's.  Every entry of each pair stays callable alone, for timing.
 
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
 loops of :mod:`repro_torch.kernels.ref`, and autograd differentiates
 them.  ``<fn>.launches`` counts forward launches (by route in
-``<fn>.route_launches``), ``<fn>.bwd_launches`` backward ones.
+``<fn>.route_launches``), ``<fn>.bwd_launches`` backward ones (by route
+in ``<fn>.bwd_route_launches``).
 """
 from __future__ import annotations
 
@@ -56,8 +67,17 @@ STATE_DIMS = (16,)
 #: the forward routes of each scan
 RWKV6_ROUTES = ("chunked", "step")
 MAMBA_ROUTES = ("decode", "chunk", "step")
+#: the backward routes of each scan
+RWKV6_BWD_ROUTES = ("chunked", "step")
+MAMBA_BWD_ROUTES = ("chunk", "step")
 #: the shortest T that the RWKV-6 chunked route takes
 CHUNKED_MIN_T = 2
+#: tokens between the states (and cotangents) that the chunked backward
+#: routes keep: ``kUnit`` of ``csrc/rwkv6_chunk_bwd_sm90.cu`` and
+#: ``kUnitM`` of ``csrc/mamba_scan.cu``
+BWD_UNIT = 64
+#: channels a block of the Mamba chunk backward sums over (``kBlkCh``)
+MAMBA_BWD_BLOCK = 256
 
 
 def _check(name: str, acts, f32s, shapes) -> None:
@@ -112,6 +132,28 @@ def mamba_plan(u, delta, bmat, cmat, a, s) -> str:
         return "decode" if all(aligned16(t) for t in vectors) else "step"
     if (u.dtype == torch.bfloat16 and u.shape[2] % 8 == 0
             and all(aligned16(t) for t in vectors + [u])):
+        return "chunk"
+    return "step"
+
+
+def rwkv6_bwd_plan(r, k, v, w, u, s, ds, dy) -> str:
+    """The backward route of a checked RWKV-6 call, given the cotangents
+    of the last state (or None) and of y as the backward takes them:
+    ``"chunked"`` where the forward's plan is ``"chunked"`` and dy and ds
+    are 16-byte aligned too (the kernels load 16-byte vectors of every
+    activation and of both states), else ``"step"``."""
+    if (rwkv6_plan(r, k, v, w, u, s) == "chunked" and aligned16(dy)
+            and (ds is None or aligned16(ds))):
+        return "chunked"
+    return "step"
+
+
+def mamba_bwd_plan(u, delta, bmat, cmat, a, s, ds, dy) -> str:
+    """The backward route of a checked Mamba call, given the cotangents
+    as the backward takes them: ``"chunk"`` where the forward's plan is
+    ``"chunk"`` (bfloat16 prefill, D a multiple of 8, aligned) and dy is
+    16-byte aligned too, else ``"step"``."""
+    if mamba_plan(u, delta, bmat, cmat, a, s) == "chunk" and aligned16(dy):
         return "chunk"
     return "step"
 
@@ -188,10 +230,19 @@ _RWKV6_FWD = {"chunked": rwkv6_chunked_fwd, "step": rwkv6_scan_fwd}
 
 
 def rwkv6_scan_bwd(r, k, v, w, u, s0, ds, dy):
-    """One launch of the backward entry on checked CUDA tensors, given
-    the cotangents of the last state (or None) and of y: the gradients of
-    r, k, v, w, u and s0.  The workspace holds every step's state before
-    its update, float32: B * H * T * hd * hd * 4 bytes."""
+    """The backward on checked CUDA tensors by the route
+    :func:`rwkv6_bwd_plan` picks, given the cotangents of the last state
+    (or None) and of y: the gradients of r, k, v, w, u and s0."""
+    dy = _grad(dy, r)
+    ds = None if ds is None else _grad(ds, s0)
+    route = rwkv6_bwd_plan(r, k, v, w, u, s0, ds, dy)
+    return _RWKV6_BWD[route](r, k, v, w, u, s0, ds, dy)
+
+
+def rwkv6_step_bwd(r, k, v, w, u, s0, ds, dy):
+    """One launch of the step route's backward entry (either dtype, any
+    T): its workspace holds every step's state before its update,
+    float32: B * H * T * hd * hd * 4 bytes."""
     b, t, h, hd = r.shape
     dy = _grad(dy, r)
     ds = None if ds is None else _grad(ds, s0)
@@ -206,9 +257,49 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, ds, dy):
                  ws.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), b, t, h, hd,
                  stream_of(r))
-    check(err, "rwkv6_scan backward")
-    rwkv6_scan.bwd_launches += 1
+    check(err, "rwkv6_scan backward (step)")
+    _count_bwd(rwkv6_scan, "step")
     return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
+def rwkv6_chunked_bwd(r, k, v, w, u, s0, ds, dy):
+    """One launch of the chunked route's backward entry
+    (``csrc/rwkv6_chunk_bwd_sm90.cu``) on checked bfloat16 CUDA tensors,
+    16-byte aligned: the state entering and the cotangent leaving every
+    :data:`BWD_UNIT` tokens, float32, and du's partial sums are its
+    workspace: (2 * B * H * hd * hd + B * H * hd) * ceil(T / 64) * 4
+    bytes."""
+    if r.dtype != torch.bfloat16:
+        raise TypeError(f"rwkv6_scan chunked backward: bfloat16 only, got "
+                        f"{r.dtype}")
+    b, t, h, hd = r.shape
+    dy = _grad(dy, r)
+    ds = None if ds is None else _grad(ds, s0)
+    n_u = -(-t // BWD_UNIT)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    ds0 = torch.empty_like(s0)
+    ws = torch.empty(n_u * b * h * hd * (2 * hd + 1), dtype=torch.float32,
+                     device=r.device)
+    fn = load("rwkv6_chunk_bwd_sm90").rwkv6_scan_bwd_chunked_bf16
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _ptr(ds),
+                 ws.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), b, t, h, hd,
+                 stream_of(r))
+    check(err, "rwkv6_scan backward (chunked)")
+    _count_bwd(rwkv6_scan, "chunked")
+    return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
+#: each backward route's one launch
+_RWKV6_BWD = {"chunked": rwkv6_chunked_bwd, "step": rwkv6_step_bwd}
+
+
+def _count_bwd(fn, route: str) -> None:
+    fn.bwd_launches += 1
+    fn.bwd_route_launches[route] += 1
 
 
 class _RWKV6Scan(torch.autograd.Function):
@@ -228,10 +319,12 @@ class _RWKV6Scan(torch.autograd.Function):
 
 
 #: forward and backward kernel launches since the counts were last set
-#: to 0, and the forward launches by route (:data:`RWKV6_ROUTES`)
+#: to 0, and the launches by route (:data:`RWKV6_ROUTES`,
+#: :data:`RWKV6_BWD_ROUTES`)
 rwkv6_scan.launches = 0
 rwkv6_scan.bwd_launches = 0
 rwkv6_scan.route_launches = dict.fromkeys(RWKV6_ROUTES, 0)
+rwkv6_scan.bwd_route_launches = dict.fromkeys(RWKV6_BWD_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -320,10 +413,20 @@ _MAMBA_FWD = {"decode": mamba_decode_fwd, "chunk": mamba_chunk_fwd,
 
 
 def mamba_scan_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
-    """One launch of the backward entry on checked CUDA tensors, given
-    the cotangents of the last state (or None) and of y: the gradients of
-    u, delta, bmat, cmat, a and s0.  The workspace holds every step's
-    state after its update, float32: B * T * D * N * 4 bytes."""
+    """The backward on checked CUDA tensors by the route
+    :func:`mamba_bwd_plan` picks, given the cotangents of the last state
+    (or None) and of y: the gradients of u, delta, bmat, cmat, a and
+    s0."""
+    dy = _grad(dy, u)
+    ds = None if ds is None else _grad(ds, s0)
+    route = mamba_bwd_plan(u, delta, bmat, cmat, a, s0, ds, dy)
+    return _MAMBA_BWD[route](u, delta, bmat, cmat, a, s0, ds, dy)
+
+
+def mamba_step_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
+    """One launch of the step route's backward entry (either dtype, any
+    T): its workspace holds every step's state after its update,
+    float32: B * T * D * N * 4 bytes."""
     b, t, d = u.shape
     n = bmat.shape[2]
     dy = _grad(dy, u)
@@ -344,10 +447,51 @@ def mamba_scan_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
                  _ptr(ds), ws.data_ptr(), du.data_ptr(), ddelta.data_ptr(),
                  dbmat.data_ptr(), dcmat.data_ptr(), da.data_ptr(),
                  ds0.data_ptr(), b, t, d, n, stream_of(u))
-    check(err, "mamba_scan backward")
-    mamba_scan.bwd_launches += 1
+    check(err, "mamba_scan backward (step)")
+    _count_bwd(mamba_scan, "step")
     return (du, ddelta.to(delta.dtype), dbmat.to(bmat.dtype),
             dcmat.to(cmat.dtype), da, ds0)
+
+
+def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
+    """One launch of the chunk route's backward entry
+    (``mamba_scan_bwd_chunk_bf16`` in ``csrc/mamba_scan.cu``) on checked
+    bfloat16 CUDA tensors, D a multiple of 8, 16-byte aligned.  Its
+    workspace, float32: the state entering and the cotangent leaving
+    every :data:`BWD_UNIT` steps and da's partial sums over each unit (3 *
+    B * ceil(T / 64) * D * N), and the partial sums of dB, dC and ddelta
+    over each block of :data:`MAMBA_BWD_BLOCK` channels (ceil(D / 256) *
+    B * T * (2N + 1)); every sum is reduced in a fixed order."""
+    if u.dtype != torch.bfloat16:
+        raise TypeError(f"mamba_scan chunk backward: bfloat16 only, got "
+                        f"{u.dtype}")
+    b, t, d = u.shape
+    n = bmat.shape[2]
+    dy = _grad(dy, u)
+    ds = None if ds is None else _grad(ds, s0)
+    n_u = -(-t // BWD_UNIT)
+    n_blk = -(-d // MAMBA_BWD_BLOCK)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.empty_like(u)
+    sums = torch.empty((b, t, 2 * n + 1), **f32)   # dB, dC, ddelta
+    da = torch.empty((d, n), **f32)
+    ds0 = torch.empty_like(s0)
+    ws = torch.empty(3 * b * n_u * d * n + n_blk * b * t * (2 * n + 1), **f32)
+    fn = load("mamba_scan").mamba_scan_bwd_chunk_bf16
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
+                 cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), dy.data_ptr(),
+                 _ptr(ds), ws.data_ptr(), du.data_ptr(), sums.data_ptr(),
+                 da.data_ptr(), ds0.data_ptr(), b, t, d, n, stream_of(u))
+    check(err, "mamba_scan backward (chunk)")
+    _count_bwd(mamba_scan, "chunk")
+    return (du, sums[..., 2 * n:].to(delta.dtype),
+            sums[..., :n].to(bmat.dtype), sums[..., n:2 * n].to(cmat.dtype),
+            da, ds0)
+
+
+#: each backward route's one launch
+_MAMBA_BWD = {"chunk": mamba_chunk_bwd, "step": mamba_step_bwd}
 
 
 class _MambaScan(torch.autograd.Function):
@@ -368,7 +512,9 @@ class _MambaScan(torch.autograd.Function):
 
 
 #: forward and backward kernel launches since the counts were last set
-#: to 0, and the forward launches by route (:data:`MAMBA_ROUTES`)
+#: to 0, and the launches by route (:data:`MAMBA_ROUTES`,
+#: :data:`MAMBA_BWD_ROUTES`)
 mamba_scan.launches = 0
 mamba_scan.bwd_launches = 0
 mamba_scan.route_launches = dict.fromkeys(MAMBA_ROUTES, 0)
+mamba_scan.bwd_route_launches = dict.fromkeys(MAMBA_BWD_ROUTES, 0)

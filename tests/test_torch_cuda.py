@@ -30,7 +30,16 @@ unrounded): their state and y
 are held to the loop run in float32 on the same bf16 values, no further
 from it than the bf16 loop's own, at odd T, one and 64 heads, every head
 width and three decay regimes.  Launches are counted by route, and a
-CUDA tensor never reaches the plain loop.
+CUDA tensor never reaches the plain loop.  The chunked backward routes
+(RWKV-6 ``chunked``, Mamba ``chunk``) are held to their plain chunked
+versions (``ref.rwkv6_scan_bwd_chunked``, ``ref.mamba_scan_bwd_chunked``:
+the same float32 algebra, bf16 gradients within ``SCAN_TOL``, float32
+ones within 1e-4 of the largest) and through autograd to the loop in bf16
+and in float32, at T across the chunk of 16 and the unit of 64, one to
+64 heads, every head width, three decay regimes, with and without a
+cotangent of the last state; backward launches are counted by route, no
+plain version is reached, and a chunked backward allocates at most a
+sixteenth of the step pair's workspace beyond its outputs.
 
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
@@ -1154,3 +1163,179 @@ def test_cuda_scan_refuses_what_it_is_not_built_for(cuda):
         args[5][..., :8].contiguous()
     with pytest.raises(ValueError, match="state dim"):
         scan.mamba_scan(*args)
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans' chunked backward routes
+# ---------------------------------------------------------------------------
+
+#: the chunked backward routes' cases: (kind, heads or channels, head
+#: width, T), T across the chunks (16) and the units (64) the routes keep
+# the last of each kind is its main path's shape in chip_smoke.py's
+# [train-ssm]: RWKV-6-7B's 64 heads of 64 at T = 1024, Jamba's smoke
+# config's 64 Mamba channels at T = 64 (B = 2)
+BWD_CASES = [("rwkv", 1, 16, 2), ("rwkv", 3, 16, 17), ("rwkv", 2, 32, 65),
+             ("rwkv", 64, 64, 64), ("rwkv", 2, 64, 130),
+             ("rwkv", 64, 64, 1024),
+             ("mamba", 256, 16, 2), ("mamba", 264, 16, 65),
+             ("mamba", 520, 16, 130), ("mamba", 64, 16, 64)]
+
+
+def _bwd_fns(kind):
+    from repro_torch.kernels import scan
+    return ((scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_chunked_bwd,
+             ref.rwkv6_scan_bwd_chunked, "chunked")
+            if kind == "rwkv" else
+            (scan.mamba_scan, ref.mamba_scan, scan.mamba_chunk_bwd,
+             ref.mamba_scan_bwd_chunked, "chunk"))
+
+
+def _bwd_case(cuda, kind, n, hd, t, regime, seed=50):
+    g = torch.Generator().manual_seed(seed + t)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, t, hd, heads=n)
+    else:
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, t, n)
+    return _regime(args, kind, regime, g), g
+
+
+def _grads_through(fn, args, w_s, w_y, f32=False):
+    xs = [(a.float() if f32 else a.clone()).requires_grad_(True)
+          for a in args]
+    s, y = fn(*xs)
+    loss = (y.float() * w_y).sum()
+    if w_s is not None:
+        loss = loss + (s * w_s).sum()
+    loss.backward()
+    return [x.grad for x in xs]
+
+
+@pytest.mark.parametrize("last_state", [True, False])
+@pytest.mark.parametrize("regime", ["model", "near0", "near1"])
+@pytest.mark.parametrize("kind,n,hd,t", BWD_CASES)
+def test_cuda_scan_chunked_bwd_matches_plain(cuda, kind, n, hd, t, regime,
+                                             last_state):
+    """The chunked backward routes against their plain chunked versions
+    (the same float32 algebra: bf16 gradients within SCAN_TOL, the
+    float32 ones within 1e-4 of the max), and through autograd against
+    the loop in bf16 (SCAN_GRAD_TOL) and in float32 on the same values
+    (SCAN_GRAD_F32_TOL), with and without a cotangent of the last state;
+    every gradient finite."""
+    fn, plain, entry, plain_bwd, route = _bwd_fns(kind)
+    args, g = _bwd_case(cuda, kind, n, hd, t, regime)
+    s, y = plain(*args)
+    w_s = torch.randn(s.shape, generator=g).to(cuda) if last_state else None
+    w_y = torch.randn(y.shape, generator=g).to(cuda)
+    dy = w_y.to(torch.bfloat16)
+    got = entry(*args, w_s, dy)
+    torch.cuda.synchronize()
+    want = plain_bwd(*args, w_s, dy)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.isfinite(a.float()).all(), i
+        tol = SCAN_TOL[torch.bfloat16] if a.dtype == torch.bfloat16 else 1e-4
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * scale + 1e-30, (i, err, scale)
+    r0 = fn.bwd_route_launches[route]
+    got = _grads_through(fn, args, w_s, w_y)
+    torch.cuda.synchronize()
+    assert fn.bwd_route_launches[route] == r0 + 1
+    loop = _grads_through(plain, args, w_s, w_y)
+    f32 = _grads_through(plain, args, w_s, w_y, f32=True)
+    for i, (a, b, c) in enumerate(zip(got, loop, f32)):
+        assert torch.isfinite(a.float()).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= SCAN_GRAD_TOL[torch.bfloat16] * b.float().abs().max(
+        ).item() + 1e-30, (i, err)
+        err = (a.float() - c).abs().max().item()
+        assert err <= SCAN_GRAD_F32_TOL * c.abs().max().item() + 1e-30, (
+            i, err)
+
+
+def test_cuda_scan_bwd_launches_by_route(cuda):
+    """Each backward counts one launch, on the route its plan names:
+    bf16 prefill by the chunked routes; float32, T = 1, Mamba's ragged
+    channels and an unaligned dy by the step pair."""
+    from repro_torch.kernels import scan
+    cases = [("rwkv", torch.bfloat16, 5, 64, "chunked"),
+             ("rwkv", torch.bfloat16, 1, 64, "step"),
+             ("rwkv", torch.float32, 5, 64, "step"),
+             ("mamba", torch.bfloat16, 5, 64, "chunk"),
+             ("mamba", torch.bfloat16, 1, 64, "step"),
+             ("mamba", torch.bfloat16, 5, 300, "step"),
+             ("mamba", torch.float32, 5, 64, "step")]
+    for kind, dtype, t, width, route in cases:
+        fn, _, _ = _scan_fns(kind)
+        args = [a.requires_grad_(True) for a in
+                _scan_case(kind, cuda, dtype, 2, t, width)]
+        before = dict(fn.bwd_route_launches), fn.bwd_launches
+        s, y = fn(*args)
+        (y.float().sum() + s.sum()).backward()
+        torch.cuda.synchronize()
+        want = dict(before[0])
+        want[route] += 1
+        assert (dict(fn.bwd_route_launches), fn.bwd_launches) == (
+            want, before[1] + 1), (kind, dtype, t, width, route)
+    # an unaligned cotangent of y goes by the step pair
+    for kind, route in (("rwkv", scan.rwkv6_scan_bwd),
+                        ("mamba", scan.mamba_scan_bwd)):
+        fn, _, _ = _scan_fns(kind)
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, 5, 64)
+        s, y = fn(*args)
+        flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda)
+        dy = flat[1:].view(y.shape)
+        dy.copy_(torch.randn(y.shape, device=cuda).to(y.dtype))
+        before = fn.bwd_route_launches["step"]
+        route(*args, None, dy)
+        torch.cuda.synchronize()
+        assert fn.bwd_route_launches["step"] == before + 1, kind
+
+
+def test_cuda_scan_bwd_never_reaches_the_loop(cuda, monkeypatch):
+    """A CUDA tensor's backward launches a route's kernel on every route:
+    the plain loops and the plain chunked backward, made to raise, are
+    never called."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("rwkv6_scan", "mamba_scan", "rwkv6_scan_bwd_chunked",
+                 "mamba_scan_bwd_chunked"):
+        monkeypatch.setattr(ref, name, refuse)
+    for kind in ("rwkv", "mamba"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for t in (1, 5, 70):
+                fn, _, _ = _scan_fns(kind)
+                xs = [a.requires_grad_(True) for a in
+                      _scan_case(kind, cuda, dtype, 2, t, 64)]
+                s, y = fn(*xs)
+                (y.float().sum() + s.sum()).backward()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_cuda_scan_chunked_bwd_workspace_under_bound(cuda, kind):
+    """What one chunked backward allocates beyond its outputs stays under
+    a sixteenth of the step pair's workspace (every step's float32
+    state) on the same inputs."""
+    from repro_torch.kernels import scan
+    fn, _, entry, _, _ = _bwd_fns(kind)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, 512, 64, heads=8)
+        b, t, h, hd = args[0].shape
+        step_ws = b * h * t * hd * hd * 4
+    else:
+        args = _scan_case(kind, cuda, torch.bfloat16, 2, 512, 1024)
+        b, t, d = args[0].shape
+        step_ws = b * t * d * 16 * 4
+    s, y = fn(*args)
+    dy = torch.randn(y.shape, device=cuda).to(y.dtype)
+    ds = torch.randn(s.shape, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = entry(*args, ds, dy)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = sum(o.numel() * o.element_size() for o in out)
+    assert peak - kept <= step_ws / 16, (peak, kept, step_ws)
