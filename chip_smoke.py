@@ -84,7 +84,17 @@ decay regimes, with and without a cotangent of the last state: all six gradients
 through the bf16 loop and ``SCAN_GRAD_F32_TOL`` of the loop in float32;
 then at B = 2, T = 2048 the new route and the step pair on the same
 inputs, each timed beside the loop, its bound and the step-serial bound,
-with the workspace it allocates.
+with the workspace it allocates.  ``[attn]`` (the fourteenth slice)
+holds the chunked-attention kernels (``csrc/chunked_attention.cu``, the
+reference's ``lax.scan`` over key chunks) to their plain loop: an edge
+sweep of float32 and bf16, head widths 16, 64 and 128, causal and not,
+``q_offset`` 0 and 37, Tq from 1 to 1500 against Tk from 1 to 1500
+(output and the gradients of q, k and v; bf16 no further from the loop
+in float32 than the bf16 loop plus one bf16 ulp), then each main path's
+shape in bf16 (the Whisper encoder, Whisper and Llama-3.2-Vision cross
+attention in prefill and decode, Phi-4-mini and Grok-1 training, forward
+and backward), timed beside the loop, ``scaled_dot_product_attention``
+and the bound.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
@@ -104,7 +114,12 @@ the decode steps by the decode route), against the plain loops as
 it and holds the bf16 entries to their plain versions at its shapes;
 ``[cross]`` runs Llama-3.2-Vision-90B (one layer group) and
 Whisper-medium (whole) through ``Model.prefill`` / ``decode_step`` with
-seeded stub memory, 16 greedy steps, timed and profiled.
+seeded stub memory, 16 greedy steps, timed and profiled, the
+chunked-attention kernel launched once a cross sublayer and encoder
+layer a call (counted; the plain loop fails on a CUDA tensor), and
+serves each wave again with attention as its plain loop, which must
+commit the same tokens (or a bf16 argmax tie, reported with its logit
+gap).
 Training follows (the eighth slice; of the kernels it reaches only the
 scans): ``[train-small]`` runs 3 steps of ``make_train_step`` on every
 config's float32 smoke variant on the card and on the CPU from the same
@@ -116,7 +131,10 @@ whole (AdamW) and ``[train-moe]`` one Grok-1-314B group at full width
 (``dispatch="spec"``, Adafactor, as the whole model takes it), 2048
 tokens a step: step ms, tokens/s, losses, peak memory, the FLOP and
 optimizer byte bounds, and a profiled step split into forward, backward
-and optimizer by kind of kernel; ``[train-ssm]`` trains RWKV-6-7B at its
+and optimizer by kind of kernel; every training phase counts the
+chunked-attention launches (forward twice a layer a step with the
+checkpoint's recompute, backward once) and fails if the plain loop ran
+on a CUDA tensor; ``[train-ssm]`` trains RWKV-6-7B at its
 published width with 8 of its 32 layers (AdamW, as the whole model
 takes it), 2 sequences of 1024 tokens a step, the same lines plus the
 scan backward's device time in the profiled step, and fails unless the
@@ -2211,6 +2229,355 @@ def phase_scan() -> list:
 
 
 # ---------------------------------------------------------------------------
+# chunked attention: the reference's device loop over key chunks
+# ---------------------------------------------------------------------------
+
+#: [attn]'s edge sweep: query and key lengths (Tk past a tile and past a
+#: chunk of 512, so the last tile is partial), head widths, and (causal,
+#: q_offset)
+ATTN_TQ = (1, 7, 256, 1500)
+ATTN_TK = (1, 9, 512, 513, 1024, 1500)
+ATTN_D = (16, 64, 128)
+ATTN_MASKS = ((False, 0), (False, 37), (True, 0), (True, 37))
+#: float32 tolerances, of max|want|: the output, and the gradients (of the
+#: largest of the call's three, since dq and dk vanish where a row has one
+#: live key and leave only the float32 rounding of dP - D)
+ATTN_F32_TOL = {"out": 1e-5, "grad": 1e-4}
+#: the main paths' shapes, bf16: B, H, Tq, Tk, d, causal, backward too
+ATTN_PATHS = {
+    "whisper-encoder": (8, 16, 1500, 1500, 64, False, False),
+    "whisper-cross-prefill": (8, 16, 512, 1500, 64, False, False),
+    "whisper-cross-decode": (8, 16, 1, 1500, 64, False, False),
+    "llama-cross-prefill": (8, 64, 512, 1024, 128, False, False),
+    "llama-cross-decode": (8, 64, 1, 1024, 128, False, False),
+    "phi4-train": (8, 24, 256, 256, 128, True, True),
+    "grok-train": (8, 48, 256, 256, 128, True, True),
+}
+#: the float32 entries' shape: [train-small]'s smoke configs (2 x 16
+#: tokens, 4 heads of 16, causal)
+ATTN_SMOKE = (2, 4, 16, 16, 16, True, True)
+#: kernel-name fragments of the chunked-attention kernels
+ATTN_KERNELS = ("attn_fwd_kernel", "attn_delta_kernel", "attn_bwd_kv_kernel",
+                "attn_bwd_q_kernel")
+
+
+def _attn_counts() -> tuple:
+    from repro_torch.kernels import chunked_attention as ca
+    return ca.chunked_attention.launches, ca.chunked_attention.bwd_launches
+
+
+def _reset_attn() -> None:
+    from repro_torch.kernels import chunked_attention as ca
+    ca.chunked_attention.launches = 0
+    ca.chunked_attention.bwd_launches = 0
+
+
+@contextlib.contextmanager
+def _no_plain_attention():
+    """The plain attention loop fails if a CUDA tensor reaches it inside
+    the block: a CUDA path must launch the kernels.  Yields a count of
+    its calls on CPU tensors (``["cpu"]``)."""
+    from repro_torch.kernels import ref
+    plain = ref.chunked_attention
+    calls = {"cpu": 0}
+
+    def guarded(q, *args, **kw):
+        if q.is_cuda:
+            fail("a CUDA tensor reached the plain attention loop")
+        calls["cpu"] += 1
+        return plain(q, *args, **kw)
+
+    ref.chunked_attention = guarded
+    try:
+        yield calls
+    finally:
+        ref.chunked_attention = plain
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The models' chunked attention as its plain loop inside the block,
+    on CUDA tensors too: the yardstick the kernels' waves are held to."""
+    import types
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    saved = layers.attention
+    layers.attention = types.SimpleNamespace(
+        chunked_attention=ref.chunked_attention)
+    try:
+        yield
+    finally:
+        layers.attention = saved
+
+
+def _attn_inputs(b, h, tq, tk, d, dtype, gen):
+    """Seeded q, k, v and an output cotangent on the card."""
+    def f(t):
+        return torch.randn((b, h, t, d), generator=gen,
+                           device="cuda").to(dtype)
+    return f(tq), f(tk), f(tk), f(tq)
+
+
+def _attn_run(fn, q, k, v, dout, causal, q_offset, grads=True):
+    """The output and (``grads``) the gradients of q, k and v given
+    ``dout``, through ``fn`` (the entry or the plain loop)."""
+    xs = [t.detach().clone().requires_grad_(grads) for t in (q, k, v)]
+    with torch.set_grad_enabled(grads):
+        out = fn(*xs, causal=causal, q_offset=q_offset)
+    if not grads:
+        return [out]
+    return [out.detach()] + list(torch.autograd.grad(out, xs, dout))
+
+
+def _attn_loop(q, k, v, *, causal, q_offset):
+    from repro_torch.kernels import ref
+    return ref.chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _attn_check(tag, q, k, v, dout, causal, q_offset, grads=True) -> dict:
+    """The kernels (through the entry and autograd) against the plain
+    loop: float32 within :data:`ATTN_F32_TOL`; bf16 against the loop run
+    in float32 on the same values, no further from it than the bf16 loop
+    is plus one bf16 ulp of max|want| (of the largest gradient for the
+    gradients).  Returns, per output, the error and its allowance."""
+    from repro_torch.kernels import chunked_attention as ca
+    got = _attn_run(ca.chunked_attention, q, k, v, dout, causal, q_offset,
+                    grads)
+    want = _attn_run(_attn_loop, q.float(), k.float(), v.float(),
+                     dout.float(), causal, q_offset, grads)
+    bf16 = q.dtype == torch.bfloat16
+    loop = _attn_run(_attn_loop, q, k, v, dout, causal, q_offset,
+                     grads) if bf16 else None
+    names = ("out", "dq", "dk", "dv")[:len(got)]
+    g_scale = max((w.abs().max().item() for w in want[1:]), default=0.0)
+    out = {}
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        if g.shape != w.shape or g.dtype != q.dtype or \
+                not torch.isfinite(g.float()).all():
+            fail(f"{tag} {name}: {tuple(g.shape)} {g.dtype}, want "
+                 f"{tuple(w.shape)} {q.dtype}, finite")
+        scale = w.abs().max().item() if name == "out" else g_scale
+        err = (g.float() - w).abs().max().item()
+        if bf16:
+            own = (loop[i].float() - w).abs().max().item()
+            allow = own + 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
+        else:
+            own = None
+            allow = ATTN_F32_TOL["out" if name == "out" else "grad"] * scale
+        if err > allow:
+            fail(f"{tag} {name}: {err} from the float32 loop, past "
+                 f"{allow} (the bf16 loop's own {own})")
+        out[name] = {"err": err, "allow": allow, "bf16_loop_err": own}
+    return out
+
+
+def _attn_pairs(b, h, tq, tk, causal, q_offset) -> int:
+    """Live (query, key) pairs of one call."""
+    if not causal:
+        return b * h * tq * tk
+    i = np.arange(tq)
+    return b * h * int(np.minimum(tk, q_offset + i + 1).sum())
+
+
+def _attn_bound(b, h, tq, tk, d, causal, bwd, dtype, clock) -> dict:
+    """The least time of one call: the larger of the bytes over 3.35 TB/s
+    (each input read once, each output written once), the products'
+    operations over the dtype's peak (bf16 tensor cores 989 TFLOP/s;
+    float32 67) and the exponentials at 16 a clock an SM.  The live
+    pairs count: forward q·k and p·v (4 d operations a pair), one exp a
+    pair, q, k, v in and the output and log-sum-exp out; backward the
+    recomputed q·k and dO·v, dS k, dSᵀ q, pᵀ dO (10 d a pair), one exp a
+    pair, q, k, v, out, dO and the log-sum-exp in and dq, dk, dv out."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    pairs = _attn_pairs(b, h, tq, tk, causal, 0)
+    ops = (10 if bwd else 4) * pairs * d
+    rows_q, rows_k = b * h * tq * d, b * h * tk * d
+    nbytes = (e * (4 * rows_q + 4 * rows_k) + 4 * b * h * tq if bwd
+              else e * (2 * rows_q + 2 * rows_k) + 4 * b * h * tq)
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / rate * 1e3,
+             "exps": pairs / (SFU_EXP_PER_CLOCK * N_SM * clock) * 1e3}
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": "bytes" if by == "bytes"
+            else "operations", "bound_kind": by, "ops": ops, "exps": pairs,
+            "bytes": nbytes, "bound_terms_ms": terms}
+
+
+def _attn_times(q, k, v, dout, causal, bwd) -> dict:
+    """Device ms a launch by CUDA-graph replay: the kernel, the plain
+    loop, and ``scaled_dot_product_attention`` on the same inputs (the
+    library column only); with ``bwd`` the backward entry, the plain
+    backward (``ref.chunked_attention_bwd``) and SDPA's backward (the
+    profiler's device time of its forward and backward kernels, less its
+    forward's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.kernels import ref
+    big = q.numel() * k.shape[2] // q.shape[3] > 2 ** 27
+    reps = 10 if big else 50
+    is_causal = causal  # q_offset 0 and Tq = Tk on the causal paths
+    r = {"fwd_ms": device_ms(lambda: ca.chunked_attention_fwd(
+        q, k, v, causal, 0), reps=reps, replays=3),
+        "fwd_plain_ms": device_ms(lambda: ref.chunked_attention(
+            q, k, v, causal=causal), reps=max(2, reps // 5), replays=2),
+        "fwd_library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=is_causal), reps=reps, replays=3)}
+    if not bwd:
+        return r
+    out, lse = ca.chunked_attention_fwd(q, k, v, causal, 0)
+    r["bwd_ms"] = device_ms(lambda: ca.chunked_attention_bwd(
+        q, k, v, out, dout, lse, causal, 0), reps=reps, replays=3)
+    r["bwd_plain_ms"] = device_ms(lambda: ref.chunked_attention_bwd(
+        q, k, v, out, dout, lse, causal=causal), reps=max(2, reps // 5),
+        replays=2)
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(*xs, is_causal=is_causal)
+        torch.autograd.grad(o, xs, dout)
+
+    # SDPA's backward: the device time of its kernels in a forward and
+    # backward call, less those of a forward call (the profiler's mean a
+    # launch of each kernel, summed)
+    r["bwd_library_ms"] = sum(_kernel_ms(sdpa_both).values()) - sum(
+        _kernel_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=is_causal)).values())
+
+    def loop_both():
+        o = ref.chunked_attention(*xs, causal=causal)
+        torch.autograd.grad(o, xs, dout)
+
+    r["loop_fwd_bwd_ms"] = call_ms(loop_both, reps=5, warm=1)
+    return r
+
+
+def phase_attn() -> list:
+    """The chunked-attention kernels (``repro_torch.kernels.
+    chunked_attention``: forward and backward, ``csrc/chunked_attention.
+    cu``) against the plain loop on the card.  First the edge sweep:
+    float32 and bf16, every d in :data:`ATTN_D`, causal and not,
+    ``q_offset`` 0 and 37, every Tq in :data:`ATTN_TQ` against every Tk
+    in :data:`ATTN_TK` (B = 2, H = 2), output and the gradients of q, k
+    and v (:func:`_attn_check`).  Then each main path's shape in bf16
+    (:data:`ATTN_PATHS`): checked the same way (the gradients on the
+    training paths), and timed beside the plain loop, SDPA and the bound.
+    Returns the kernels line's records (``launches`` and ``main_path``
+    filled from the main paths' phases)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    clock = _sm_clock_hz()
+    saved = _attn_counts()
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in ATTN_D:
+            for causal, off in ATTN_MASKS:
+                for tq in ATTN_TQ:
+                    for tk in ATTN_TK:
+                        args = _attn_inputs(2, 2, tq, tk, d, dtype, gen)
+                        res = _attn_check(
+                            f"attn {dtype} d={d} causal={causal} "
+                            f"q_offset={off} Tq={tq} Tk={tk}", *args,
+                            causal, off)
+                        n += 1
+                        for name, e in res.items():
+                            key = (str(dtype).removeprefix("torch."), name)
+                            share = e["err"] / max(e["allow"], 1e-30)
+                            worst[key] = max(worst.get(key, 0.0), share)
+        _free()
+    print(f"[attn] edge sweep: {n} calls (float32 and bf16; d {ATTN_D}; "
+          f"causal and not, q_offset 0 and 37; Tq {ATTN_TQ} x Tk {ATTN_TK}),"
+          f" output and the gradients of q, k and v agree with the plain "
+          f"loop; largest share of the allowance (float32 {ATTN_F32_TOL} "
+          f"of max; bf16 the bf16 loop's own error from the float32 loop "
+          f"plus one bf16 ulp): " + ", ".join(
+              f"{t} {nm} {s:.3f}" for (t, nm), s in sorted(worst.items()))
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    paths = {}
+    for path, (b, h, tq, tk, d, causal, bwd) in ATTN_PATHS.items():
+        args = _attn_inputs(b, h, tq, tk, d, torch.bfloat16, gen)
+        err = _attn_check(f"attn {path}", *args, causal, 0, grads=bwd)
+        r = {"shape": [b, h, tq, tk, d], "causal": causal,
+             "err": err, **_attn_times(*args, causal, bwd)}
+        r["fwd_bound"] = _attn_bound(b, h, tq, tk, d, causal, False,
+                                     torch.bfloat16, clock)
+        if bwd:
+            r["bwd_bound"] = _attn_bound(b, h, tq, tk, d, causal, True,
+                                         torch.bfloat16, clock)
+        paths[path] = r
+        for way in ("fwd", "bwd") if bwd else ("fwd",):
+            bd = r[f"{way}_bound"]
+            e = {k: v["err"] for k, v in err.items()}
+            print(f"[attn] {path} ({b} x {h} x {tq} x {tk}, d={d}"
+                  f"{', causal' if causal else ''}) {way}: "
+                  f"{r[f'{way}_ms'] * 1e3:.2f} us a launch; plain "
+                  f"{r[f'{way}_plain_ms'] * 1e3:.2f} us; SDPA "
+                  f"{r[f'{way}_library_ms'] * 1e3:.2f} us; bound "
+                  f"{bd['bound_ms'] * 1e3:.2f} us by {bd['bound_kind']} ("
+                  + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in
+                              bd["bound_terms_ms"].items())
+                  + f"), {bd['bound_ms'] / r[f'{way}_ms']:.1%} of it; max "
+                  f"abs error against the float32 loop "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+                  + (f"; the loop forward and autograd backward "
+                     f"{r['loop_fwd_bwd_ms'] * 1e3:.1f} us (eager)"
+                     if way == "bwd" else "") + f" ({smi()})")
+        del args
+        _free()
+    # the float32 entries at [train-small]'s shape
+    b, h, tq, tk, d, causal, _ = ATTN_SMOKE
+    args = _attn_inputs(b, h, tq, tk, d, torch.float32, gen)
+    err = _attn_check("attn smoke float32", *args, causal, 0)
+    small = {"shape": [b, h, tq, tk, d], "causal": causal, "err": err,
+             **_attn_times(*args, causal, True),
+             "fwd_bound": _attn_bound(b, h, tq, tk, d, causal, False,
+                                      torch.float32, clock),
+             "bwd_bound": _attn_bound(b, h, tq, tk, d, causal, True,
+                                      torch.float32, clock)}
+    print(f"[attn] float32 at the smoke configs' shape ({b} x {h} x {tq} x "
+          f"{tk}, d={d}, causal): forward {small['fwd_ms'] * 1e3:.2f} us, "
+          f"backward {small['bwd_ms'] * 1e3:.2f} us a launch (CUDA cores); "
+          f"plain {small['fwd_plain_ms'] * 1e3:.2f} / "
+          f"{small['bwd_plain_ms'] * 1e3:.2f} us")
+    from repro_torch.kernels import chunked_attention as ca
+    ca.chunked_attention.launches, ca.chunked_attention.bwd_launches = saved
+    print(f"[attn] SM clock {clock / 1e9:.3f} GHz (max, nvidia-smi) for the "
+          f"exp bound; {time.perf_counter() - t0:.1f} s")
+
+    def record(way, dtype, main, shape_of, others):
+        r = shape_of
+        bd = r[f"{way}_bound"]
+        err = r["err"]
+        keys = ("out",) if way == "fwd" else ("dq", "dk", "dv")
+        return {"name": f"chunked_attention_{way}_{dtype}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/chunked_attention.cu",
+                "replaces": "src/repro/models/layers.py:110",
+                "launches": None, "main_path": None,
+                "max_abs_err": max(err[x]["err"] for x in keys),
+                "err_against": "the plain loop in float32 on the same "
+                               "values",
+                "ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
+                "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "library_ms": r[f"{way}_library_ms"],
+                "library": "torch.nn.functional.scaled_dot_product_attention"
+                           + (" (its backward kernels' device time)"
+                              if way == "bwd" else ""),
+                "shape": r["shape"], "at": main,
+                "bound_share": bd["bound_ms"] / r[f"{way}_ms"],
+                "attn": (way, dtype),
+                "paths": {p: {k: v for k, v in paths[p].items()
+                              if k.startswith(way) or k in ("shape",)}
+                          for p in others}}
+
+    return [record("fwd", "bf16", "whisper-encoder", paths["whisper-encoder"],
+                   [p for p in paths if p != "whisper-encoder"]),
+            record("bwd", "bf16", "phi4-train", paths["phi4-train"],
+                   ["grok-train"]),
+            record("fwd", "f32", "smoke", small, []),
+            record("bwd", "f32", "smoke", small, [])]
+
+
+# ---------------------------------------------------------------------------
 # the serving path: the model stack and Engine at Kimi-K2's width
 # ---------------------------------------------------------------------------
 
@@ -2287,6 +2654,7 @@ class _TimedModel:
 
 #: kernel-name fragments of each device-time category of the profile
 KERNEL_KINDS = (
+    ("chunked attention", ATTN_KERNELS),
     ("spec kernels", ("spec_gather", "spec_scatter")),
     ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "splitK")),
     ("softmax", ("softmax",)),
@@ -3588,17 +3956,23 @@ def phase_hybrid() -> dict:
 CROSS_SEED = 20
 
 
-def phase_cross() -> None:
+def phase_cross() -> dict:
     """Llama-3.2-Vision-90B at full width with one layer group (n_layers
     100 -> 5) and Whisper-medium whole (24 + 24 layers), through
     ``Model.prefill`` / ``decode_step`` (the engine passes no memory) with
     seeded stub memory: 1024 patches, 1500 frames.  The enc-dec decode
     steps cross-attend to the memory the port's ``_encode`` gives once, as
-    the reference's decode takes memory as passed."""
+    the reference's decode takes memory as passed.  Every cross sublayer
+    and encoder layer launches the chunked-attention kernel once a call
+    (counted; the plain loop never reached on the card); the wave is
+    served again with attention as its plain loop, which must commit the
+    same tokens (or a bf16 argmax tie, reported with its logit gap).
+    Returns the timed wave's forward launches by arch."""
     import dataclasses
     from repro_torch.configs import base as cbase
     from repro_torch.models.model import build_model
     dev = torch.device("cuda")
+    launches = {}
     for arch, n_layers in (("llama_3_2_vision_90b", 5),
                            ("whisper_medium", None)):
         _free()
@@ -3625,16 +3999,30 @@ def phase_cross() -> None:
         toks = torch.from_numpy(toks).to(dev)
         pads = torch.from_numpy((plen - lens).astype(np.int32)).to(dev)
         mem = _stub_memory(cfg, len(prompts), gen, dev, cfg.torch_dtype)
-        for run in ("warm-up", "timed"):
-            timed = _TimedModel(model)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            dec = model._encode(params, mem) if cfg.family == "encdec" \
-                else mem
-            torch.cuda.synchronize()
-            enc_ms = (time.perf_counter() - t1) * 1e3
-            _, out = _greedy(timed, params, toks, SERVE["max_new"], mem, dec,
-                             pads)
+        with _no_plain_attention():
+            for run in ("warm-up", "timed"):
+                timed = _TimedModel(model, keep_logits=run == "timed")
+                _reset_attn()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                dec = model._encode(params, mem) \
+                    if cfg.family == "encdec" else mem
+                torch.cuda.synchronize()
+                enc_ms = (time.perf_counter() - t1) * 1e3
+                _, out = _greedy(timed, params, toks, SERVE["max_new"], mem,
+                                 dec, pads)
+        fwd, bwd = _attn_counts()
+        # one launch a cross sublayer a call (prefill and each decode
+        # step), and the encoder's layers once in _encode and once in the
+        # prefill
+        calls = SERVE["max_new"] + 1
+        want = cfg.n_layers // cfg.cross_stride * calls \
+            if cfg.family == "vlm" else \
+            cfg.n_layers * calls + 2 * cfg.n_enc_layers
+        if (fwd, bwd) != (want, 0):
+            fail(f"cross {arch}: chunked attention launched {fwd} forward, "
+                 f"{bwd} backward; want {want}, 0")
+        launches[arch] = fwd
         if out.shape != (len(prompts), SERVE["max_new"] + 1) or not (
                 (out >= 0) & (out < cfg.vocab)).all():
             fail(f"cross {arch}: tokens {out}")
@@ -3645,12 +4033,41 @@ def phase_cross() -> None:
               f"{tuple(mem.shape)}); decode "
               f"{float(np.mean(timed.decode_s)) * 1e3:.3f} ms a step "
               f"({len(timed.decode_s)} steps){enc}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi()})")
-        _print_profile("cross", _serve_profile(lambda: _greedy(
-            _TimedModel(model), params, toks, SERVE["max_new"], mem, dec,
-            pads)))
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; chunked "
+              f"attention launched {fwd} times, no plain loop reached "
+              f"({smi()})")
+        # the same wave with attention as its plain loop
+        plain = _TimedModel(model, keep_logits=True)
+        with _plain_attention():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pdec = model._encode(params, mem) if cfg.family == "encdec" \
+                else mem
+            torch.cuda.synchronize()
+            penc_ms = (time.perf_counter() - t1) * 1e3
+            _, pout = _greedy(plain, params, toks, SERVE["max_new"], mem,
+                              pdec, pads)
+        if _attn_counts() != (fwd, 0):
+            fail(f"cross {arch}: the plain wave launched a kernel")
+        same = _same_tokens(f"cross {arch}",
+                            {i: out[i].tolist() for i in range(len(out))},
+                            {i: pout[i].tolist() for i in range(len(pout))},
+                            timed, plain)
+        penc = (f", encoder alone {penc_ms:.2f} ms"
+                if cfg.family == "encdec" else "")
+        print(f"[cross] {cfg.name}: {_tokens_line(same)}; with attention as "
+              f"its plain loop: prefill {plain.prefill_s[0] * 1e3:.2f} ms, "
+              f"decode {float(np.mean(plain.decode_s)) * 1e3:.3f} ms a "
+              f"step{penc}")
+        del pdec, pout, plain
+        with _no_plain_attention():
+            _print_profile("cross", _serve_profile(lambda: _greedy(
+                _TimedModel(model), params, toks, SERVE["max_new"], mem,
+                dec, pads)))
         del params, mem, dec, model
     _free()
+    _reset_attn()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3666,6 +4083,7 @@ TRAIN = dict(batch=8, seq_len=256, timed=5, seed=18)
 OPT_BYTES = {"adamw": 2 + 2 + 8 + 8 + 2, "adafactor": 2 + 2 + 2}
 #: kernel-name fragments of the training profile's kinds
 TRAIN_KINDS = (
+    ("attention", ATTN_KERNELS),
     ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "splitK")),
     ("elementwise", ("elementwise", "vectorized")),
 )
@@ -3724,7 +4142,9 @@ def phase_train_small() -> dict:
     ``dispatch="spec-kernel"`` and through each of the five Pallas sites'
     entries must raise on CUDA tensors, as ``jax.grad`` through the
     reference's Pallas kernels does.  Returns the scans' launches:
-    backward, and forward by route (float32 takes the step routes)."""
+    backward, and forward by route (float32 takes the step routes), and
+    the chunked-attention launches (forward, backward): on the card one
+    where the CPU run called the plain loop."""
     from repro_torch.configs import base as cbase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
@@ -3732,6 +4152,7 @@ def phase_train_small() -> dict:
     from repro_torch.train.train_step import make_train_step, value_and_grad
     worst = 0.0
     scan_bwd, scan_fwd = {}, {}
+    attn = (0, 0)
     for arch in cbase.ASSIGNED:
         cfg = cbase.smoke(cbase.get(arch))
         init, step_fn, name = make_train_step(
@@ -3744,13 +4165,26 @@ def phase_train_small() -> dict:
         runs = {}
         for dev in ("cpu", "cuda"):
             _reset_scans()
+            _reset_attn()
             state, losses = _to(state0, dev, clone=True), []
-            for i in range(3):
-                state, m = step_fn(state, _train_batch(cfg, data, i, dev,
-                                                       mem))
-                losses.append(float(m["loss"]))
+            with _no_plain_attention() as plain:
+                for i in range(3):
+                    state, m = step_fn(state, _train_batch(cfg, data, i, dev,
+                                                           mem))
+                    losses.append(float(m["loss"]))
             runs[dev] = (losses, [t.cpu() for t in _flat(state.params)],
                          int(state.step))
+            if dev == "cpu":
+                loop_calls = plain["cpu"]
+        # on the card the kernel launches where the CPU ran the loop, and
+        # its backward once for every two forwards (the checkpoint's
+        # recompute)
+        fwd, bwd = _attn_counts()
+        if fwd != loop_calls or 2 * bwd != fwd:
+            fail(f"train-small {arch}: chunked attention launched {fwd} "
+                 f"forward, {bwd} backward; the CPU run called the loop "
+                 f"{loop_calls} times")
+        attn = (attn[0] + fwd, attn[1] + bwd)
         # on the card each scan layer runs forward twice a step (the
         # group's checkpoint recomputes it) and backward once
         want = {n: (2 * 3 * k, 3 * k) for n, k in (
@@ -3776,7 +4210,9 @@ def phase_train_small() -> dict:
               f" (CPU {', '.join(f'{x:.6f}' for x in lc)}); parameters "
               f"within {err:.3g} of the CPU's"
               + "".join(f"; {n} launched {f} forward, {b} backward"
-                        for n, (f, b) in want.items()))
+                        for n, (f, b) in want.items())
+              + (f"; chunked attention launched {fwd} forward, {bwd} "
+                 f"backward" if fwd else ""))
     # a gradient through a kernel raises, on the card as in the reference
     cfg = cbase.smoke(cbase.get("kimi_k2_1t_a32b"))
     model = build_model(cfg, "spec-kernel")
@@ -3821,6 +4257,7 @@ def phase_train_small() -> dict:
             fail(f"train-small: {name} took a gradient on the card")
     _reset()
     _reset_dense()
+    _reset_attn()
     torch.cuda.synchronize()
     print(f"[train-small] all {len(cbase.ASSIGNED)} configs agree card "
           f"against CPU (parameters within {worst:.3g}, atol {SMOKE_TOL}); "
@@ -3828,8 +4265,12 @@ def phase_train_small() -> dict:
           f"through each of the {len(calls)} kernel entries raises "
           f"NotImplementedError; the scans' backward kernels launched "
           f"{scan_bwd}, their forward ones {scan_fwd} (float32: all by the "
-          f"step routes, forward and backward)")
-    return {"bwd": scan_bwd, "fwd_step": scan_fwd}
+          f"step routes, forward and backward); chunked attention "
+          f"launched {attn[0]} forward, {attn[1]} backward (float32), no "
+          f"plain loop reached on the card")
+    if not all(attn):
+        fail(f"train-small: chunked attention launched {attn}")
+    return {"bwd": scan_bwd, "fwd_step": scan_fwd, "attn": attn}
 
 
 def _multiply_params(cfg, params) -> float:
@@ -3942,16 +4383,24 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
     _reset()
     _reset_dense()
     _reset_scans()
+    _reset_attn()
     losses, times = [], []
-    for i in range(1 + TRAIN["timed"]):
-        batch = _train_batch(cfg, data, i, dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        losses.append(float(m["loss"]))  # waits for the step
-        times.append(time.perf_counter() - t1)
+    with _no_plain_attention():
+        for i in range(1 + TRAIN["timed"]):
+            batch = _train_batch(cfg, data, i, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t1)
     _no_kernel_launched(tag)
     scans = (_scan_launches(), _scan_routes(), _scan_bwd_routes())
+    attn = _attn_counts()
+    # the group checkpoint runs each attention forward twice a step
+    n_attn = _n_sublayers(state.params, "attn") * len(losses)
+    if attn != (2 * n_attn, n_attn):
+        fail(f"{tag}: chunked attention launched {attn} (forward, "
+             f"backward); want {(2 * n_attn, n_attn)}")
     peak = torch.cuda.max_memory_allocated()
     if not np.all(np.isfinite(losses)) or not (
             0.5 * np.log(cfg.vocab) < losses[0] < 2.5 * np.log(cfg.vocab)):
@@ -3974,9 +4423,17 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
           f"bound {opt_ms:.2f} ms ({OPT_BYTES[opt_name]} bytes x "
           f"{n_params / 1e9:.3f}e9 parameters over 3.35 TB/s); no kernel "
           f"of the port launched"
-          + (" but the scans" if any(map(any, scans[0].values())) else ""))
+          + (" but the scans" if any(map(any, scans[0].values())) else "")
+          + (f" and chunked attention ({attn[0]} forward, {attn[1]} backward"
+             f" launches; no plain loop reached)" if any(attn) else ""))
     batch = _train_batch(cfg, data, len(losses), dev)
-    prof = _train_profile(lambda: step_fn(state, batch))
+    with _no_plain_attention():
+        prof = _train_profile(lambda: step_fn(state, batch))
+    if any(attn):
+        att = sum(v for k, v in prof["by_name"].items()
+                  if any(f in k for f in ATTN_KERNELS))
+        print(f"[{tag}] chunked attention in the profiled step: {att:.3f} ms "
+              f"of device time")
     parts = prof["parts"]
     print(f"[{tag}-profile] one step (profiled): window "
           f"{prof['window_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
@@ -3987,7 +4444,7 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
     return {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
             "losses": losses, "peak_bytes": peak, "flop_ms": flop_ms,
             "opt_ms": opt_ms, "profile": prof, "scans": scans,
-            "steps": len(losses)}
+            "steps": len(losses), "attn": attn}
 
 
 def _train_poison(tag, model, params, batch) -> None:
@@ -4013,19 +4470,22 @@ def _pattern(cfg):
     return group_pattern(cfg)
 
 
-def phase_train_dense() -> None:
-    """Phi-4-mini-3.8B whole (32 layers, nothing cut), bf16, AdamW."""
+def phase_train_dense() -> tuple:
+    """Phi-4-mini-3.8B whole (32 layers, nothing cut), bf16, AdamW.
+    Returns the chunked-attention launches (forward, backward)."""
     from repro_torch.configs import base as cbase
     cfg = cbase.get("phi4_mini_3_8b")
-    _train_full("train-dense", cfg, f"all {cfg.n_layers} layers, nothing "
-                f"cut", "adamw")
+    res = _train_full("train-dense", cfg, f"all {cfg.n_layers} layers, "
+                      f"nothing cut", "adamw")
     _free()
+    return res["attn"]
 
 
-def phase_train_moe() -> None:
+def phase_train_moe() -> tuple:
     """Grok-1-314B at full width, one [attn, moe] group (n_layers 64 ->
     1), ``dispatch="spec"``, Adafactor as ``make_optimizer`` picks for the
-    whole model."""
+    whole model.  Returns the chunked-attention launches (forward,
+    backward)."""
     import dataclasses
     from repro_torch.configs import base as cbase
     full = cbase.get("grok_1_314b")
@@ -4038,10 +4498,11 @@ def phase_train_moe() -> None:
           f"e9 would pick {small_opt}, whose "
           f"{8 * cbase.param_count(cfg)[0] / 1e9:.1f} GB of float32 moments "
           f"do not fit beside the bf16 weights and gradients")
-    _train_full("train-moe", cfg, f"n_layers {full.n_layers} cut to 1, "
-                f"one [attn, moe] group, {cfg.n_experts} experts "
-                f"top-{cfg.top_k}", "adafactor", opt_cfg=full)
+    res = _train_full("train-moe", cfg, f"n_layers {full.n_layers} cut "
+                      f"to 1, one [attn, moe] group, {cfg.n_experts} "
+                      f"experts top-{cfg.top_k}", "adafactor", opt_cfg=full)
     _free()
+    return res["attn"]
 
 
 #: [train-ssm]: RWKV-6-7B's layers kept, and the tokens of a step (2
@@ -4148,12 +4609,18 @@ def phase_train_ssm() -> dict:
                                   seq_len=TRAIN_SSM_JAMBA["seq_len"],
                                   global_batch=TRAIN_SSM_JAMBA["batch"]))
     n_mamba = _n_sublayers(state.params, "mamba")
+    n_attn = _n_sublayers(state.params, "attn")
     _reset_scans()
+    _reset_attn()
     losses = []
-    with _no_plain_scans():
+    with _no_plain_scans(), _no_plain_attention():
         for i in range(3):
             state, m = step_fn(state, _train_batch(scfg, data, i, "cuda"))
             losses.append(float(m["loss"]))
+    out_attn = _attn_counts()
+    if out_attn != (2 * 3 * n_attn, 3 * n_attn):
+        fail(f"train-ssm jamba smoke: chunked attention launched {out_attn}"
+             f", want {(2 * 3 * n_attn, 3 * n_attn)}")
     _check_scans("train-ssm jamba smoke", {
         "mamba_scan": (2 * 3 * n_mamba, 3 * n_mamba)},
         {"mamba_scan": {"chunk": 2 * 3 * n_mamba}},
@@ -4165,9 +4632,12 @@ def phase_train_ssm() -> dict:
           f"on the card: losses {', '.join(f'{x:.4f}' for x in losses)} "
           f"(log vocab {lv:.4f}); the Mamba scan launched "
           f"{2 * 3 * n_mamba} forward by the chunk route and "
-          f"{3 * n_mamba} backward by the chunk route")
+          f"{3 * n_mamba} backward by the chunk route; chunked attention "
+          f"(bf16, d=16) {out_attn[0]} forward, {out_attn[1]} backward")
     out["mamba_scan"] = dict(_scan_bwd_routes()["mamba_scan"])
+    out["attn"] = out_attn
     _reset_scans()
+    _reset_attn()
     del state, model
     _free()
     return out
@@ -4239,6 +4709,8 @@ def main() -> None:
     line["kernels"] += phase_api_full()
     scans = phase_scan()
     line["kernels"] += scans
+    attn = phase_attn()
+    line["kernels"] += attn
     line["kernels"] += phase_serve_full()
     grok = phase_mesh_shards_grok()
     for rec in line["kernels"]:
@@ -4253,10 +4725,10 @@ def main() -> None:
     for rec in line["kernels"]:
         if rec["name"] in hybrid:
             rec["jamba"] = hybrid[rec["name"]]
-    phase_cross()
+    cross = phase_cross()
     train = phase_train_small()
-    phase_train_dense()
-    phase_train_moe()
+    dense = phase_train_dense()
+    moe = phase_train_moe()
     ssm_train = phase_train_ssm()
     # the scans' launches by route on their main paths: the bf16 forward
     # routes in one served wave ([ssm], [hybrid]); the float32 step routes,
@@ -4287,6 +4759,31 @@ def main() -> None:
             rec["main_path"] = small
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its main path")
+    # chunked attention's launches by path: bf16 in [cross] and the
+    # full-width training phases (and Jamba's bf16 smoke run), float32 in
+    # [train-small]
+    by_path = {
+        ("fwd", "bf16"): {
+            "[cross] Whisper-medium wave (encoder, cross)":
+                cross["whisper_medium"],
+            "[cross] Llama-3.2-Vision wave (cross)":
+                cross["llama_3_2_vision_90b"],
+            "[train-dense] Phi-4-mini": dense[0],
+            "[train-moe] Grok-1 group": moe[0],
+            "[train-ssm] Jamba smoke config, bf16": ssm_train["attn"][0]},
+        ("bwd", "bf16"): {
+            "[train-dense] Phi-4-mini": dense[1],
+            "[train-moe] Grok-1 group": moe[1],
+            "[train-ssm] Jamba smoke config, bf16": ssm_train["attn"][1]},
+        ("fwd", "f32"): {small: train["attn"][0]},
+        ("bwd", "f32"): {small: train["attn"][1]},
+    }
+    for rec in attn:
+        paths = by_path[rec.pop("attn")]
+        rec["main_path"], rec["launches"] = next(iter(paths.items()))
+        rec["launches_by_path"] = paths
+        if not all(paths.values()):
+            fail(f"{rec['name']}: no launch on a main path: {paths}")
     phase_train_ckpt()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -117,6 +117,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # ds0; batch, T, D, N; stream
         "mamba_scan_bwd_chunk_bf16": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,),
     },
+    "chunked_attention": {
+        # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream
+        **{f"chunked_attention_fwd_{t}": (_PTR,) * 5 + (_I64,) * 6 + (_PTR,)
+           for t in ("f32", "bf16")},
+        # q, k, v, out, dout, lse, delta, dq, dk, dv; B*H, tq, tk, d,
+        # causal, q_offset; stream
+        **{f"chunked_attention_bwd_{t}": (_PTR,) * 10 + (_I64,) * 6 + (_PTR,)
+           for t in ("f32", "bf16")},
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
 """ops — the public kernel API, the counterpart of ``repro.kernels.ops``.
 
-The same five functions with the same signatures, and the two SSM scans
-(``rwkv6_scan``, ``mamba_scan``), which the reference runs as
-``lax.scan`` inside its models and which take a gradient.  Each goes to
+The same five functions with the same signatures, and the three device
+loops that the reference runs as ``lax.scan`` inside its models and
+that take a gradient: the two SSM scans (``rwkv6_scan``,
+``mamba_scan``) and ``chunked_attention``.  Each goes to
 its kernel wrapper, which dispatches on where the tensors lie (see
 :mod:`repro_torch.kernels.dispatch`): CUDA tensors launch the
 hand-written kernel or raise, CPU tensors run the plain version in
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .chunked_attention import chunked_attention as _chunked
 from .flash_attention import flash_attention as _flash
 from .paged_attention import paged_attention as _paged
 from .ragged_matmul import ragged_matmul as _ragged
@@ -62,3 +64,11 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
                cmat: torch.Tensor, a: torch.Tensor, s: torch.Tensor):
     """The Mamba recurrence over time: ``(last state, y)``."""
     return _mamba(u, delta, bmat, cmat, a, s)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0,
+                      chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over key chunks, causal masks aligned
+    top-left at ``q_offset``; takes a gradient."""
+    return _chunked(q, k, v, causal=causal, q_offset=q_offset, chunk=chunk)

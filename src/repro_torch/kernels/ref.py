@@ -6,7 +6,8 @@ it, a scatter drops it, attention leaves it out of the softmax — and an
 index of at least the row count clips to the last row.  Arithmetic
 follows the Pallas kernels: float32 accumulation and softmax state, the
 output in the input's dtype.  The SSM scans are the port's first
-versions of the reference's ``lax.scan`` loops, one step a token.  The
+versions of the reference's ``lax.scan`` loops, one step a token, and
+``chunked_attention`` the reference's loop over key chunks.  The
 kernel wrappers run these on CPU tensors; on the card they are what the CUDA kernels are held against.
 """
 from __future__ import annotations
@@ -433,3 +434,87 @@ def mamba_scan_bwd_chunked(u, delta, bmat, cmat, a, s, ds, dy,
             hc = hc * e[:, i]
     return (du.to(u.dtype), ddelta.to(delta.dtype), dbm.to(bmat.dtype),
             dcm.to(cmat.dtype), da, ds0)
+
+
+#: the reference's finite mask value (``repro.models.layers.NEG_INF``)
+NEG_INF = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int = 512, q_offset: int = 0,
+                      return_lse: bool = False):
+    """Online-softmax attention over key chunks: the reference's
+    ``lax.scan`` in ``chunked_attention`` as a loop, one step a chunk.
+
+    q, k, v: (B, H, T, d) with equal head counts (the caller expands
+    GQA).  The causal key j counts for query i iff j <= q_offset + i;
+    keys past Tk (the reference zero-pads the last chunk) are masked with
+    the finite ``NEG_INF``.  Each step rounds where the reference's
+    rounds: q·k in the inputs' dtype, then float32 and scaled; p rounded
+    to v's dtype for its product, whose result is then float32; m, l and
+    the accumulator float32.  Returns the output in q's dtype, and with
+    ``return_lse`` also the per-row log-sum-exp ``m + log l`` (B, H, Tq),
+    float32, the statistic :func:`chunked_attention_bwd` takes."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    assert hkv == hq, "expand GQA heads before chunked_attention"
+    scale = 1.0 / (d ** 0.5)
+    chunk = min(chunk, tk)
+    n_chunks = -(-tk // chunk)
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    m = torch.full((b, hq, tq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hq, tq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, tq, d), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        kc = k[:, :, ci * chunk:(ci + 1) * chunk]
+        vc = v[:, :, ci * chunk:(ci + 1) * chunk]
+        if kc.shape[2] < chunk:  # the reference zero-pads the last chunk
+            pad = chunk - kc.shape[2]
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, pad))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
+        s = (q @ kc.transpose(-1, -2)).float() * scale
+        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        valid = k_pos < tk
+        if causal:
+            valid = valid[None, :] & (k_pos[None, :] <= q_pos[:, None])
+        s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + (p.to(vc.dtype) @ vc).float()
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
+
+
+def chunked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, dout: torch.Tensor,
+                          lse: torch.Tensor, *, causal: bool,
+                          q_offset: int = 0):
+    """The backward kernels' algorithm in float32: the gradients of q, k
+    and v of :func:`chunked_attention`, given its output, the output's
+    cotangent and the per-row log-sum-exp.  The probabilities are
+    recomputed from ``lse`` (``p = exp(s - lse)``, zero where masked),
+    ``D = rowsum(dout * out)``, ``dS = p (dout vᵀ - D)``; then ``dq = dS k
+    / √d``, ``dk = dSᵀ q / √d``, ``dv = pᵀ dout``, each in its input's
+    dtype.  Every row needs a live key (Tk >= 1, q_offset >= 0)."""
+    tq, d = q.shape[2], q.shape[3]
+    tk = k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    valid = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = (torch.arange(tk, device=q.device)[None, :]
+                 <= q_offset + torch.arange(tq, device=q.device)[:, None])
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (gf * out.float()).sum(-1, keepdim=True)
+    ds = p * (gf @ vf.transpose(-1, -2) - delta)
+    return ((ds @ kf * scale).to(q.dtype),
+            (ds.transpose(-1, -2) @ qf * scale).to(k.dtype),
+            (p.transpose(-1, -2) @ gf).to(v.dtype))

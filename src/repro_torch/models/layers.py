@@ -29,7 +29,11 @@ serving engine's poison counts and surviving tokens depend on it.  The
 port's ``flash_attention`` / ``paged_attention`` kernels return zeros for
 such rows (right for the kernel API) and are therefore not used here;
 the reference's model stack does not call its Pallas attention kernels
-either.
+either.  Attention without a cache (training, the encoder, cross
+attention) is the reference's device loop over key chunks, which on
+CUDA tensors runs as the chunked-attention kernels
+(:func:`chunked_attention`): there every row has a live key, so the
+finite NEG_INF never decides a softmax.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..kernels import chunked_attention as attention
 from .sharding import (constrain, current_mesh, data_axes, is_dtensor,
-                       local, reduce, shard_span, unshard)
+                       local, local_call, reduce, shard_span, unshard)
 
 NEG_INF = -1e30
 
@@ -94,42 +99,33 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk: int = 512,
                       q_offset: int = 0) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (a loop for ``lax.scan``).
+    """Online-softmax attention over KV chunks (the reference's
+    ``lax.scan``): :func:`repro_torch.kernels.chunked_attention.
+    chunked_attention`, the CUDA kernels on CUDA tensors, forward and
+    backward, and the plain loop on CPU tensors.
 
     q, k, v: (B, H, T, d) with equal head counts: the caller expands GQA.
+    Attention is independent per (batch row, head), so on CUDA DTensors
+    each rank runs the kernels on its own shards of both and nothing is
+    gathered (:func:`repro_torch.models.sharding.local_call`).  On CPU
+    the plain loop takes DTensors as they are, and DTensor runs each of
+    its steps on the ranks' shards: the dry run (fake CPU tensors)
+    counts that loop, as it did before the kernels.
     """
-    b, hq, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
-    assert hkv == hq, "expand GQA heads before chunked_attention"
-    scale = 1.0 / (d ** 0.5)
-    chunk = min(chunk, tk)
-    n_chunks = -(-tk // chunk)
-    q_pos = q_offset + torch.arange(tq, device=q.device)
-    m = torch.full((b, hq, tq, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hq, tq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, tq, d), dtype=torch.float32, device=q.device)
-    for ci in range(n_chunks):
-        kc = k[:, :, ci * chunk:(ci + 1) * chunk]
-        vc = v[:, :, ci * chunk:(ci + 1) * chunk]
-        if kc.shape[2] < chunk:  # the reference zero-pads the last chunk
-            pad = chunk - kc.shape[2]
-            kc = F.pad(kc, (0, 0, 0, pad))
-            vc = F.pad(vc, (0, 0, 0, pad))
-        s = (q @ kc.transpose(-1, -2)).float() * scale
-        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
-        valid = k_pos < tk
-        if causal:
-            valid = valid[None, :] & (k_pos[None, :] <= q_pos[:, None])
-        s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + (p.to(vc.dtype) @ vc).float()
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype)
+    assert k.shape[1] == q.shape[1], \
+        "expand GQA heads before chunked_attention"
+
+    def attend(q, k, v):
+        return attention.chunked_attention(q, k, v, causal=causal,
+                                           q_offset=q_offset, chunk=chunk)
+    if q.device.type == "cpu":
+        return attend(q, k, v)
+    return local_call(attend, (q, k, v), _ATTN_DIMS)
+
+
+#: where the batch (0) and the heads (1) of q lie in q, k and v, then in
+#: the output
+_ATTN_DIMS = ([{0: 0, 1: 1}] * 3, [{0: 0, 1: 1}])
 
 
 def whole_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,10 @@ rank's shard of a dimension starts), :func:`unshard` (replicate a
 DTensor over some mesh dimensions: the FSDP gather of a weight) and
 :func:`reduce` (a ``constrain`` whose partial sums are reduced once,
 through :class:`SumAcross`, an all-reduce whose gradient passes
-through).  Every reduction runs in its tensor's dtype, as the
-reference's psums do.
+through); :func:`local_call` runs a device loop whose rows are
+independent (the SSM scans, chunked attention) on each rank's shards.
+Every reduction runs in its tensor's dtype, as the reference's psums
+do.
 """
 from __future__ import annotations
 
@@ -175,6 +177,79 @@ def local(t: torch.Tensor, mesh, pl: Sequence,
         if p.is_shard():
             t = t.chunk(mesh.size(i), p.dim)[mesh.get_coordinate()[i]]
     return t
+
+
+def local_call(fn, args, dims):
+    """``fn(*args)`` on each rank's local shards when an argument is a
+    DTensor: a device loop (an SSM scan, chunked attention) whose batch
+    rows and heads or channels are independent, so that no rank needs
+    another's part.
+
+    ``dims`` is ``(in_dims, out_dims)``: for each argument, then for each
+    output, a map from the first argument's batch and head or channel
+    dimensions to its own.  Every mesh dimension shards the first
+    argument on one of those or none; an argument sharded as that
+    implies is taken as its local shard, a replicated one (a plain
+    tensor, or a DTensor replicated there) is sliced to this rank's
+    part, and its gradient is then a partial sum over that mesh
+    dimension, for autograd to reduce outside.  Nothing is gathered, in
+    the forward or the backward; an argument sharded any other way
+    raises.  The outputs (one tensor or a tuple, as ``fn`` returns them)
+    come back as DTensors placed as the first argument implies.  With no
+    DTensor argument, ``fn(*args)``."""
+    if not any(is_dtensor(t) for t in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    in_dims, out_dims = dims
+    lead = args[0]
+    if not is_dtensor(lead):
+        raise ValueError("a local call on DTensors takes a DTensor first "
+                         "argument")
+    mesh = lead.device_mesh
+    coord = mesh.get_coordinate()
+    # the first argument's dimension each mesh dimension shards, or None
+    split = []
+    for p in lead.placements:
+        if p.is_replicate():
+            split.append(None)
+        elif p.is_shard() and p.dim in in_dims[0]:
+            split.append(p.dim)
+        else:
+            raise ValueError(f"a local call's first argument is placed "
+                             f"{lead.placements}: only its dimensions "
+                             f"{sorted(in_dims[0])} may be sharded")
+
+    def placed(m):
+        return [Replicate() if a is None or a not in m else Shard(m[a])
+                for a in split]
+
+    shards = []
+    for t, m in zip(args, in_dims):
+        want = placed(m)
+        if is_dtensor(t):
+            grad = []
+            for i, (p, q) in enumerate(zip(t.placements, want)):
+                if p.is_replicate():
+                    grad.append(Partial() if split[i] is not None else p)
+                elif p == q:
+                    grad.append(p)
+                else:
+                    raise ValueError(
+                        f"a local call's argument placed {t.placements} "
+                        f"where {want} is needed would be gathered")
+            have = t.placements
+            t = t.to_local(grad_placements=grad)
+        else:
+            have = [Replicate()] * len(want)
+        for i, (p, q) in enumerate(zip(have, want)):
+            if q.is_shard() and p.is_replicate():
+                t = t.chunk(mesh.size(i), q.dim)[coord[i]]
+        shards.append(t)
+    outs = fn(*shards)
+    single = torch.is_tensor(outs)
+    outs = tuple(DTensor.from_local(o, mesh, placed(m), run_check=False)
+                 for o, m in zip((outs,) if single else outs, out_dims))
+    return outs[0] if single else outs
 
 
 def shard_span(x: torch.Tensor, dim: int) -> Tuple[int, int, List[int]]:

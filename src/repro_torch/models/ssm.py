@@ -12,11 +12,12 @@ Decode carries the state explicitly.
 
 Under a mesh (DTensor parameters and states) the heads (RWKV) or the
 channels (Mamba) shard over ``model``, as the states do, and each rank
-scans its own (:func:`_local_scan`); the small per-channel parameters
-that every shard needs whole (RWKV's token-shift mix, Mamba's B and C
-projections and A) and RWKV's token-shift carry are replicated over ``model``
-first, and the output projection's partial sums are reduced once.  On
-plain tensors these steps do nothing.
+scans its own (:func:`repro_torch.models.sharding.local_call`); the
+small per-channel parameters that every shard needs whole (RWKV's
+token-shift mix, Mamba's B and C projections and A) and RWKV's
+token-shift carry are replicated over ``model`` first, and the output
+projection's partial sums are reduced once.  On plain tensors these
+steps do nothing.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from ..kernels import scan
 from .layers import weight, whole_product
-from .sharding import constrain, is_dtensor, reduce, unshard
+from .sharding import constrain, local_call, reduce, unshard
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +88,9 @@ def _rwkv6_scan(r, k, v, w, u, s):
     rwkv6_scan`).  r, k, v, w: (B, T, H, hd); u: (H, hd); s: (B, H, hd,
     hd) float32.  Returns the last state and the outputs (B, T, H, hd) in
     r's dtype.  On DTensors each rank scans its own batch rows and heads
-    (:func:`_local_scan`)."""
-    return _local_scan(scan.rwkv6_scan, (r, k, v, w, u, s), _RWKV6_DIMS)
+    (:func:`repro_torch.models.sharding.local_call`)."""
+    return local_call(_contiguous(scan.rwkv6_scan), (r, k, v, w, u, s),
+                      _RWKV6_DIMS)
 
 
 #: where the batch (0) and the heads (2) of r lie in each input of the
@@ -136,9 +138,10 @@ def _mamba_scan(u, delta, bmat, cmat, a, s):
     mamba_scan`).  u: (B, T, D); delta: (B, T, 1); bmat, cmat: (B, T, N);
     a: (D, N) float32; s: (B, D, N) float32.  Returns the last state and
     the outputs (B, T, D) in cmat's dtype.  On DTensors each rank scans
-    its own batch rows and channels (:func:`_local_scan`)."""
-    return _local_scan(scan.mamba_scan, (u, delta, bmat, cmat, a, s),
-                       _MAMBA_DIMS)
+    its own batch rows and channels
+    (:func:`repro_torch.models.sharding.local_call`)."""
+    return local_call(_contiguous(scan.mamba_scan),
+                      (u, delta, bmat, cmat, a, s), _MAMBA_DIMS)
 
 
 #: where the batch (0) and the channels (2) of u lie in each input of the
@@ -147,72 +150,6 @@ _MAMBA_DIMS = ([{0: 0, 2: 2}, {0: 0}, {0: 0}, {0: 0}, {2: 0},
                 {0: 0, 2: 1}], [{0: 0, 2: 1}, {0: 0, 2: 2}])
 
 
-# ---------------------------------------------------------------------------
-# the scans on local shards
-# ---------------------------------------------------------------------------
-
-
-def _local_scan(fn, args, dims):
-    """``fn(*args)`` (a scan of :mod:`repro_torch.kernels.scan`), on each
-    rank's local shards when an argument is a DTensor.
-
-    The batch rows and the heads (RWKV) or channels (Mamba) are
-    independent, so no rank needs another's part: ``dims`` maps the
-    first argument's batch and head or channel dimensions to each
-    argument's and each output's.  Every mesh dimension shards the first
-    argument on one of those two or none; an argument sharded as that
-    implies is taken as its local shard, a replicated one (a plain
-    tensor, or a DTensor replicated there) is sliced to this rank's part,
-    and its gradient is then a partial sum over that mesh dimension, for
-    autograd to reduce outside.  Nothing is gathered, in the forward or
-    the backward; an argument sharded any other way raises.  The outputs
-    come back as DTensors placed as the first argument implies."""
-    if not any(is_dtensor(t) for t in args):
-        return fn(*(t.contiguous() for t in args))
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    in_dims, out_dims = dims
-    lead = args[0]
-    if not is_dtensor(lead):
-        raise ValueError("a scan on DTensors takes a DTensor first argument")
-    mesh = lead.device_mesh
-    coord = mesh.get_coordinate()
-    # the first argument's dimension each mesh dimension shards, or None
-    split = []
-    for p in lead.placements:
-        if p.is_replicate():
-            split.append(None)
-        elif p.is_shard() and p.dim in in_dims[0]:
-            split.append(p.dim)
-        else:
-            raise ValueError(f"a scan's first argument is placed "
-                             f"{lead.placements}: only its dimensions "
-                             f"{sorted(in_dims[0])} may be sharded")
-
-    def placed(m):
-        return [Replicate() if a is None or a not in m else Shard(m[a])
-                for a in split]
-
-    local = []
-    for t, m in zip(args, in_dims):
-        want = placed(m)
-        if is_dtensor(t):
-            grad = []
-            for i, (p, q) in enumerate(zip(t.placements, want)):
-                if p.is_replicate():
-                    grad.append(Partial() if split[i] is not None else p)
-                elif p == q:
-                    grad.append(p)
-                else:
-                    raise ValueError(
-                        f"a scan argument placed {t.placements} where "
-                        f"{want} is needed would be gathered")
-            have = t.placements
-            t = t.to_local(grad_placements=grad)
-        else:
-            have = [Replicate()] * len(want)
-        for i, (p, q) in enumerate(zip(have, want)):
-            if q.is_shard() and p.is_replicate():
-                t = t.chunk(mesh.size(i), q.dim)[coord[i]]
-        local.append(t.contiguous())
-    return tuple(DTensor.from_local(o, mesh, placed(m), run_check=False)
-                 for o, m in zip(fn(*local), out_dims))
+def _contiguous(fn):
+    """``fn`` on contiguous copies of its arguments (the scans' layout)."""
+    return lambda *args: fn(*(t.contiguous() for t in args))

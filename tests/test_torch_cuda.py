@@ -41,6 +41,17 @@ cotangent of the last state; backward launches are counted by route, no
 plain version is reached, and a chunked backward allocates at most a
 sixteenth of the step pair's workspace beyond its outputs.
 
+The chunked-attention kernels (the reference's loop over key chunks,
+forward and backward) are held through autograd to the plain loop in
+float32 and bfloat16 at every head width, causal and not, ``q_offset``
+0 and 37, Tq from 1 to 1500 against Tk from 1 to 1500 with partial last
+tiles: float32 within ``1e-5`` (output) and ``1e-4`` (gradients, of the
+largest of the three) of max|want|; bfloat16 against the loop run in
+float32 on the same values, no further from it than the bfloat16 loop
+plus one bf16 ulp.  Launches are counted, a CUDA tensor never reaches
+the loop, the backward is bitwise deterministic, and a head width or
+dtype the kernels are not built for raises.
+
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
 port is installed::
@@ -1339,3 +1350,117 @@ def test_cuda_scan_chunked_bwd_workspace_under_bound(cuda, kind):
     peak = torch.cuda.max_memory_allocated() - base
     kept = sum(o.numel() * o.element_size() for o in out)
     assert peak - kept <= step_ws / 16, (peak, kept, step_ws)
+
+
+# ---------------------------------------------------------------------------
+# chunked attention (the reference's device loop over key chunks)
+# ---------------------------------------------------------------------------
+
+#: Tq, Tk: one query and one key, past a 64-row tile, past a chunk of 512
+ATTN_SHAPES = [(1, 1), (7, 9), (256, 512), (256, 513), (1500, 1500),
+               (1, 1024)]
+#: (causal, q_offset)
+ATTN_MASKS = [(False, 0), (False, 37), (True, 0), (True, 37)]
+#: float32 tolerances of max|want|: the output; the gradients (of the
+#: largest of dq, dk and dv: dq and dk vanish where a row has one live
+#: key, leaving only the float32 rounding of dP - D)
+ATTN_F32_TOL, ATTN_F32_GRAD_TOL = 1e-5, 1e-4
+
+
+def _attn_case(dev, dtype, tq, tk, d, seed=40, b=2, h=2):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, h, t, d), generator=g).to(dtype).to(dev)
+            for t in (tq, tk, tk, tq)]
+
+
+def _attn_through(fn, q, k, v, dout, causal, q_offset):
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*xs, causal=causal, q_offset=q_offset)
+    return [out.detach()] + list(torch.autograd.grad(out, xs, dout))
+
+
+def _attn_loop(q, k, v, *, causal, q_offset):
+    return ref.chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
+@pytest.mark.parametrize("tq,tk", ATTN_SHAPES)
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chunked_attention_matches_plain(cuda, dtype, d, tq, tk, causal,
+                                              q_offset):
+    """The kernels, forward and backward through autograd, against the
+    plain loop: float32 at ``ATTN_F32_TOL`` / ``ATTN_F32_GRAD_TOL``;
+    bf16 against the loop run in float32 on the same values, no further
+    from it than the bf16 loop is plus one bf16 ulp of max|want|."""
+    from repro_torch.kernels import chunked_attention as ca
+    args = _attn_case(cuda, dtype, tq, tk, d)
+    got = _attn_through(ca.chunked_attention, *args, causal, q_offset)
+    want = _attn_through(_attn_loop, *(a.float() for a in args), causal,
+                         q_offset)
+    loop = _attn_through(_attn_loop, *args, causal, q_offset)
+    g_scale = max(w.abs().max().item() for w in want[1:])
+    for i, (g, w, lp) in enumerate(zip(got, want, loop)):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all(), i
+        scale = w.abs().max().item() if i == 0 else g_scale
+        err = (g.float() - w).abs().max().item()
+        if dtype == torch.float32:
+            allow = (ATTN_F32_TOL if i == 0 else ATTN_F32_GRAD_TOL) * scale
+        else:
+            allow = (lp.float() - w).abs().max().item() + 2.0 ** (
+                np.floor(np.log2(max(scale, 1e-30))) - 7)
+        assert err <= allow, (i, err, allow)
+
+
+def test_cuda_chunked_attention_counts_and_never_loops(cuda, monkeypatch):
+    """On CUDA tensors the layer launches the forward kernel once and the
+    backward entry once a call, in both dtypes, and never the plain loop
+    (made to raise); a transposed view gives the contiguous inputs'
+    result bitwise."""
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.models import layers
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain loop")
+
+    monkeypatch.setattr(ref, "chunked_attention", refuse)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = _attn_case(cuda, dtype, 70, 600, 64)
+        before = (ca.chunked_attention.launches,
+                  ca.chunked_attention.bwd_launches)
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = layers.chunked_attention(*xs, causal=True, q_offset=530)
+        out.backward(dout)
+        assert (ca.chunked_attention.launches,
+                ca.chunked_attention.bwd_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not qt.is_contiguous()
+        assert torch.equal(ops.chunked_attention(qt, k, v, causal=True,
+                                                 q_offset=530),
+                           out.detach())
+    torch.cuda.synchronize()
+
+
+def test_cuda_chunked_attention_backward_is_deterministic(cuda):
+    """No atomics: two backward launches on the same inputs give the same
+    gradients bit for bit."""
+    from repro_torch.kernels import chunked_attention as ca
+    q, k, v, dout = _attn_case(cuda, torch.bfloat16, 300, 700, 128)
+    out, lse = ca.chunked_attention_fwd(q, k, v, True, 400)
+    first = ca.chunked_attention_bwd(q, k, v, out, dout, lse, True, 400)
+    second = ca.chunked_attention_bwd(q, k, v, out, dout, lse, True, 400)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_cuda_chunked_attention_refuses_what_it_is_not_built_for(cuda):
+    """A head width the kernels are not built for, or a dtype, raises on
+    CUDA tensors; nothing falls back to the loop."""
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 4, 4, 32)
+    with pytest.raises(ValueError):
+        ops.chunked_attention(q, k, v, causal=True)
+    q, k, v, _ = _attn_case(cuda, torch.float16, 4, 4, 64)
+    with pytest.raises(TypeError):
+        ops.chunked_attention(q, k, v, causal=True)

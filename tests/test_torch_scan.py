@@ -24,7 +24,7 @@ CPU tensors against the reference's ``lax.scan`` inside its
   and w through their projections, u and A as parameters) and its
   carried state;
 * the wrappers' checks (dtype, shape, contiguity, T >= 1);
-* the local-shard path (``repro_torch.models.ssm._local_scan``) on two
+* the local-shard path (``repro_torch.models.sharding.local_call``) on two
   gloo ranks, on ``(1, 2)`` and ``(2, 1)`` ``("data", "model")`` meshes:
   heads or channels over ``model``, batch rows over ``data``, the
   replicated inputs sliced locally; outputs, last states and the
