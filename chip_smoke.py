@@ -94,7 +94,15 @@ in float32 than the bf16 loop plus one bf16 ulp), then each main path's
 shape in bf16 (the Whisper encoder, Whisper and Llama-3.2-Vision cross
 attention in prefill and decode, Phi-4-mini and Grok-1 training, forward
 and backward), timed beside the loop, ``scaled_dot_product_attention``
-and the bound.
+and the bound.  The bf16 kernels take routes
+(``chunked_attention.attn_plan``): ``tile`` and ``split`` in
+``csrc/chunked_attention_sm90.cu`` (TMA + ``wgmma``; split keys for one
+query), the first kernels' ``mma`` at head widths 16, 112 and 160;
+``[attn]`` sweeps every width (112 and 160 too), times each path's planned
+route beside the ``mma`` route on the same inputs (Kimi-K2 and
+StableLM-12B training among the paths), sweeps the split / tile
+threshold, and the kernels line has a record a route and way, its
+launches summed over the main paths that take it.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
@@ -271,7 +279,8 @@ def _sass_counts(path) -> dict:
         n = len(re.findall(r"\b(?:LDL|STL)\b", block))
         if n:
             name = re.search(r"\d\d?((?:rwkv6|mamba|spec|ragged|flash|paged|"
-                             r"colsum)\w*?_kernel)", block.split("\n", 1)[0])
+                             r"colsum|attn)\w*?_kernel\w*?(?:Li\d+E)*)",
+                             block.split("\n", 1)[0])
             local[name.group(1) if name else block[:40]] = n
     out["LDL/STL"] = sum(local.values())
     out["kernels with local memory"] = local or "none"
@@ -298,7 +307,7 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line} ({fn[-60:]})")
             elif "spill" in line and " 0 bytes spill stores" not in line:
                 print(f"[build] {name}: {line} ({fn[-60:]})")
-            elif "warning" in line.lower():
+            elif "warning" in line.lower() or "Performance Loss" in line:
                 print(f"[build] {name}: {line}")
     for name in sorted(build.SIGNATURES):
         counts = _sass_counts(build.library_path(name))
@@ -2233,17 +2242,19 @@ def phase_scan() -> list:
 # ---------------------------------------------------------------------------
 
 #: [attn]'s edge sweep: query and key lengths (Tk past a tile and past a
-#: chunk of 512, so the last tile is partial), head widths, and (causal,
+#: chunk of 512, so the last tile is partial; Tq on both sides of the
+#: split route's threshold), head widths (every config's), and (causal,
 #: q_offset)
 ATTN_TQ = (1, 7, 256, 1500)
 ATTN_TK = (1, 9, 512, 513, 1024, 1500)
-ATTN_D = (16, 64, 128)
+ATTN_D = (16, 64, 112, 128, 160)
 ATTN_MASKS = ((False, 0), (False, 37), (True, 0), (True, 37))
 #: float32 tolerances, of max|want|: the output, and the gradients (of the
 #: largest of the call's three, since dq and dk vanish where a row has one
 #: live key and leave only the float32 rounding of dP - D)
 ATTN_F32_TOL = {"out": 1e-5, "grad": 1e-4}
 #: the main paths' shapes, bf16: B, H, Tq, Tk, d, causal, backward too
+#: (Kimi-K2 and StableLM-12B train at head widths 112 and 160)
 ATTN_PATHS = {
     "whisper-encoder": (8, 16, 1500, 1500, 64, False, False),
     "whisper-cross-prefill": (8, 16, 512, 1500, 64, False, False),
@@ -2252,13 +2263,41 @@ ATTN_PATHS = {
     "llama-cross-decode": (8, 64, 1, 1024, 128, False, False),
     "phi4-train": (8, 24, 256, 256, 128, True, True),
     "grok-train": (8, 48, 256, 256, 128, True, True),
+    "kimi-train": (8, 64, 256, 256, 112, True, True),
+    "stablelm-train": (8, 32, 256, 256, 160, True, True),
 }
+#: the split / tile threshold's sweep: the two cross-attention shapes
+#: (B, H, Tk, d) at these query counts
+ATTN_THRESHOLD_TQ = (1, 2, 4, 8)
+ATTN_THRESHOLD_SHAPES = ((8, 16, 1500, 64), (8, 64, 1024, 128))
 #: the float32 entries' shape: [train-small]'s smoke configs (2 x 16
 #: tokens, 4 heads of 16, causal)
 ATTN_SMOKE = (2, 4, 16, 16, 16, True, True)
-#: kernel-name fragments of the chunked-attention kernels
+#: kernel-name fragments of the chunked-attention kernels (the mma and
+#: simt routes', then the tile and split routes')
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_delta_kernel", "attn_bwd_kv_kernel",
-                "attn_bwd_q_kernel")
+                "attn_bwd_q_kernel", "attn_tile_fwd_kernel",
+                "attn_split_kernel", "attn_combine_kernel",
+                "attn_stats_kernel", "attn_kv_tile_kernel",
+                "attn_q_tile_kernel")
+#: the kernels line's records of the routes: (way, route) -> the record's
+#: name, its source, its main path's shape and the other shapes it takes
+ATTN_RECORDS = {
+    ("fwd", "tile"): ("chunked_attention_fwd_tile_bf16", "sm90",
+                      "whisper-encoder", ["whisper-cross-prefill",
+                                          "llama-cross-prefill",
+                                          "phi4-train", "grok-train"]),
+    ("fwd", "split"): ("chunked_attention_fwd_split_bf16", "sm90",
+                       "whisper-cross-decode", ["llama-cross-decode"]),
+    ("fwd", "mma"): ("chunked_attention_fwd_mma_bf16", "",
+                     "kimi-train", ["stablelm-train"]),
+    ("fwd", "simt"): ("chunked_attention_fwd_f32", "", "smoke", []),
+    ("bwd", "tile"): ("chunked_attention_bwd_tile_bf16", "sm90",
+                      "phi4-train", ["grok-train"]),
+    ("bwd", "mma"): ("chunked_attention_bwd_mma_bf16", "",
+                     "kimi-train", ["stablelm-train"]),
+    ("bwd", "simt"): ("chunked_attention_bwd_f32", "", "smoke", []),
+}
 
 
 def _attn_counts() -> tuple:
@@ -2266,10 +2305,21 @@ def _attn_counts() -> tuple:
     return ca.chunked_attention.launches, ca.chunked_attention.bwd_launches
 
 
+def _attn_routes() -> tuple:
+    """Copies of the launches by route, forward and backward."""
+    from repro_torch.kernels import chunked_attention as ca
+    return (dict(ca.chunked_attention.route_launches),
+            dict(ca.chunked_attention.bwd_route_launches))
+
+
 def _reset_attn() -> None:
     from repro_torch.kernels import chunked_attention as ca
     ca.chunked_attention.launches = 0
     ca.chunked_attention.bwd_launches = 0
+    for counts in (ca.chunked_attention.route_launches,
+                   ca.chunked_attention.bwd_route_launches):
+        for route in counts:
+            counts[route] = 0
 
 
 @contextlib.contextmanager
@@ -2334,15 +2384,22 @@ def _attn_loop(q, k, v, *, causal, q_offset):
     return ref.chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def _attn_check(tag, q, k, v, dout, causal, q_offset, grads=True) -> dict:
-    """The kernels (through the entry and autograd) against the plain
-    loop: float32 within :data:`ATTN_F32_TOL`; bf16 against the loop run
-    in float32 on the same values, no further from it than the bf16 loop
-    is plus one bf16 ulp of max|want| (of the largest gradient for the
-    gradients).  Returns, per output, the error and its allowance."""
+def _attn_mma(q, k, v, dout, causal, q_offset, grads=True):
+    """The ``mma`` route (``csrc/chunked_attention.cu``'s bf16 bodies) on
+    the same inputs: the output and the gradients of q, k and v."""
     from repro_torch.kernels import chunked_attention as ca
-    got = _attn_run(ca.chunked_attention, q, k, v, dout, causal, q_offset,
-                    grads)
+    out, lse = ca.mma_fwd(q, k, v, causal, q_offset)
+    if not grads:
+        return [out]
+    return [out, *ca.mma_bwd(q, k, v, out, dout, lse, causal, q_offset)]
+
+
+def _attn_held(tag, got, q, k, v, dout, causal, q_offset, grads) -> dict:
+    """``got`` (output and gradients) against the plain loop: float32
+    within :data:`ATTN_F32_TOL`; bf16 against the loop run in float32 on
+    the same values, no further from it than the bf16 loop is plus one
+    bf16 ulp of max|want| (of the largest gradient for the gradients).
+    Returns, per output, the error and its allowance."""
     want = _attn_run(_attn_loop, q.float(), k.float(), v.float(),
                      dout.float(), causal, q_offset, grads)
     bf16 = q.dtype == torch.bfloat16
@@ -2369,6 +2426,20 @@ def _attn_check(tag, q, k, v, dout, causal, q_offset, grads=True) -> dict:
                  f"{allow} (the bf16 loop's own {own})")
         out[name] = {"err": err, "allow": allow, "bf16_loop_err": own}
     return out
+
+
+def _attn_check(tag, q, k, v, dout, causal, q_offset, grads=True) -> dict:
+    """The kernels of the planned routes (through the entry and autograd)
+    against the plain loop (:func:`_attn_held`), and twice: the two runs
+    bitwise equal."""
+    from repro_torch.kernels import chunked_attention as ca
+    got = _attn_run(ca.chunked_attention, q, k, v, dout, causal, q_offset,
+                    grads)
+    again = _attn_run(ca.chunked_attention, q, k, v, dout, causal, q_offset,
+                      grads)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{tag}: two runs differ")
+    return _attn_held(tag, got, q, k, v, dout, causal, q_offset, grads)
 
 
 def _attn_pairs(b, h, tq, tk, causal, q_offset) -> int:
@@ -2405,11 +2476,12 @@ def _attn_bound(b, h, tq, tk, d, causal, bwd, dtype, clock) -> dict:
 
 
 def _attn_times(q, k, v, dout, causal, bwd) -> dict:
-    """Device ms a launch by CUDA-graph replay: the kernel, the plain
+    """Device ms a launch by CUDA-graph replay: the planned route's kernel
+    (``fwd_route``), the ``mma`` route on the same inputs, the plain
     loop, and ``scaled_dot_product_attention`` on the same inputs (the
-    library column only); with ``bwd`` the backward entry, the plain
-    backward (``ref.chunked_attention_bwd``) and SDPA's backward (the
-    profiler's device time of its forward and backward kernels, less its
+    library column only); with ``bwd`` the same for the backward (the
+    plain backward ``ref.chunked_attention_bwd``, SDPA's backward as the
+    profiler's device time of its forward and backward kernels less its
     forward's)."""
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_attention as ca
@@ -2417,16 +2489,26 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
     big = q.numel() * k.shape[2] // q.shape[3] > 2 ** 27
     reps = 10 if big else 50
     is_causal = causal  # q_offset 0 and Tq = Tk on the causal paths
-    r = {"fwd_ms": device_ms(lambda: ca.chunked_attention_fwd(
-        q, k, v, causal, 0), reps=reps, replays=3),
-        "fwd_plain_ms": device_ms(lambda: ref.chunked_attention(
-            q, k, v, causal=causal), reps=max(2, reps // 5), replays=2),
-        "fwd_library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=is_causal), reps=reps, replays=3)}
+    route = ca.attn_plan(q, k, v, causal, 0)
+    new = ca._FWD[route]
+    r = {"fwd_route": route,
+         "fwd_ms": device_ms(lambda: new(q, k, v, causal, 0), reps=reps,
+                             replays=3),
+         "fwd_mma_ms": device_ms(lambda: ca.mma_fwd(q, k, v, causal, 0),
+                                 reps=reps, replays=3),
+         "fwd_plain_ms": device_ms(lambda: ref.chunked_attention(
+             q, k, v, causal=causal), reps=max(2, reps // 5), replays=2),
+         "fwd_library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v, is_causal=is_causal), reps=reps, replays=3)}
     if not bwd:
         return r
     out, lse = ca.chunked_attention_fwd(q, k, v, causal, 0)
-    r["bwd_ms"] = device_ms(lambda: ca.chunked_attention_bwd(
+    broute = ca.attn_bwd_plan(q, k, v, out, dout, causal, 0)
+    bnew = ca._BWD[broute]
+    r["bwd_route"] = broute
+    r["bwd_ms"] = device_ms(lambda: bnew(q, k, v, out, dout, lse, causal, 0),
+                            reps=reps, replays=3)
+    r["bwd_mma_ms"] = device_ms(lambda: ca.mma_bwd(
         q, k, v, out, dout, lse, causal, 0), reps=reps, replays=3)
     r["bwd_plain_ms"] = device_ms(lambda: ref.chunked_attention_bwd(
         q, k, v, out, dout, lse, causal=causal), reps=max(2, reps // 5),
@@ -2454,21 +2536,28 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
 
 def phase_attn() -> list:
     """The chunked-attention kernels (``repro_torch.kernels.
-    chunked_attention``: forward and backward, ``csrc/chunked_attention.
-    cu``) against the plain loop on the card.  First the edge sweep:
-    float32 and bf16, every d in :data:`ATTN_D`, causal and not,
-    ``q_offset`` 0 and 37, every Tq in :data:`ATTN_TQ` against every Tk
-    in :data:`ATTN_TK` (B = 2, H = 2), output and the gradients of q, k
-    and v (:func:`_attn_check`).  Then each main path's shape in bf16
-    (:data:`ATTN_PATHS`): checked the same way (the gradients on the
-    training paths), and timed beside the plain loop, SDPA and the bound.
-    Returns the kernels line's records (``launches`` and ``main_path``
-    filled from the main paths' phases)."""
+    chunked_attention``: the ``tile`` and ``split`` routes of
+    ``csrc/chunked_attention_sm90.cu``, the ``mma`` and ``simt`` routes of
+    ``csrc/chunked_attention.cu``, forward and backward) against the
+    plain loop on the card.  First the edge sweep through the entry (the
+    planned routes): float32 and bf16, every d in :data:`ATTN_D`, causal
+    and not, ``q_offset`` 0 and 37, every Tq in :data:`ATTN_TQ` against
+    every Tk in :data:`ATTN_TK` (B = 2, H = 2), output and the gradients
+    of q, k and v (:func:`_attn_check`, two runs bitwise equal).  Then
+    each main path's shape in bf16 (:data:`ATTN_PATHS`): the planned
+    route and the ``mma`` route on the same inputs, each checked the
+    same way (the gradients on the training paths), and timed beside the
+    plain loop, SDPA and the bound; then the split / tile threshold's
+    sweep.  Returns the kernels line's records, one a route and way
+    (``launches`` and ``main_path`` filled from the main paths'
+    phases)."""
+    from repro_torch.kernels import chunked_attention as ca
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(24)
     clock = _sm_clock_hz()
-    saved = _attn_counts()
+    saved = (_attn_counts(), _attn_routes())
     worst, n = {}, 0
+    _reset_attn()
     for dtype in (torch.float32, torch.bfloat16):
         for d in ATTN_D:
             for causal, off in ATTN_MASKS:
@@ -2485,20 +2574,27 @@ def phase_attn() -> list:
                             share = e["err"] / max(e["allow"], 1e-30)
                             worst[key] = max(worst.get(key, 0.0), share)
         _free()
-    print(f"[attn] edge sweep: {n} calls (float32 and bf16; d {ATTN_D}; "
-          f"causal and not, q_offset 0 and 37; Tq {ATTN_TQ} x Tk {ATTN_TK}),"
-          f" output and the gradients of q, k and v agree with the plain "
-          f"loop; largest share of the allowance (float32 {ATTN_F32_TOL} "
-          f"of max; bf16 the bf16 loop's own error from the float32 loop "
-          f"plus one bf16 ulp): " + ", ".join(
+    swept = _attn_routes()
+    print(f"[attn] edge sweep: {n} calls, each twice (float32 and bf16; d "
+          f"{ATTN_D}; causal and not, q_offset 0 and 37; Tq {ATTN_TQ} x Tk "
+          f"{ATTN_TK}), output and the gradients of q, k and v agree with "
+          f"the plain loop and two runs are bitwise equal; routes forward "
+          f"{swept[0]}, backward {swept[1]}; largest share of the allowance "
+          f"(float32 {ATTN_F32_TOL} of max; bf16 the bf16 loop's own error "
+          f"from the float32 loop plus one bf16 ulp): " + ", ".join(
               f"{t} {nm} {s:.3f}" for (t, nm), s in sorted(worst.items()))
           + f" ({time.perf_counter() - t0:.1f} s)")
+    if not all(swept[0].values()) or not all(swept[1].values()):
+        fail(f"attn: the sweep left a route unlaunched: {swept}")
     paths = {}
     for path, (b, h, tq, tk, d, causal, bwd) in ATTN_PATHS.items():
         args = _attn_inputs(b, h, tq, tk, d, torch.bfloat16, gen)
         err = _attn_check(f"attn {path}", *args, causal, 0, grads=bwd)
-        r = {"shape": [b, h, tq, tk, d], "causal": causal,
-             "err": err, **_attn_times(*args, causal, bwd)}
+        err_mma = _attn_held(f"attn {path} mma route",
+                             _attn_mma(*args, causal, 0, grads=bwd), *args,
+                             causal, 0, bwd)
+        r = {"shape": [b, h, tq, tk, d], "causal": causal, "err": err,
+             "err_mma": err_mma, **_attn_times(*args, causal, bwd)}
         r["fwd_bound"] = _attn_bound(b, h, tq, tk, d, causal, False,
                                      torch.bfloat16, clock)
         if bwd:
@@ -2509,21 +2605,39 @@ def phase_attn() -> list:
             bd = r[f"{way}_bound"]
             e = {k: v["err"] for k, v in err.items()}
             print(f"[attn] {path} ({b} x {h} x {tq} x {tk}, d={d}"
-                  f"{', causal' if causal else ''}) {way}: "
-                  f"{r[f'{way}_ms'] * 1e3:.2f} us a launch; plain "
+                  f"{', causal' if causal else ''}) {way}: route "
+                  f"{r[f'{way}_route']} {r[f'{way}_ms'] * 1e3:.2f} us a "
+                  f"launch; the mma route "
+                  f"{r[f'{way}_mma_ms'] * 1e3:.2f} us "
+                  f"({r[f'{way}_mma_ms'] / r[f'{way}_ms']:.2f}x); plain "
                   f"{r[f'{way}_plain_ms'] * 1e3:.2f} us; SDPA "
                   f"{r[f'{way}_library_ms'] * 1e3:.2f} us; bound "
                   f"{bd['bound_ms'] * 1e3:.2f} us by {bd['bound_kind']} ("
                   + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in
                               bd["bound_terms_ms"].items())
-                  + f"), {bd['bound_ms'] / r[f'{way}_ms']:.1%} of it; max "
-                  f"abs error against the float32 loop "
+                  + f"), {bd['bound_ms'] / r[f'{way}_ms']:.1%} of it (mma "
+                  f"{bd['bound_ms'] / r[f'{way}_mma_ms']:.1%}); max abs "
+                  f"error against the float32 loop "
                   + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
                   + (f"; the loop forward and autograd backward "
                      f"{r['loop_fwd_bwd_ms'] * 1e3:.1f} us (eager)"
                      if way == "bwd" else "") + f" ({smi()})")
         del args
         _free()
+    # where the split route stops beating the tile route
+    for b, h, tk, d in ATTN_THRESHOLD_SHAPES:
+        cells = []
+        for tq in ATTN_THRESHOLD_TQ:
+            q, k, v, _ = _attn_inputs(b, h, tq, tk, d, torch.bfloat16, gen)
+            t_split = device_ms(lambda: ca.split_fwd(q, k, v, False),
+                                reps=50, replays=3)
+            t_tile = device_ms(lambda: ca.tile_fwd(q, k, v, False),
+                               reps=50, replays=3)
+            cells.append(f"Tq {tq}: split {t_split * 1e3:.2f} / tile "
+                         f"{t_tile * 1e3:.2f}")
+        print(f"[attn] threshold ({b} x {h} x Tq x {tk}, d={d}), us a "
+              f"launch: " + "; ".join(cells) + f" (the plan takes split up "
+              f"to Tq {ca.SPLIT_MAX_TQ})")
     # the float32 entries at [train-small]'s shape
     b, h, tq, tk, d, causal, _ = ATTN_SMOKE
     args = _attn_inputs(b, h, tq, tk, d, torch.float32, gen)
@@ -2539,21 +2653,34 @@ def phase_attn() -> list:
           f"backward {small['bwd_ms'] * 1e3:.2f} us a launch (CUDA cores); "
           f"plain {small['fwd_plain_ms'] * 1e3:.2f} / "
           f"{small['bwd_plain_ms'] * 1e3:.2f} us")
-    from repro_torch.kernels import chunked_attention as ca
-    ca.chunked_attention.launches, ca.chunked_attention.bwd_launches = saved
+    (ca.chunked_attention.launches,
+     ca.chunked_attention.bwd_launches) = saved[0]
+    ca.chunked_attention.route_launches.update(saved[1][0])
+    ca.chunked_attention.bwd_route_launches.update(saved[1][1])
     print(f"[attn] SM clock {clock / 1e9:.3f} GHz (max, nvidia-smi) for the "
-          f"exp bound; {time.perf_counter() - t0:.1f} s")
+          f"exp bound; split workspace at the decode paths: " + ", ".join(
+              f"{p} {ca.split_plan(*_split_rows(p))[0]} splits of "
+              f"{ca.split_plan(*_split_rows(p))[1]} keys, "
+              f"{_split_ws_bytes(p) / 1e6:.3f} MB" for p in
+              ("whisper-cross-decode", "llama-cross-decode"))
+          + f"; {time.perf_counter() - t0:.1f} s")
+    shapes = dict(paths, smoke=small)
 
-    def record(way, dtype, main, shape_of, others):
-        r = shape_of
+    def record(way, route):
+        name, src, main, others = ATTN_RECORDS[(way, route)]
+        r = shapes[main]
         bd = r[f"{way}_bound"]
-        err = r["err"]
         keys = ("out",) if way == "fwd" else ("dq", "dk", "dv")
-        return {"name": f"chunked_attention_{way}_{dtype}", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/chunked_attention.cu",
+        if r.get(f"{way}_route", route) != route and main != "smoke":
+            fail(f"attn: {main} took the {r[f'{way}_route']} route, not "
+                 f"{route}")
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/chunked_attention"
+                          f"{'_' + src if src else ''}.cu",
                 "replaces": "src/repro/models/layers.py:110",
+                "attn_route": route,
                 "launches": None, "main_path": None,
-                "max_abs_err": max(err[x]["err"] for x in keys),
+                "max_abs_err": max(r["err"][x]["err"] for x in keys),
                 "err_against": "the plain loop in float32 on the same "
                                "values",
                 "ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
@@ -2562,19 +2689,29 @@ def phase_attn() -> list:
                 "library": "torch.nn.functional.scaled_dot_product_attention"
                            + (" (its backward kernels' device time)"
                               if way == "bwd" else ""),
+                "mma_route_ms": r.get(f"{way}_mma_ms"),
                 "shape": r["shape"], "at": main,
                 "bound_share": bd["bound_ms"] / r[f"{way}_ms"],
-                "attn": (way, dtype),
+                "attn": (way, route),
                 "paths": {p: {k: v for k, v in paths[p].items()
                               if k.startswith(way) or k in ("shape",)}
                           for p in others}}
 
-    return [record("fwd", "bf16", "whisper-encoder", paths["whisper-encoder"],
-                   [p for p in paths if p != "whisper-encoder"]),
-            record("bwd", "bf16", "phi4-train", paths["phi4-train"],
-                   ["grok-train"]),
-            record("fwd", "f32", "smoke", small, []),
-            record("bwd", "f32", "smoke", small, [])]
+    return [record(way, route) for way, route in ATTN_RECORDS]
+
+
+def _split_rows(path):
+    """(B*H, Tq, Tk) of an ATTN_PATHS shape, as split_plan takes them."""
+    b, h, tq, tk = ATTN_PATHS[path][:4]
+    return b * h, tq, tk
+
+
+def _split_ws_bytes(path) -> int:
+    """The split route's workspace at an ATTN_PATHS shape."""
+    from repro_torch.kernels import chunked_attention as ca
+    bh, tq, tk = _split_rows(path)
+    return bh * tq * ca.split_plan(bh, tq, tk)[0] * (ATTN_PATHS[path][4] + 2) \
+        * 4
 
 
 # ---------------------------------------------------------------------------
@@ -3964,10 +4101,12 @@ def phase_cross() -> dict:
     steps cross-attend to the memory the port's ``_encode`` gives once, as
     the reference's decode takes memory as passed.  Every cross sublayer
     and encoder layer launches the chunked-attention kernel once a call
-    (counted; the plain loop never reached on the card); the wave is
-    served again with attention as its plain loop, which must commit the
-    same tokens (or a bf16 argmax tie, reported with its logit gap).
-    Returns the timed wave's forward launches by arch."""
+    (counted; the plain loop never reached on the card), prefill and the
+    encoder by the tile route, each decode step's one query by the split
+    route; the wave is served again with attention as its plain loop,
+    which must commit the same tokens (or a bf16 argmax tie, reported
+    with its logit gap).  Returns the timed wave's forward launches by
+    route, by arch."""
     import dataclasses
     from repro_torch.configs import base as cbase
     from repro_torch.models.model import build_model
@@ -4022,7 +4161,12 @@ def phase_cross() -> dict:
         if (fwd, bwd) != (want, 0):
             fail(f"cross {arch}: chunked attention launched {fwd} forward, "
                  f"{bwd} backward; want {want}, 0")
-        launches[arch] = fwd
+        # prefill (and the encoder) by the tile route, each decode step's
+        # one query by the split route
+        launches[arch] = routes = _attn_routes()[0]
+        if set(r for r, n in routes.items() if n) != {"tile", "split"}:
+            fail(f"cross {arch}: chunked attention routes {routes}, want "
+                 f"tile and split")
         if out.shape != (len(prompts), SERVE["max_new"] + 1) or not (
                 (out >= 0) & (out < cfg.vocab)).all():
             fail(f"cross {arch}: tokens {out}")
@@ -4034,8 +4178,8 @@ def phase_cross() -> dict:
               f"{float(np.mean(timed.decode_s)) * 1e3:.3f} ms a step "
               f"({len(timed.decode_s)} steps){enc}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; chunked "
-              f"attention launched {fwd} times, no plain loop reached "
-              f"({smi()})")
+              f"attention launched {fwd} times (by route {routes}), no "
+              f"plain loop reached ({smi()})")
         # the same wave with attention as its plain loop
         plain = _TimedModel(model, keep_logits=True)
         with _plain_attention():
@@ -4401,6 +4545,7 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
     if attn != (2 * n_attn, n_attn):
         fail(f"{tag}: chunked attention launched {attn} (forward, "
              f"backward); want {(2 * n_attn, n_attn)}")
+    attn_routes = _attn_routes()
     peak = torch.cuda.max_memory_allocated()
     if not np.all(np.isfinite(losses)) or not (
             0.5 * np.log(cfg.vocab) < losses[0] < 2.5 * np.log(cfg.vocab)):
@@ -4444,7 +4589,7 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
     return {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
             "losses": losses, "peak_bytes": peak, "flop_ms": flop_ms,
             "opt_ms": opt_ms, "profile": prof, "scans": scans,
-            "steps": len(losses), "attn": attn}
+            "steps": len(losses), "attn": attn_routes}
 
 
 def _train_poison(tag, model, params, batch) -> None:
@@ -4472,7 +4617,8 @@ def _pattern(cfg):
 
 def phase_train_dense() -> tuple:
     """Phi-4-mini-3.8B whole (32 layers, nothing cut), bf16, AdamW.
-    Returns the chunked-attention launches (forward, backward)."""
+    Returns the chunked-attention launches by route (forward,
+    backward)."""
     from repro_torch.configs import base as cbase
     cfg = cbase.get("phi4_mini_3_8b")
     res = _train_full("train-dense", cfg, f"all {cfg.n_layers} layers, "
@@ -4484,8 +4630,8 @@ def phase_train_dense() -> tuple:
 def phase_train_moe() -> tuple:
     """Grok-1-314B at full width, one [attn, moe] group (n_layers 64 ->
     1), ``dispatch="spec"``, Adafactor as ``make_optimizer`` picks for the
-    whole model.  Returns the chunked-attention launches (forward,
-    backward)."""
+    whole model.  Returns the chunked-attention launches by route
+    (forward, backward)."""
     import dataclasses
     from repro_torch.configs import base as cbase
     full = cbase.get("grok_1_314b")
@@ -4635,7 +4781,7 @@ def phase_train_ssm() -> dict:
           f"{3 * n_mamba} backward by the chunk route; chunked attention "
           f"(bf16, d=16) {out_attn[0]} forward, {out_attn[1]} backward")
     out["mamba_scan"] = dict(_scan_bwd_routes()["mamba_scan"])
-    out["attn"] = out_attn
+    out["attn"] = _attn_routes()
     _reset_scans()
     _reset_attn()
     del state, model
@@ -4759,28 +4905,34 @@ def main() -> None:
             rec["main_path"] = small
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its main path")
-    # chunked attention's launches by path: bf16 in [cross] and the
-    # full-width training phases (and Jamba's bf16 smoke run), float32 in
-    # [train-small]
+    # chunked attention's launches by route and path: bf16 in [cross]
+    # (prefill by tile, decode by split) and the full-width training
+    # phases (tile), Jamba's bf16 smoke run in [train-ssm] (d 16: mma),
+    # float32 in [train-small] (simt)
+    whisper = "[cross] Whisper-medium wave (encoder, cross)"
+    llama = "[cross] Llama-3.2-Vision wave (cross)"
+    jamba = "[train-ssm] Jamba smoke config, bf16"
     by_path = {
-        ("fwd", "bf16"): {
-            "[cross] Whisper-medium wave (encoder, cross)":
-                cross["whisper_medium"],
-            "[cross] Llama-3.2-Vision wave (cross)":
-                cross["llama_3_2_vision_90b"],
-            "[train-dense] Phi-4-mini": dense[0],
-            "[train-moe] Grok-1 group": moe[0],
-            "[train-ssm] Jamba smoke config, bf16": ssm_train["attn"][0]},
-        ("bwd", "bf16"): {
-            "[train-dense] Phi-4-mini": dense[1],
-            "[train-moe] Grok-1 group": moe[1],
-            "[train-ssm] Jamba smoke config, bf16": ssm_train["attn"][1]},
-        ("fwd", "f32"): {small: train["attn"][0]},
-        ("bwd", "f32"): {small: train["attn"][1]},
+        ("fwd", "tile"): {
+            whisper: cross["whisper_medium"]["tile"],
+            llama: cross["llama_3_2_vision_90b"]["tile"],
+            "[train-dense] Phi-4-mini": dense[0]["tile"],
+            "[train-moe] Grok-1 group": moe[0]["tile"]},
+        ("fwd", "split"): {
+            whisper: cross["whisper_medium"]["split"],
+            llama: cross["llama_3_2_vision_90b"]["split"]},
+        ("fwd", "mma"): {jamba: ssm_train["attn"][0]["mma"]},
+        ("fwd", "simt"): {small: train["attn"][0]},
+        ("bwd", "tile"): {
+            "[train-dense] Phi-4-mini": dense[1]["tile"],
+            "[train-moe] Grok-1 group": moe[1]["tile"]},
+        ("bwd", "mma"): {jamba: ssm_train["attn"][1]["mma"]},
+        ("bwd", "simt"): {small: train["attn"][1]},
     }
     for rec in attn:
         paths = by_path[rec.pop("attn")]
-        rec["main_path"], rec["launches"] = next(iter(paths.items()))
+        rec["main_path"] = next(iter(paths))
+        rec["launches"] = sum(paths.values())
         rec["launches_by_path"] = paths
         if not all(paths.values()):
             fail(f"{rec['name']}: no launch on a main path: {paths}")

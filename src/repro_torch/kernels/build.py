@@ -117,6 +117,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # ds0; batch, T, D, N; stream
         "mamba_scan_bwd_chunk_bf16": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,),
     },
+    "chunked_attention_sm90": {
+        # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream
+        "chunked_attention_tile_fwd_bf16": (_PTR,) * 5 + (_I64,) * 6 + (_PTR,),
+        # q, k, v, out, lse, ws; B*H, tq, tk, d, causal, q_offset,
+        # n_splits, split_keys; stream
+        "chunked_attention_split_fwd_bf16": (_PTR,) * 6 + (_I64,) * 8 + (
+            _PTR,),
+        # q, k, v, out, dout, lse, stats, dq, dk, dv; B*H, tq, tk, d,
+        # causal, q_offset; stream
+        "chunked_attention_tile_bwd_bf16": (_PTR,) * 10 + (_I64,) * 6 + (
+            _PTR,),
+    },
     "chunked_attention": {
         # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream
         **{f"chunked_attention_fwd_{t}": (_PTR,) * 5 + (_I64,) * 6 + (_PTR,)

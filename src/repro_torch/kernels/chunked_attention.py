@@ -6,32 +6,53 @@ JAX package's ``models/layers.py`` (``chunked_attention``), which XLA
 compiles into one loop on the device; no Pallas kernel computes it.  Its
 model stack calls it on every attention without a KV cache: training,
 the enc-dec encoder, every cross-attention sublayer (in prefill and in
-each decode step).  Here it is a pair of hand-written kernels behind a
-``torch.autograd.Function`` (``csrc/chunked_attention.cu``): the forward
-keeps the running max, sum and output of a 64-row query tile in float32
-registers and writes the output and the per-row log-sum-exp, never a
-score; the backward recomputes the probabilities from that statistic
-(``D = rowsum(dO * O)``, then a block per key tile for dK and dV and a
-block per query tile for dQ, no atomics).  bfloat16 runs its products on
-the tensor cores (``mma.sync`` m16n8k16, float32 accumulators), float32
-on the CUDA cores.
+each decode step).  Here it is hand-written kernels behind a
+``torch.autograd.Function``: the forward writes the output and the
+per-row log-sum-exp, never a score; the backward recomputes the
+probabilities from that statistic (``D = rowsum(dO * O)``, then dK and
+dV by key tile and dQ by query tile, no atomics, so two runs are bitwise
+equal).
+
+Routes, picked by :func:`attn_plan` and :func:`attn_bwd_plan` from the
+dtype, the shapes and the alignment alone:
+
+* ``"tile"`` — bfloat16, d in :data:`TILE_HEAD_DIMS`, more than
+  :data:`SPLIT_MAX_TQ` queries: ``csrc/chunked_attention_sm90.cu``, a
+  TMA ring and ``wgmma`` (the next tile's ``Q Kᵀ`` and the last tile's
+  ``P V`` in flight beside the softmax, the two consumer warpgroups
+  taking turns).  Backward ``"tile"`` for bfloat16 at those widths,
+  whatever the forward's route: dK / dV and dQ on TMA rings and
+  ``wgmma``.
+* ``"split"`` — bfloat16, at most :data:`SPLIT_MAX_TQ` queries (every
+  decode step's cross attention has one): the same file; each head's
+  keys cut into splits (:func:`split_plan`), float32 partials in a
+  workspace, combined in split order by a second kernel.
+* ``"mma"`` — bfloat16 at the other widths (16, 112, 160):
+  ``csrc/chunked_attention.cu`` on ``mma.sync``, forward and backward.
+* ``"simt"`` — float32: the same file's CUDA-core bodies.
 
 The result does not depend on the reference's chunk of 512: a masked key
 adds exactly zero to a row that has a live key, and every row has one
 (Tk >= 1, ``q_offset >= 0``).  The kernels round otherwise than the loop
-(scores unrounded, p and dS rounded to bfloat16 for their products), so
-bfloat16 results are held to the loop run in float32 on the same values:
-no further from it than the bfloat16 loop is, plus one bfloat16 ulp.
+(scores unrounded, p and dS rounded to bfloat16 for their products; the
+split route keeps p in float32), so bfloat16 results are held to the
+loop run in float32 on the same values: no further from it than the
+bfloat16 loop is, plus one bfloat16 ulp.
 
-CUDA tensors launch the kernels (or raise); CPU tensors run the plain
-loop :func:`repro_torch.kernels.ref.chunked_attention`, and autograd
-differentiates it.  The kernel's plain backward is
-:func:`repro_torch.kernels.ref.chunked_attention_bwd`.
-``chunked_attention.launches`` counts forward launches,
-``chunked_attention.bwd_launches`` backward ones (one entry: three
-kernels).
+CUDA tensors launch the kernels of their route (or raise: a route that
+fails never gives way to another or to the loop); CPU tensors run the
+plain loop :func:`repro_torch.kernels.ref.chunked_attention`, and
+autograd differentiates it.  Plain versions of the kernels' algorithms:
+:func:`repro_torch.kernels.ref.chunked_attention_bwd` (every backward
+route), :func:`repro_torch.kernels.ref.chunked_attention_split` (the
+split route's partials and combine).  ``chunked_attention.launches``
+counts forward launches (by route in ``.route_launches``),
+``chunked_attention.bwd_launches`` backward ones (by route in
+``.bwd_route_launches``; one entry: three kernels).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -39,8 +60,28 @@ from . import ref
 from .build import check, load
 from .dispatch import FLOAT_DTYPES, aligned16, on_cuda, stream_of, suffix
 
-#: head widths the kernels are built for
-HEAD_DIMS = (16, 64, 128)
+#: head widths the kernels are built for: every head width of the repo's
+#: configs (Kimi-K2 112, StableLM-12B 160)
+HEAD_DIMS = (16, 64, 112, 128, 160)
+#: head widths of the ``tile`` routes (TMA boxes of 64 columns; wgmma N)
+TILE_HEAD_DIMS = (64, 128)
+#: a bfloat16 call with at most this many queries takes the ``split``
+#: route: every decode step's cross attention.  chip_smoke.py's ``[attn]``
+#: threshold lines measure it on an H100 at Whisper's cross-attention
+#: shape (128 heads x 1500 keys, d 64) and Llama-3.2-Vision's (512 heads x
+#: 1024 keys, d 128): from two queries on the tile route won at both; at
+#: one query the split route won at Llama-3.2-Vision's and the tile route
+#: (one block a head) at Whisper's, by under a tenth (PERF.md)
+SPLIT_MAX_TQ = 1
+#: blocks the split route aims for (two a streaming multiprocessor of an
+#: H100: more, shorter splits were slower at both decode shapes), and the
+#: fewest keys a split
+SPLIT_TARGET_BLOCKS = 2 * 132
+SPLIT_MIN_KEYS = 64
+#: the backward tile route pads its row statistics to this many rows
+STAT_ROWS = 64
+ROUTES = ("tile", "split", "mma", "simt")
+BWD_ROUTES = ("tile", "mma", "simt")
 
 
 def _check(q, k, v, q_offset: int, chunk: int) -> None:
@@ -76,6 +117,196 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if aligned16(t) else t.clone()
 
 
+def attn_plan(q, k, v, causal: bool, q_offset: int = 0) -> str:
+    """The forward route of a checked call (see the module's docstring):
+    ``"simt"`` for float32; for bfloat16 with q, k and v 16-byte aligned
+    (the operands the entry passes always are), ``"split"`` up to
+    :data:`SPLIT_MAX_TQ` queries, ``"tile"`` beyond that at d in
+    :data:`TILE_HEAD_DIMS`, else ``"mma"``.  The mask (``causal``,
+    ``q_offset``) does not change the route."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    aligned = all(aligned16(t) for t in (q, k, v))
+    if aligned and q.shape[2] <= SPLIT_MAX_TQ:
+        return "split"
+    if aligned and q.shape[3] in TILE_HEAD_DIMS:
+        return "tile"
+    return "mma"
+
+
+def attn_bwd_plan(q, k, v, out, dout, causal: bool, q_offset: int = 0) -> str:
+    """The backward route of a checked call, whatever route ran the
+    forward: ``"tile"`` for bfloat16 at d in :data:`TILE_HEAD_DIMS` with
+    the five tensors 16-byte aligned (TMA addresses them), ``"mma"`` for
+    other bfloat16 calls, ``"simt"`` for float32."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    if q.shape[3] in TILE_HEAD_DIMS and all(
+            aligned16(t) for t in (q, k, v, out, dout)):
+        return "tile"
+    return "mma"
+
+
+def split_plan(bh: int, tq: int, tk: int) -> Tuple[int, int]:
+    """``(n_splits, split_keys)`` of a split-route call over ``bh`` heads:
+    enough splits of at least :data:`SPLIT_MIN_KEYS` keys for about
+    :data:`SPLIT_TARGET_BLOCKS` blocks, ``split_keys`` a multiple of 16
+    and every split non-empty.  Its workspace is ``bh * tq * n_splits *
+    (d + 2)`` float32."""
+    rows = bh * tq  # a block per (row, split)
+    n = max(1, min(-(-SPLIT_TARGET_BLOCKS // rows), -(-tk // SPLIT_MIN_KEYS)))
+    keys = -(-tk // n)
+    keys = -(-keys // 16) * 16
+    return -(-tk // keys), keys
+
+
+def _outputs(q):
+    b, h, tq, _ = q.shape
+    return (torch.empty_like(q),
+            torch.empty((b, h, tq), dtype=torch.float32, device=q.device))
+
+
+def _count(route: str) -> None:
+    chunked_attention.launches += 1
+    chunked_attention.route_launches[route] += 1
+
+
+def tile_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """One launch of the ``tile`` forward on checked bfloat16 CUDA tensors
+    (d in :data:`TILE_HEAD_DIMS`): ``(out, lse)``, lse the per-row
+    log-sum-exp (B, H, Tq) float32."""
+    q, k, v = (_operand(t) for t in (q, k, v))
+    b, h, tq, d = q.shape
+    out, lse = _outputs(q)
+    fn = load("chunked_attention_sm90").chunked_attention_tile_fwd_bf16
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b * h, tq, k.shape[2], d, int(causal),
+                 q_offset, stream_of(q))
+    check(err, "chunked_attention tile forward")
+    _count("tile")
+    return out, lse
+
+
+def split_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """One launch of the ``split`` forward (the split kernel, then the
+    combine) on checked bfloat16 CUDA tensors: ``(out, lse)``.  Its
+    workspace is :func:`split_plan`'s."""
+    q, k, v = (_operand(t) for t in (q, k, v))
+    b, h, tq, d = q.shape
+    n_splits, keys = split_plan(b * h, tq, k.shape[2])
+    out, lse = _outputs(q)
+    ws = torch.empty(b * h * tq * n_splits * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    fn = load("chunked_attention_sm90").chunked_attention_split_fwd_bf16
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), ws.data_ptr(), b * h, tq, k.shape[2], d,
+                 int(causal), q_offset, n_splits, keys, stream_of(q))
+    check(err, "chunked_attention split forward")
+    _count("split")
+    return out, lse
+
+
+def mma_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """One launch of ``csrc/chunked_attention.cu``'s forward on checked
+    CUDA tensors: the ``mma`` route for bfloat16, ``simt`` for float32.
+    ``(out, lse)``."""
+    q, k, v = (_operand(t) for t in (q, k, v))
+    b, h, tq, d = q.shape
+    out, lse = _outputs(q)
+    fn = getattr(load("chunked_attention"),
+                 f"chunked_attention_fwd_{suffix(q.dtype)}")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b * h, tq, k.shape[2], d, int(causal),
+                 q_offset, stream_of(q))
+    check(err, "chunked_attention forward")
+    _count("mma" if q.dtype == torch.bfloat16 else "simt")
+    return out, lse
+
+
+_FWD = {"tile": tile_fwd, "split": split_fwd, "mma": mma_fwd,
+        "simt": mma_fwd}
+
+
+def chunked_attention_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """The forward by :func:`attn_plan`'s route on checked CUDA tensors:
+    ``(out, lse)``, lse the per-row log-sum-exp (B, H, Tq) float32."""
+    q, k, v = (_operand(t) for t in (q, k, v))
+    return _FWD[attn_plan(q, k, v, causal, q_offset)](q, k, v, causal,
+                                                     q_offset)
+
+
+def _bwd_operands(q, k, v, out, dout):
+    q, k, v, out = (_operand(t) for t in (q, k, v, out))
+    return q, k, v, out, _operand(dout.to(out.dtype))
+
+
+def _count_bwd(route: str) -> None:
+    chunked_attention.bwd_launches += 1
+    chunked_attention.bwd_route_launches[route] += 1
+
+
+def tile_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
+    """One launch of the ``tile`` backward on checked bfloat16 CUDA
+    tensors (d in :data:`TILE_HEAD_DIMS`; three kernels: the row
+    statistics, then dK and dV, then dQ): ``(dq, dk, dv)``.  Its workspace
+    is lse · log2(e) and D for the rows padded to :data:`STAT_ROWS`, 2 *
+    B * H * Tq_pad float32."""
+    q, k, v, out, dout = _bwd_operands(q, k, v, out, dout)
+    b, h, tq, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    pad = -(-tq // STAT_ROWS) * STAT_ROWS
+    stats = torch.empty(2 * b * h * pad, dtype=torch.float32,
+                        device=q.device)
+    lse = lse.float().contiguous()
+    fn = load("chunked_attention_sm90").chunked_attention_tile_bwd_bf16
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, tq,
+                 k.shape[2], d, int(causal), q_offset, stream_of(q))
+    check(err, "chunked_attention tile backward")
+    _count_bwd("tile")
+    return dq, dk, dv
+
+
+def mma_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
+    """One launch of ``csrc/chunked_attention.cu``'s backward entry on
+    checked CUDA tensors (three kernels: D, then dK and dV, then dQ): the
+    ``mma`` route for bfloat16, ``simt`` for float32.  ``(dq, dk, dv)``;
+    its workspace is D, B * H * Tq float32."""
+    q, k, v, out, dout = _bwd_operands(q, k, v, out, dout)
+    b, h, tq, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lse = lse.float().contiguous()
+    fn = getattr(load("chunked_attention"),
+                 f"chunked_attention_bwd_{suffix(q.dtype)}")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, tq,
+                 k.shape[2], d, int(causal), q_offset, stream_of(q))
+    check(err, "chunked_attention backward")
+    _count_bwd("mma" if q.dtype == torch.bfloat16 else "simt")
+    return dq, dk, dv
+
+
+_BWD = {"tile": tile_bwd, "mma": mma_bwd, "simt": mma_bwd}
+
+
+def chunked_attention_bwd(q, k, v, out, dout, lse, causal: bool,
+                          q_offset: int = 0):
+    """The backward by :func:`attn_bwd_plan`'s route on checked CUDA
+    tensors, from any forward route's ``out`` and ``lse``: ``(dq, dk,
+    dv)``."""
+    q, k, v, out, dout = _bwd_operands(q, k, v, out, dout)
+    route = attn_bwd_plan(q, k, v, out, dout, causal, q_offset)
+    return _BWD[route](q, k, v, out, dout, lse, causal, q_offset)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_offset: int = 0,
                       chunk: int = 512) -> torch.Tensor:
@@ -83,8 +314,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     head counts, float32 or bfloat16, Tk >= 1: the causal key j counts
     for query i iff ``j <= q_offset + i``.  Returns (B, H, Tq, d) in q's
     dtype.  On CPU tensors, the plain loop over chunks of ``chunk`` keys;
-    on CUDA tensors (d in :data:`HEAD_DIMS`) the kernels, forward and
-    backward, whose tiles do not depend on ``chunk``."""
+    on CUDA tensors (d in :data:`HEAD_DIMS`) the kernels of the planned
+    routes, forward and backward, whose tiles do not depend on
+    ``chunk``."""
     cuda = on_cuda(q, k, v)
     _check(q, k, v, q_offset, chunk)
     if not cuda:
@@ -94,46 +326,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"chunked_attention: head dim {q.shape[3]} not in "
                          f"{HEAD_DIMS}")
     return _ChunkedAttention.apply(q, k, v, bool(causal), int(q_offset))
-
-
-def chunked_attention_fwd(q, k, v, causal: bool, q_offset: int = 0):
-    """One launch of the forward kernel on checked CUDA tensors:
-    ``(out, lse)``, lse the per-row log-sum-exp (B, H, Tq) float32."""
-    q, k, v = (_operand(t) for t in (q, k, v))
-    b, h, tq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    fn = getattr(load("chunked_attention"),
-                 f"chunked_attention_fwd_{suffix(q.dtype)}")
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b * h, tq, k.shape[2], d, int(causal),
-                 q_offset, stream_of(q))
-    check(err, "chunked_attention forward")
-    chunked_attention.launches += 1
-    return out, lse
-
-
-def chunked_attention_bwd(q, k, v, out, dout, lse, causal: bool,
-                          q_offset: int = 0):
-    """One launch of the backward entry on checked CUDA tensors (three
-    kernels: D, then dK and dV, then dQ): ``(dq, dk, dv)``.  Its
-    workspace is D, B * H * Tq float32."""
-    q, k, v, out = (_operand(t) for t in (q, k, v, out))
-    dout = _operand(dout.to(out.dtype))
-    b, h, tq, d = q.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    fn = getattr(load("chunked_attention"),
-                 f"chunked_attention_bwd_{suffix(q.dtype)}")
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, tq,
-                 k.shape[2], d, int(causal), q_offset, stream_of(q))
-    check(err, "chunked_attention backward")
-    chunked_attention.bwd_launches += 1
-    return dq, dk, dv
 
 
 class _ChunkedAttention(torch.autograd.Function):
@@ -155,6 +347,8 @@ class _ChunkedAttention(torch.autograd.Function):
 
 
 #: forward and backward kernel launches since the counts were last set
-#: to 0
+#: to 0, in all and by route
 chunked_attention.launches = 0
 chunked_attention.bwd_launches = 0
+chunked_attention.route_launches = dict.fromkeys(ROUTES, 0)
+chunked_attention.bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -13,7 +13,8 @@
 //
 // over the keys j < tk, and j <= q_offset + i when causal (the mask
 // aligns top-left, shifted by q_offset, unlike flash_attention.cu).  q is
-// (B*H, tq, d), k and v (B*H, tk, d), d in {16, 64, 128}.  Every row has
+// (B*H, tq, d), k and v (B*H, tk, d), d in {16, 64, 112, 128, 160} (every
+// head width of the repo's configs).  Every row has
 // a live key (tk >= 1, q_offset >= 0), so the reference's finite NEG_INF
 // never decides a row's softmax, and a masked key adds exactly zero, as
 // in the reference; here masked scores are -inf and fully masked key
@@ -334,6 +335,12 @@ __device__ __forceinline__ void fwd_tc(const Args& a, unsigned char* raw) {
   }
 }
 
+// gradient columns a bf16 dK / dV block owns: at d = 160 the dK and dV
+// accumulators of all columns (160 floats a thread) would spill, so two
+// blocks take half the columns each (both recompute S and dP)
+template <int D>
+__host__ __device__ constexpr int kv_tc_cols() { return D == 160 ? D / 2 : D; }
+
 template <int D>
 constexpr int kv_tc_smem() {
   return (2 * kTcN + 2 * kTcKvQ) * (D + 8) * 2 + 2 * kTcKvQ * 4;
@@ -341,15 +348,18 @@ constexpr int kv_tc_smem() {
 
 template <int D>
 __device__ __forceinline__ void bwd_kv_tc(const Args& a, unsigned char* raw) {
-  constexpr int LD = D + 8, kND = D / 8;
+  constexpr int C = kv_tc_cols<D>();  // gradient columns c0 .. c0 + C - 1
+  constexpr int LD = D + 8, kND = C / 8;
   bf16* ks = reinterpret_cast<bf16*>(raw);  // [kTcN][LD]
   bf16* vs = ks + kTcN * LD;                 // [kTcN][LD]
   bf16* qs = vs + kTcN * LD;                 // [kTcKvQ][LD]
   bf16* dos = qs + kTcKvQ * LD;              // [kTcKvQ][LD]
   float* lse_s = reinterpret_cast<float*>(dos + kTcKvQ * LD);  // [kTcKvQ]
   float* del_s = lse_s + kTcKvQ;                               // [kTcKvQ]
-  const int64_t bh = blockIdx.x / a.tiles;
-  const int64_t k0 = (blockIdx.x % a.tiles) * kTcN;
+  const int64_t block = blockIdx.x / (D / C);
+  const int c0 = int(blockIdx.x % (D / C)) * C;
+  const int64_t bh = block / a.tiles;
+  const int64_t k0 = (block % a.tiles) * kTcN;
   const bf16* qg = static_cast<const bf16*>(a.q) + bh * a.tq * D;
   const bf16* dog = static_cast<const bf16*>(a.dout) + bh * a.tq * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -424,12 +434,12 @@ __device__ __forceinline__ void bwd_kv_tc(const Args& a, unsigned char* raw) {
       to_a(pa, st[2 * kk], st[2 * kk + 1]);
       to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
 #pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
+      for (int nd = 0; nd < C / 16; ++nd) {
         uint32_t b[4];
-        frag_b_kn<LD>(b, dos, kk * 16, nd * 16, lane);
+        frag_b_kn<LD>(b, dos, kk * 16, c0 + nd * 16, lane);
         mma(dv[2 * nd], pa, b[0], b[1]);
         mma(dv[2 * nd + 1], pa, b[2], b[3]);
-        frag_b_kn<LD>(b, qs, kk * 16, nd * 16, lane);
+        frag_b_kn<LD>(b, qs, kk * 16, c0 + nd * 16, lane);
         mma(dk[2 * nd], da, b[0], b[1]);
         mma(dk[2 * nd + 1], da, b[2], b[3]);
       }
@@ -443,7 +453,7 @@ __device__ __forceinline__ void bwd_kv_tc(const Args& a, unsigned char* raw) {
     if (keys[r] >= a.tk) continue;
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
-      const int64_t at = keys[r] * D + n * 8 + 2 * t;
+      const int64_t at = keys[r] * D + c0 + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dkg + at) =
           pack(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
       *reinterpret_cast<uint32_t*>(dvg + at) =
@@ -923,7 +933,9 @@ int backward(Args a, void* stream) {
   const int keys = kTc<T> ? kTcN : kSimtN;
   Args kv = a;
   kv.tiles = (a.tk + keys - 1) / keys;
-  err = launch(attn_bwd_kv_kernel<T, D>, opted_kv, a.bh * kv.tiles, threads,
+  const int64_t parts = kTc<T> ? D / kv_tc_cols<D>() : 1;
+  err = launch(attn_bwd_kv_kernel<T, D>, opted_kv, a.bh * kv.tiles * parts,
+               threads,
                kTc<T> ? kv_tc_smem<D>() : kv_simt_smem<D>(), kv, stream);
   if (err) return err;
   const int rows = kTc<T> ? kTcM : kSimtN;
@@ -953,7 +965,9 @@ template <typename T>
 int forward_d(const Args& a, int64_t d, void* stream) {
   if (d == 16) return forward<T, 16>(a, stream);
   if (d == 64) return forward<T, 64>(a, stream);
+  if (d == 112) return forward<T, 112>(a, stream);
   if (d == 128) return forward<T, 128>(a, stream);
+  if (d == 160) return forward<T, 160>(a, stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -961,7 +975,9 @@ template <typename T>
 int backward_d(const Args& a, int64_t d, void* stream) {
   if (d == 16) return backward<T, 16>(a, stream);
   if (d == 64) return backward<T, 64>(a, stream);
+  if (d == 112) return backward<T, 112>(a, stream);
   if (d == 128) return backward<T, 128>(a, stream);
+  if (d == 160) return backward<T, 160>(a, stream);
   return int(cudaErrorInvalidValue);
 }
 

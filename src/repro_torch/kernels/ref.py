@@ -491,6 +491,46 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def chunked_attention_split(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool, n_splits: int,
+                            split_keys: int, q_offset: int = 0,
+                            return_lse: bool = False):
+    """The split route's arithmetic in float32: the keys cut into
+    ``n_splits`` splits of ``split_keys`` (the last one shorter), each
+    split's partial (m, l, acc) of every row (m = -inf, l = 0, acc = 0
+    where the split holds no live key for the row), then the partials
+    combined in split order, skipping those with m = -inf:
+    ``out = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s`` with m the
+    largest m_s.  Returns the output in q's dtype (and with
+    ``return_lse`` the log-sum-exp ``m + log l``, float32), as
+    :func:`chunked_attention` does.  Every row needs a live key."""
+    tq, d, tk = q.shape[2], q.shape[3], k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    rows = q_offset + torch.arange(tq, device=q.device)
+    parts = []
+    for sp in range(n_splits):
+        lo, hi = sp * split_keys, min(tk, (sp + 1) * split_keys)
+        s = (qf @ kf[:, :, lo:hi].transpose(-1, -2)) * scale
+        if causal:
+            keys = torch.arange(lo, hi, device=q.device)
+            s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
+        parts.append((m, p.sum(-1, keepdim=True), p @ vf[:, :, lo:hi]))
+    m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for pm, pl, pacc in parts:  # in split order
+        a = torch.where(pm == float("-inf"), 0.0, torch.exp(pm - m))
+        l = l + a * pl
+        acc = acc + a * pacc
+    out = (acc / l).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
+
+
 def chunked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           out: torch.Tensor, dout: torch.Tensor,
                           lse: torch.Tensor, *, causal: bool,

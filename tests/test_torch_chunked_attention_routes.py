@@ -1,0 +1,334 @@
+"""The chunked-attention routes of the port (``repro_torch.kernels.
+chunked_attention``) on the CPU: what runs here of them, against the
+reference's ``repro.models.layers.chunked_attention`` (plain JAX on the
+CPU).
+
+* the head widths 112 (Kimi-K2) and 160 (StableLM-12B), which the CUDA
+  kernels are built for since the routes were redesigned: the entry's
+  forward (float32 and bfloat16), its gradients through autograd, and
+  the plain backward ``ref.chunked_attention_bwd`` (every backward
+  route's algorithm) against the reference and ``jax.vjp``, at
+  ``tests/test_torch_chunked_attention.py``'s tolerances;
+* ``attn_plan`` / ``attn_bwd_plan`` give the expected route at the main
+  paths' shapes (those of ``chip_smoke.py``'s ``ATTN_PATHS``) and at
+  every edge (float32, the split threshold, each head width, an
+  unaligned base), on meta tensors, so no kernel is needed;
+* every config with attention under ``src/repro_torch/configs/`` (and
+  its smoke config) has a head width the kernels are built for and a
+  route forward and backward;
+* ``ref.chunked_attention_split``, the split route's arithmetic (float32
+  partials per split, combined in split order, a split with no live key
+  for a row skipped), against the reference and against the plain loop,
+  including causal ``q_offset`` cases where whole splits are masked for
+  some rows, and with the splits ``split_plan`` picks.
+"""
+from __future__ import annotations
+
+import os
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as rlayers
+from repro_torch import configs
+from repro_torch.kernels import chunked_attention as ca
+from repro_torch.kernels import ops, ref
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B, H = 2, 2
+#: the tolerances of tests/test_torch_chunked_attention.py: forward
+#: float32 (of max|want|), bfloat16 (one bf16 ulp), gradients through the
+#: entry, the plain backward (of the largest)
+F32_TOL = 1e-5
+BF16_TOL = 2.0 ** -7
+GRAD_TOL = 1e-5
+BWD_TOL = 1e-6
+
+#: causal, tq, tk, chunk, q_offset
+CASES = [
+    (False, 6, 9, 4, 0),
+    (True, 9, 9, 4, 0),
+    (True, 5, 13, 4, 8),
+    (False, 1, 5, 4, 0),
+]
+WIDE = (112, 160)
+
+
+def _inputs(tq, tk, d, seed, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    out = [rng.standard_normal(s).astype(np.float32)
+           for s in ((B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                     (B, H, tq, d))]
+    if dtype == "bfloat16":
+        out = [a.astype(ml_dtypes.bfloat16) for a in out]
+    return out
+
+
+def _t(a):
+    a = np.ascontiguousarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _near(got, want, tol):
+    got = got.detach().float().numpy() if torch.is_tensor(got) else \
+        np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+def _reference(q, k, v, dout, causal, chunk, q_offset):
+    def fn(q, k, v):
+        return rlayers.chunked_attention(q, k, v, causal=causal, chunk=chunk,
+                                         q_offset=q_offset)
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    return out, vjp(jnp.asarray(dout))
+
+
+# ---------------------------------------------------------------------------
+# d = 112 and d = 160
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,tq,tk,chunk,q_offset", CASES)
+@pytest.mark.parametrize("d", WIDE)
+def test_wide_heads_forward_matches_reference(d, causal, tq, tk, chunk,
+                                              q_offset, dtype):
+    q, k, v, _ = _inputs(tq, tk, d, 11, dtype)
+    got = ops.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                q_offset=q_offset, chunk=chunk)
+    want = rlayers.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                     causal=causal, chunk=chunk,
+                                     q_offset=q_offset)
+    assert got.dtype == _t(q).dtype
+    _near(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("causal,tq,tk,chunk,q_offset", CASES)
+@pytest.mark.parametrize("d", WIDE)
+def test_wide_heads_gradients_match_reference(d, causal, tq, tk, chunk,
+                                              q_offset):
+    q, k, v, dout = _inputs(tq, tk, d, 12)
+    _, want = _reference(q, k, v, dout, causal, chunk, q_offset)
+    xs = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    ops.chunked_attention(*xs, causal=causal, q_offset=q_offset,
+                          chunk=chunk).backward(_t(dout))
+    for x, w in zip(xs, want):
+        _near(x.grad, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,tq,tk,chunk,q_offset", CASES)
+@pytest.mark.parametrize("d", WIDE)
+def test_wide_heads_plain_backward_matches_reference(d, causal, tq, tk,
+                                                     chunk, q_offset):
+    q, k, v, dout = _inputs(tq, tk, d, 13)
+    out, lse = ref.chunked_attention(_t(q), _t(k), _t(v), causal=causal,
+                                     chunk=chunk, q_offset=q_offset,
+                                     return_lse=True)
+    got = ref.chunked_attention_bwd(_t(q), _t(k), _t(v), out, _t(dout), lse,
+                                    causal=causal, q_offset=q_offset)
+    _, want = _reference(q, k, v, dout, causal, chunk, q_offset)
+    for g, w in zip(got, want):
+        _near(g, w, BWD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the route plans
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's ATTN_PATHS (B, H, Tq, Tk, d, causal) with the forward
+#: and backward routes each takes in bfloat16
+PATH_ROUTES = {
+    "whisper-encoder": ((8, 16, 1500, 1500, 64, False), "tile", "tile"),
+    "whisper-cross-prefill": ((8, 16, 512, 1500, 64, False), "tile", "tile"),
+    "whisper-cross-decode": ((8, 16, 1, 1500, 64, False), "split", "tile"),
+    "llama-cross-prefill": ((8, 64, 512, 1024, 128, False), "tile", "tile"),
+    "llama-cross-decode": ((8, 64, 1, 1024, 128, False), "split", "tile"),
+    "phi4-train": ((8, 24, 256, 256, 128, True), "tile", "tile"),
+    "grok-train": ((8, 48, 256, 256, 128, True), "tile", "tile"),
+    "kimi-train": ((8, 64, 256, 256, 112, True), "mma", "mma"),
+    "stablelm-train": ((8, 32, 256, 256, 160, True), "mma", "mma"),
+}
+
+
+def _meta(b, h, tq, tk, d, dtype=torch.bfloat16):
+    def f(t):
+        return torch.empty((b, h, t, d), dtype=dtype, device="meta")
+    return f(tq), f(tk), f(tk), f(tq)
+
+
+def _plans(q, k, v, out, causal, q_offset=0):
+    return (ca.attn_plan(q, k, v, causal, q_offset),
+            ca.attn_bwd_plan(q, k, v, out, out, causal, q_offset))
+
+
+@pytest.mark.parametrize("path", sorted(PATH_ROUTES))
+def test_plan_at_the_main_paths(path):
+    (b, h, tq, tk, d, causal), fwd, bwd = PATH_ROUTES[path]
+    q, k, v, out = _meta(b, h, tq, tk, d)
+    assert _plans(q, k, v, out, causal) == (fwd, bwd)
+
+
+#: (Tq, d, dtype) -> forward and backward routes, q, k, v aligned
+EDGES = [
+    (1, 64, torch.float32, "simt", "simt"),
+    (300, 160, torch.float32, "simt", "simt"),
+    (1, 16, torch.bfloat16, "split", "mma"),
+    (1, 112, torch.bfloat16, "split", "mma"),
+    (1, 160, torch.bfloat16, "split", "mma"),
+    (ca.SPLIT_MAX_TQ, 64, torch.bfloat16, "split", "tile"),
+    (ca.SPLIT_MAX_TQ + 1, 64, torch.bfloat16, "tile", "tile"),
+    (ca.SPLIT_MAX_TQ + 1, 128, torch.bfloat16, "tile", "tile"),
+    (ca.SPLIT_MAX_TQ + 1, 16, torch.bfloat16, "mma", "mma"),
+    (ca.SPLIT_MAX_TQ + 1, 112, torch.bfloat16, "mma", "mma"),
+    (1500, 160, torch.bfloat16, "mma", "mma"),
+]
+
+
+@pytest.mark.parametrize("causal,q_offset", [(False, 0), (True, 0),
+                                             (True, 37)])
+@pytest.mark.parametrize("tq,d,dtype,fwd,bwd", EDGES)
+def test_plan_at_the_edges(tq, d, dtype, fwd, bwd, causal, q_offset):
+    """The route follows the dtype, Tq, d and alignment; the mask does
+    not change it."""
+    q, k, v, out = _meta(2, 3, tq, 9, d, dtype)
+    assert _plans(q, k, v, out, causal, q_offset) == (fwd, bwd)
+
+
+def _unaligned(shape, dtype=torch.bfloat16):
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+    assert t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out"])
+@pytest.mark.parametrize("tq", [1, 64])
+def test_plan_sends_an_unaligned_tensor_to_mma(which, tq):
+    """TMA and the split route's 16-byte copies need 16-byte aligned
+    bases; an unaligned one (the entry copies such views) goes by the
+    mma route, forward or backward."""
+    shapes = dict(q=(1, 2, tq, 64), k=(1, 2, 9, 64), v=(1, 2, 9, 64),
+                  out=(1, 2, tq, 64))
+    ts = {n: (_unaligned(s) if n == which else
+              torch.zeros(s, dtype=torch.bfloat16))
+          for n, s in shapes.items()}
+    fwd, bwd = _plans(ts["q"], ts["k"], ts["v"], ts["out"], True)
+    assert bwd == "mma"
+    assert fwd == ("split" if which == "out" and tq == 1 else
+                   "tile" if which == "out" else "mma")
+
+
+def _config_names():
+    """Every config module under src/repro_torch/configs/."""
+    d = os.path.join(ROOT, "src", "repro_torch", "configs")
+    return sorted(f[:-3] for f in os.listdir(d)
+                  if f.endswith(".py") and f not in ("__init__.py",
+                                                     "base.py"))
+
+
+def test_the_configs_are_the_assigned_ones():
+    """The walk below covers every config module, and only the
+    attention-free family (RWKV-6) has no attention."""
+    assert sorted(configs.ASSIGNED) == _config_names()
+    free = [n for n in _config_names() if configs.get(n).attention_free]
+    assert free == ["rwkv6_7b"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", [n for n in _config_names()
+                                  if not configs.get(n).attention_free])
+def test_every_config_has_a_route(name, smoke):
+    """Each config with attention (and its smoke config) has a head width
+    the kernels are built for and a route forward and backward, prefill
+    and decode."""
+    cfg = configs.get(name)
+    if smoke:
+        cfg = configs.smoke(cfg)
+    d = cfg.hd
+    assert d in ca.HEAD_DIMS, (name, d)
+    for tq in (1, 256):
+        q, k, v, out = _meta(1, cfg.n_heads, tq, 256, d, cfg.torch_dtype)
+        fwd, bwd = _plans(q, k, v, out, True)
+        assert fwd in ca.ROUTES and bwd in ca.BWD_ROUTES
+        if cfg.torch_dtype == torch.bfloat16:
+            assert fwd == ("split" if tq <= ca.SPLIT_MAX_TQ else
+                           "tile" if d in ca.TILE_HEAD_DIMS else "mma")
+
+
+def test_split_plan_covers_the_keys():
+    """Every split non-empty, the keys covered, split_keys a multiple of
+    16, and enough blocks at the decode paths' shapes."""
+    for bh, tq, tk in ((128, 1, 1500), (512, 1, 1024), (4, 1, 1),
+                       (4, 7, 9), (4, 16, 1500), (1, 1, 100000)):
+        n, keys = ca.split_plan(bh, tq, tk)
+        assert keys % 16 == 0 and n >= 1
+        assert (n - 1) * keys < tk <= n * keys
+        assert keys >= min(ca.SPLIT_MIN_KEYS, -(-tk // 16) * 16)
+    n, _ = ca.split_plan(128, 1, 1500)
+    assert 128 * n >= ca.SPLIT_TARGET_BLOCKS
+
+
+# ---------------------------------------------------------------------------
+# the split route's arithmetic
+# ---------------------------------------------------------------------------
+
+#: causal, tq, tk, q_offset, n_splits, split_keys: whole splits masked
+#: for the first rows where causal
+SPLIT_CASES = [
+    (False, 1, 40, 0, 5, 8),
+    (False, 6, 37, 0, 3, 16),
+    (True, 6, 40, 3, 5, 8),      # row 0 sees keys 0..3: splits 1-4 empty
+    (True, 4, 40, 0, 10, 4),     # rows see at most 4 keys: 9 splits empty
+    (True, 3, 13, 20, 2, 8),     # every key live
+    (True, 1, 1, 0, 1, 16),
+]
+
+
+@pytest.mark.parametrize("d", [16, 64, 112])
+@pytest.mark.parametrize("causal,tq,tk,q_offset,n_splits,keys", SPLIT_CASES)
+def test_split_arithmetic_matches_reference_and_loop(causal, tq, tk,
+                                                     q_offset, n_splits,
+                                                     keys, d):
+    q, k, v, _ = _inputs(tq, tk, d, 21)
+    got, lse = ref.chunked_attention_split(
+        _t(q), _t(k), _t(v), causal=causal, q_offset=q_offset,
+        n_splits=n_splits, split_keys=keys, return_lse=True)
+    want = rlayers.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                     causal=causal, chunk=512,
+                                     q_offset=q_offset)
+    _near(got, want, F32_TOL)
+    loop, loop_lse = ref.chunked_attention(_t(q), _t(k), _t(v),
+                                           causal=causal, q_offset=q_offset,
+                                           chunk=4, return_lse=True)
+    _near(got, loop, F32_TOL)
+    _near(lse, loop_lse, F32_TOL)
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk,causal,q_offset", [(1, 1500, False, 0),
+                                                   (3, 300, True, 5),
+                                                   (16, 1024, True, 0)])
+def test_split_arithmetic_with_the_planned_splits(tq, tk, causal, q_offset,
+                                                  dtype):
+    """With :func:`split_plan`'s splits the arithmetic is the loop's
+    function: float32 within ``F32_TOL``, bfloat16 within one bf16 ulp
+    of the reference (the split route keeps p in float32)."""
+    q, k, v, _ = _inputs(tq, tk, 64, 22, dtype)
+    n, keys = ca.split_plan(B * H, tq, tk)
+    got = ref.chunked_attention_split(_t(q), _t(k), _t(v), causal=causal,
+                                      q_offset=q_offset, n_splits=n,
+                                      split_keys=keys)
+    assert got.dtype == _t(q).dtype
+    want = rlayers.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                     causal=causal, chunk=512,
+                                     q_offset=q_offset)
+    _near(got, want, F32_TOL if dtype == "float32" else BF16_TOL)

@@ -50,7 +50,13 @@ largest of the three) of max|want|; bfloat16 against the loop run in
 float32 on the same values, no further from it than the bfloat16 loop
 plus one bf16 ulp.  Launches are counted, a CUDA tensor never reaches
 the loop, the backward is bitwise deterministic, and a head width or
-dtype the kernels are not built for raises.
+dtype the kernels are not built for raises.  Each route is also
+launched by itself (``tile``, ``split``, ``mma``, ``simt`` forward over
+Tq in {1, 7, 64, 129, 1500} against Tk in {1, 9, 127, 128, 129, 513,
+1500}, the log-sum-exp within 1e-4 of the float32 loop's; each backward
+route from the output and log-sum-exp of each forward route), two runs
+of every route are bitwise equal, the layer takes the planned routes,
+and a route launched at a width it is not built for raises.
 
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
@@ -1383,9 +1389,28 @@ def _attn_loop(q, k, v, *, causal, q_offset):
     return ref.chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def _attn_allow(got, want, loop, dtype, grads):
+    """Assert each of ``got`` within the allowance of the float32 loop's
+    ``want``: float32 at ``ATTN_F32_TOL`` (output) / ``ATTN_F32_GRAD_TOL``
+    (gradients, of the largest); bf16 no further from it than the bf16
+    loop's ``loop`` plus one bf16 ulp of max|want|."""
+    g_scale = max(w.abs().max().item() for w in want) if grads else 0.0
+    for i, (g, w, lp) in enumerate(zip(got, want, loop)):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all(), i
+        scale = g_scale if grads else w.abs().max().item()
+        err = (g.float() - w).abs().max().item()
+        if dtype == torch.float32:
+            allow = (ATTN_F32_GRAD_TOL if grads else ATTN_F32_TOL) * scale
+        else:
+            allow = (lp.float() - w).abs().max().item() + 2.0 ** (
+                np.floor(np.log2(max(scale, 1e-30))) - 7)
+        assert err <= allow, (i, err, allow)
+
+
 @pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
 @pytest.mark.parametrize("tq,tk", ATTN_SHAPES)
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 112, 128, 160])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_chunked_attention_matches_plain(cuda, dtype, d, tq, tk, causal,
                                               q_offset):
@@ -1464,3 +1489,147 @@ def test_cuda_chunked_attention_refuses_what_it_is_not_built_for(cuda):
     q, k, v, _ = _attn_case(cuda, torch.float16, 4, 4, 64)
     with pytest.raises(TypeError):
         ops.chunked_attention(q, k, v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# chunked attention by route
+# ---------------------------------------------------------------------------
+
+#: the routes' edge sweep: Tk on both sides of a 64- and a 128-key tile
+#: and of the chunk of 512, Tq on both sides of the split threshold and
+#: of a 64- and a 128-row tile
+ROUTE_TK = (1, 9, 127, 128, 129, 513, 1500)
+ROUTE_TQ = (1, 7, 64, 129, 1500)
+#: the backward sweep's shapes
+ROUTE_BWD_SHAPES = [(1, 1), (7, 9), (64, 128), (129, 129), (129, 513),
+                    (1500, 1500), (1, 1500)]
+#: forward routes and the widths they take
+FWD_ROUTES = [("tile", torch.bfloat16, (64, 128)),
+              ("split", torch.bfloat16, (16, 64, 112, 128, 160)),
+              ("mma", torch.bfloat16, (16, 64, 112, 128, 160)),
+              ("simt", torch.float32, (16, 64, 112, 128, 160))]
+
+
+def _route_fwd(route):
+    from repro_torch.kernels import chunked_attention as ca
+    return {"tile": ca.tile_fwd, "split": ca.split_fwd, "mma": ca.mma_fwd,
+            "simt": ca.mma_fwd}[route]
+
+
+def _route_bwd(route):
+    from repro_torch.kernels import chunked_attention as ca
+    return {"tile": ca.tile_bwd, "mma": ca.mma_bwd, "simt": ca.mma_bwd}[route]
+
+
+def _want(q, k, v, dout, causal, q_offset, grads):
+    """The float32 loop's and the loop's own (in q's dtype) output, or
+    gradients, on the same values."""
+    if not grads:
+        return ([_attn_loop(q.float(), k.float(), v.float(), causal=causal,
+                            q_offset=q_offset)],
+                [_attn_loop(q, k, v, causal=causal, q_offset=q_offset)])
+    want = _attn_through(_attn_loop, *(a.float() for a in (q, k, v, dout)),
+                         causal, q_offset)[1:]
+    loop = _attn_through(_attn_loop, q, k, v, dout, causal, q_offset)[1:]
+    return want, loop
+
+
+@pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
+@pytest.mark.parametrize("route,dtype,d", [
+    (r, dt, d) for r, dt, ds in FWD_ROUTES for d in ds])
+def test_cuda_chunked_attention_route_forward(cuda, route, dtype, d, causal,
+                                              q_offset):
+    """Each forward route, launched by itself, against the plain loop at
+    every Tq of ``ROUTE_TQ`` against every Tk of ``ROUTE_TK``: the output
+    within the allowance and the log-sum-exp within 1e-4 of the float32
+    loop's; two runs bitwise equal; one launch counted to the route."""
+    from repro_torch.kernels import chunked_attention as ca
+    fn = _route_fwd(route)
+    for tq in ROUTE_TQ:
+        for tk in ROUTE_TK:
+            q, k, v, dout = _attn_case(cuda, dtype, tq, tk, d, seed=tq + tk)
+            before = ca.chunked_attention.route_launches[route]
+            out, lse = fn(q, k, v, causal, q_offset)
+            again = fn(q, k, v, causal, q_offset)
+            assert ca.chunked_attention.route_launches[route] == before + 2
+            assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            want, loop = _want(q, k, v, dout, causal, q_offset, False)
+            _attn_allow([out], want, loop, dtype, False)
+            _, wl = ref.chunked_attention(q.float(), k.float(), v.float(),
+                                          causal=causal, q_offset=q_offset,
+                                          return_lse=True)
+            assert lse.dtype == torch.float32
+            assert (lse - wl).abs().max().item() <= 1e-4 * max(
+                1.0, wl.abs().max().item()), (tq, tk)
+
+
+#: backward route, forward route, dtype, widths
+BWD_CASES = ([("tile", f, torch.bfloat16, d) for f in ("tile", "split", "mma")
+              for d in (64, 128)]
+             + [("mma", f, torch.bfloat16, d) for f in ("split", "mma")
+                for d in (16, 64, 112, 128, 160)]
+             + [("mma", "tile", torch.bfloat16, d) for d in (64, 128)]
+             + [("simt", "simt", torch.float32, d)
+                for d in (16, 64, 112, 128, 160)])
+
+
+@pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
+@pytest.mark.parametrize("bwd,fwd,dtype,d", BWD_CASES)
+def test_cuda_chunked_attention_route_backward(cuda, bwd, fwd, dtype, d,
+                                               causal, q_offset):
+    """Each backward route from the output and log-sum-exp of each forward
+    route, against autograd through the plain loop: the gradients of q, k
+    and v within the allowance (of the largest); two runs bitwise
+    equal."""
+    from repro_torch.kernels import chunked_attention as ca
+    for tq, tk in ROUTE_BWD_SHAPES:
+        q, k, v, dout = _attn_case(cuda, dtype, tq, tk, d, seed=3 * tq + tk)
+        out, lse = _route_fwd(fwd)(q, k, v, causal, q_offset)
+        before = ca.chunked_attention.bwd_route_launches[bwd]
+        got = _route_bwd(bwd)(q, k, v, out, dout, lse, causal, q_offset)
+        again = _route_bwd(bwd)(q, k, v, out, dout, lse, causal, q_offset)
+        assert ca.chunked_attention.bwd_route_launches[bwd] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want, loop = _want(q, k, v, dout, causal, q_offset, True)
+        _attn_allow(got, want, loop, dtype, True)
+
+
+def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
+    """Through the layer, each call takes its planned routes (the counts
+    by route move by one), and the plain loop (made to raise) is never
+    reached: decode by split, prefill and training by tile at d 64 and
+    128, mma at 112 and 160, simt in float32."""
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.models import layers
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain loop")
+
+    monkeypatch.setattr(ref, "chunked_attention", refuse)
+    cases = [(torch.bfloat16, 1, 300, 64, "split", "tile"),
+             (torch.bfloat16, 1, 300, 160, "split", "mma"),
+             (torch.bfloat16, 200, 300, 128, "tile", "tile"),
+             (torch.bfloat16, 200, 300, 112, "mma", "mma"),
+             (torch.float32, 200, 300, 64, "simt", "simt")]
+    for dtype, tq, tk, d, fwd, bwd in cases:
+        q, k, v, dout = _attn_case(cuda, dtype, tq, tk, d)
+        before = (dict(ca.chunked_attention.route_launches),
+                  dict(ca.chunked_attention.bwd_route_launches))
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        layers.chunked_attention(*xs, causal=True, q_offset=5).backward(dout)
+        after = (ca.chunked_attention.route_launches,
+                 ca.chunked_attention.bwd_route_launches)
+        for got, was, route in zip(after, before, (fwd, bwd)):
+            assert {r: got[r] - was[r] for r in got} == {
+                r: int(r == route) for r in got}, (dtype, tq, d)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("route", ["tile", "split"])
+def test_cuda_chunked_attention_route_refuses_other_widths(cuda, route):
+    """A route launched at a width it is not built for raises; nothing
+    falls back to another route or to the loop."""
+    width = 112 if route == "tile" else 32
+    q, k, v, _ = _attn_case(cuda, torch.bfloat16, 4, 9, width)
+    with pytest.raises(RuntimeError):
+        _route_fwd(route)(q, k, v, True, 0)
