@@ -96,13 +96,15 @@ attention in prefill and decode, Phi-4-mini and Grok-1 training, forward
 and backward), timed beside the loop, ``scaled_dot_product_attention``
 and the bound.  The bf16 kernels take routes
 (``chunked_attention.attn_plan``): ``tile`` and ``split`` in
-``csrc/chunked_attention_sm90.cu`` (TMA + ``wgmma``; split keys for one
-query), the first kernels' ``mma`` at head widths 16, 112 and 160;
-``[attn]`` sweeps every width (112 and 160 too), times each path's planned
-route beside the ``mma`` route on the same inputs (Kimi-K2 and
-StableLM-12B training among the paths), sweeps the split / tile
-threshold, and the kernels line has a record a route and way, its
-launches summed over the main paths that take it.
+``csrc/chunked_attention_sm90.cu`` and the tile backward in
+``csrc/chunked_attention_bwd_sm90.cu`` (TMA + ``wgmma``; split keys for
+one query; head widths 112 and 160 padded to whole 64-column chunks in
+shared memory), the first kernels' ``mma`` at head width 16;
+``[attn]`` sweeps every width, times each path's planned route beside
+the ``mma`` route on the same inputs (Kimi-K2 and StableLM-12B training
+among the paths), sweeps the split / tile threshold, and the kernels
+line has a record a route and way, its launches summed over the main
+paths that take it.
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
@@ -148,7 +150,12 @@ takes it), 2 sequences of 1024 tokens a step, the same lines plus the
 scan backward's device time in the profiled step, and fails unless the
 backward took the chunked route once a layer a step and no plain loop
 was reached; then Jamba's smoke config in bf16 trains 3 steps on the
-card through the Mamba chunk backward; ``[train-ckpt]`` saves a bf16 smoke
+card through the Mamba chunk backward; ``[train-stablelm]`` trains
+StableLM-12B at its published width with 8 of its 40 layers (AdamW,
+``TRAIN``'s 8 x 256 tokens) and fails unless every chunked-attention
+launch, forward and backward, took the tile route at head width 160,
+printing the attention's device time in the profiled step's forward and
+backward ranges; ``[train-ckpt]`` saves a bf16 smoke
 run on the card asynchronously, restores it bitwise and continues it
 through a fresh ``train()``.
 Phases print as they finish; the last lines are one
@@ -2254,7 +2261,9 @@ ATTN_MASKS = ((False, 0), (False, 37), (True, 0), (True, 37))
 #: live key and leave only the float32 rounding of dP - D)
 ATTN_F32_TOL = {"out": 1e-5, "grad": 1e-4}
 #: the main paths' shapes, bf16: B, H, Tq, Tk, d, causal, backward too
-#: (Kimi-K2 and StableLM-12B train at head widths 112 and 160)
+#: (Kimi-K2 and StableLM-12B train at head widths 112 and 160, on the tile
+#: routes since their widths are padded to whole chunks; Jamba's smoke
+#: config in bf16, [train-ssm]'s second run, at d 16 on the mma route)
 ATTN_PATHS = {
     "whisper-encoder": (8, 16, 1500, 1500, 64, False, False),
     "whisper-cross-prefill": (8, 16, 512, 1500, 64, False, False),
@@ -2265,6 +2274,7 @@ ATTN_PATHS = {
     "grok-train": (8, 48, 256, 256, 128, True, True),
     "kimi-train": (8, 64, 256, 256, 112, True, True),
     "stablelm-train": (8, 32, 256, 256, 160, True, True),
+    "jamba-smoke-train": (2, 4, 64, 64, 16, True, True),
 }
 #: the split / tile threshold's sweep: the two cross-attention shapes
 #: (B, H, Tk, d) at these query counts
@@ -2286,16 +2296,18 @@ ATTN_RECORDS = {
     ("fwd", "tile"): ("chunked_attention_fwd_tile_bf16", "sm90",
                       "whisper-encoder", ["whisper-cross-prefill",
                                           "llama-cross-prefill",
-                                          "phi4-train", "grok-train"]),
+                                          "phi4-train", "grok-train",
+                                          "kimi-train", "stablelm-train"]),
     ("fwd", "split"): ("chunked_attention_fwd_split_bf16", "sm90",
                        "whisper-cross-decode", ["llama-cross-decode"]),
     ("fwd", "mma"): ("chunked_attention_fwd_mma_bf16", "",
-                     "kimi-train", ["stablelm-train"]),
+                     "jamba-smoke-train", []),
     ("fwd", "simt"): ("chunked_attention_fwd_f32", "", "smoke", []),
-    ("bwd", "tile"): ("chunked_attention_bwd_tile_bf16", "sm90",
-                      "phi4-train", ["grok-train"]),
+    ("bwd", "tile"): ("chunked_attention_bwd_tile_bf16", "bwd_sm90",
+                      "phi4-train", ["grok-train", "kimi-train",
+                                     "stablelm-train"]),
     ("bwd", "mma"): ("chunked_attention_bwd_mma_bf16", "",
-                     "kimi-train", ["stablelm-train"]),
+                     "jamba-smoke-train", []),
     ("bwd", "simt"): ("chunked_attention_bwd_f32", "", "smoke", []),
 }
 
@@ -2537,9 +2549,9 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
 def phase_attn() -> list:
     """The chunked-attention kernels (``repro_torch.kernels.
     chunked_attention``: the ``tile`` and ``split`` routes of
-    ``csrc/chunked_attention_sm90.cu``, the ``mma`` and ``simt`` routes of
-    ``csrc/chunked_attention.cu``, forward and backward) against the
-    plain loop on the card.  First the edge sweep through the entry (the
+    ``csrc/chunked_attention_sm90.cu`` and ``_bwd_sm90.cu``, the ``mma``
+    and ``simt`` routes of ``csrc/chunked_attention.cu``, forward and
+    backward) against the plain loop on the card.  First the edge sweep through the entry (the
     planned routes): float32 and bf16, every d in :data:`ATTN_D`, causal
     and not, ``q_offset`` 0 and 37, every Tq in :data:`ATTN_TQ` against
     every Tk in :data:`ATTN_TK` (B = 2, H = 2), output and the gradients
@@ -4789,6 +4801,56 @@ def phase_train_ssm() -> dict:
     return out
 
 
+#: [train-stablelm]'s cut: StableLM-12B's layers kept (of 40)
+TRAIN_STABLELM = dict(n_layers=8)
+
+
+def phase_train_stablelm() -> tuple:
+    """StableLM-12B at its published width (d_model 5120, 32 heads of 160,
+    8 KV heads, d_ff 13824, vocab 100352, bf16), n_layers 40 cut to 8,
+    AdamW as ``make_optimizer(get("stablelm_12b"))`` picks for the whole
+    model, ``TRAIN``'s 8 x 256 tokens and timed steps through
+    :func:`_train_full`: every chunked-attention launch, forward (twice a
+    layer a step, with the group checkpoint's recompute) and backward
+    (once), on the tile route at d 160, and the plain loop never reached.
+    Prints the profiled step's attention device ms in the forward and
+    backward ranges.  Returns the chunked-attention launches by route
+    (forward, backward)."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    full = cbase.get("stablelm_12b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_STABLELM["n_layers"])
+    cut = (f"n_layers {full.n_layers} cut to {cfg.n_layers} "
+           f"({cbase.param_count(full)[0] / 1e9:.2f}e9 parameters whole "
+           f"need ~{12 * cbase.param_count(full)[0] / 1e9:.0f} GB of bf16 "
+           f"weights and gradients and float32 AdamW moments; "
+           f"{cbase.param_count(cfg)[0] / 1e9:.2f}e9 kept)")
+    print(f"[train-stablelm] optimizer from make_optimizer(get("
+          f"'stablelm_12b')): {cbase.param_count(full)[0] / 1e9:.2f}e9 "
+          f"parameters pick adamw; {cut}")
+    res = _train_full("train-stablelm", cfg, cut, "adamw", opt_cfg=full)
+    fwd, bwd = res["attn"]
+    n = cfg.n_layers * res["steps"]
+    if fwd != {**dict.fromkeys(fwd, 0), "tile": 2 * n} or \
+            bwd != {**dict.fromkeys(bwd, 0), "tile": n}:
+        fail(f"train-stablelm: chunked attention by route forward {fwd}, "
+             f"backward {bwd}; want every launch tile ({2 * n} forward, "
+             f"{n} backward)")
+    parts = res["profile"]["parts"]
+    att = {p: parts[p].get("attention", 0.0) for p in ("forward",
+                                                       "backward")}
+    print(f"[train-stablelm] chunked attention (tile route, d 160) in the "
+          f"profiled step: forward range {att['forward']:.3f} ms "
+          f"({cfg.n_layers} forward launches), backward range "
+          f"{att['backward']:.3f} ms ({cfg.n_layers} forward launches of "
+          f"the checkpoint's recompute, {cfg.n_layers} backward); step "
+          f"{res['step_ms']:.1f} ms against a {res['flop_ms']:.2f} ms FLOP "
+          f"bound ({res['flop_ms'] / res['step_ms']:.1%}); over the "
+          f"{res['steps']} steps forward {fwd}, backward {bwd} ({smi()})")
+    _free()
+    return res["attn"]
+
+
 def phase_train_ckpt() -> None:
     """On the card at a bf16 smoke config: train, save_async and wait, a
     fresh ``train()`` that restores LATEST and continues; the restored
@@ -4876,6 +4938,7 @@ def main() -> None:
     dense = phase_train_dense()
     moe = phase_train_moe()
     ssm_train = phase_train_ssm()
+    stablelm = phase_train_stablelm()
     # the scans' launches by route on their main paths: the bf16 forward
     # routes in one served wave ([ssm], [hybrid]); the float32 step routes,
     # forward and backward, in [train-small]; the chunked backward routes
@@ -4907,8 +4970,8 @@ def main() -> None:
             fail(f"{rec['name']}: no launch on its main path")
     # chunked attention's launches by route and path: bf16 in [cross]
     # (prefill by tile, decode by split) and the full-width training
-    # phases (tile), Jamba's bf16 smoke run in [train-ssm] (d 16: mma),
-    # float32 in [train-small] (simt)
+    # phases (tile, d 128 and 160), Jamba's bf16 smoke run in [train-ssm]
+    # (d 16: mma), float32 in [train-small] (simt)
     whisper = "[cross] Whisper-medium wave (encoder, cross)"
     llama = "[cross] Llama-3.2-Vision wave (cross)"
     jamba = "[train-ssm] Jamba smoke config, bf16"
@@ -4917,7 +4980,8 @@ def main() -> None:
             whisper: cross["whisper_medium"]["tile"],
             llama: cross["llama_3_2_vision_90b"]["tile"],
             "[train-dense] Phi-4-mini": dense[0]["tile"],
-            "[train-moe] Grok-1 group": moe[0]["tile"]},
+            "[train-moe] Grok-1 group": moe[0]["tile"],
+            "[train-stablelm] StableLM-12B, 8 layers": stablelm[0]["tile"]},
         ("fwd", "split"): {
             whisper: cross["whisper_medium"]["split"],
             llama: cross["llama_3_2_vision_90b"]["split"]},
@@ -4925,7 +4989,8 @@ def main() -> None:
         ("fwd", "simt"): {small: train["attn"][0]},
         ("bwd", "tile"): {
             "[train-dense] Phi-4-mini": dense[1]["tile"],
-            "[train-moe] Grok-1 group": moe[1]["tile"]},
+            "[train-moe] Grok-1 group": moe[1]["tile"],
+            "[train-stablelm] StableLM-12B, 8 layers": stablelm[1]["tile"]},
         ("bwd", "mma"): {jamba: ssm_train["attn"][1]["mma"]},
         ("bwd", "simt"): {small: train["attn"][1]},
     }

@@ -124,6 +124,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # n_splits, split_keys; stream
         "chunked_attention_split_fwd_bf16": (_PTR,) * 6 + (_I64,) * 8 + (
             _PTR,),
+    },
+    "chunked_attention_bwd_sm90": {
         # q, k, v, out, dout, lse, stats, dq, dk, dv; B*H, tq, tk, d,
         # causal, q_offset; stream
         "chunked_attention_tile_bwd_bf16": (_PTR,) * 10 + (_I64,) * 6 + (

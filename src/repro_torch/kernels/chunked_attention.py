@@ -21,14 +21,20 @@ dtype, the shapes and the alignment alone:
   TMA ring and ``wgmma`` (the next tile's ``Q Kᵀ`` and the last tile's
   ``P V`` in flight beside the softmax, the two consumer warpgroups
   taking turns).  Backward ``"tile"`` for bfloat16 at those widths,
-  whatever the forward's route: dK / dV and dQ on TMA rings and
-  ``wgmma``.
+  whatever the forward's route: ``csrc/chunked_attention_bwd_sm90.cu``,
+  dK / dV and dQ on TMA rings and ``wgmma``.  Widths 112 and 160 lie in
+  shared memory as whole chunks of 64 columns, the padding zero-filled by
+  the loads; the products run at the true width and nothing is stored
+  past column d.
 * ``"split"`` — bfloat16, at most :data:`SPLIT_MAX_TQ` queries (every
   decode step's cross attention has one): the same file; each head's
   keys cut into splits (:func:`split_plan`), float32 partials in a
   workspace, combined in split order by a second kernel.
-* ``"mma"`` — bfloat16 at the other widths (16, 112, 160):
-  ``csrc/chunked_attention.cu`` on ``mma.sync``, forward and backward.
+* ``"mma"`` — bfloat16 at d 16 (Jamba's smoke config), and bfloat16
+  tensors that are not 16-byte aligned (the entry copies such views, so
+  only a direct call of a plan sees them): ``csrc/chunked_attention.cu``
+  on ``mma.sync``, forward and backward, built for every width of
+  :data:`HEAD_DIMS`.
 * ``"simt"`` — float32: the same file's CUDA-core bodies.
 
 The result does not depend on the reference's chunk of 512: a masked key
@@ -63,8 +69,9 @@ from .dispatch import FLOAT_DTYPES, aligned16, on_cuda, stream_of, suffix
 #: head widths the kernels are built for: every head width of the repo's
 #: configs (Kimi-K2 112, StableLM-12B 160)
 HEAD_DIMS = (16, 64, 112, 128, 160)
-#: head widths of the ``tile`` routes (TMA boxes of 64 columns; wgmma N)
-TILE_HEAD_DIMS = (64, 128)
+#: head widths of the ``tile`` routes (TMA boxes of 64 columns, 112 and
+#: 160 padded to whole boxes; wgmma N at the true width)
+TILE_HEAD_DIMS = (64, 112, 128, 160)
 #: a bfloat16 call with at most this many queries takes the ``split``
 #: route: every decode step's cross attention.  chip_smoke.py's ``[attn]``
 #: threshold lines measure it on an H100 at Whisper's cross-attention
@@ -250,10 +257,9 @@ def _count_bwd(route: str) -> None:
 
 def tile_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
     """One launch of the ``tile`` backward on checked bfloat16 CUDA
-    tensors (d in :data:`TILE_HEAD_DIMS`; three kernels: the row
-    statistics, then dK and dV, then dQ): ``(dq, dk, dv)``.  Its workspace
-    is lse · log2(e) and D for the rows padded to :data:`STAT_ROWS`, 2 *
-    B * H * Tq_pad float32."""
+    tensors (d in :data:`TILE_HEAD_DIMS`; the row statistics, then dK and
+    dV, then dQ): ``(dq, dk, dv)``.  Its workspace is lse · log2(e) and D
+    for the rows padded to :data:`STAT_ROWS`, 2 * B * H * Tq_pad float32."""
     q, k, v, out, dout = _bwd_operands(q, k, v, out, dout)
     b, h, tq, d = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -261,7 +267,7 @@ def tile_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
     stats = torch.empty(2 * b * h * pad, dtype=torch.float32,
                         device=q.device)
     lse = lse.float().contiguous()
-    fn = load("chunked_attention_sm90").chunked_attention_tile_bwd_bf16
+    fn = load("chunked_attention_bwd_sm90").chunked_attention_tile_bwd_bf16
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),

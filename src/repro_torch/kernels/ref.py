@@ -442,7 +442,8 @@ NEG_INF = -1e30
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, chunk: int = 512, q_offset: int = 0,
-                      return_lse: bool = False):
+                      return_lse: bool = False,
+                      scale: float | None = None):
     """Online-softmax attention over key chunks: the reference's
     ``lax.scan`` in ``chunked_attention`` as a loop, one step a chunk.
 
@@ -454,18 +455,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to v's dtype for its product, whose result is then float32; m, l and
     the accumulator float32.  Returns the output in q's dtype, and with
     ``return_lse`` also the per-row log-sum-exp ``m + log l`` (B, H, Tq),
-    float32, the statistic :func:`chunked_attention_bwd` takes."""
+    float32, the statistic :func:`chunked_attention_bwd` takes.
+    ``scale`` replaces ``1/√d`` (the tile kernels' zero-padded widths
+    keep the true width's)."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     assert hkv == hq, "expand GQA heads before chunked_attention"
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     chunk = min(chunk, tk)
     n_chunks = -(-tk // chunk)
     q_pos = q_offset + torch.arange(tq, device=q.device)
-    m = torch.full((b, hq, tq, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hq, tq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hq, tq, d), dtype=torch.float32, device=q.device)
+    # the running state takes q's layout: on a DTensor its placements, so
+    # each rank holds (and the dry run counts) its shard, not q's global
+    # shape
+    acc = torch.zeros_like(q, dtype=torch.float32)
+    m = torch.full_like(acc[..., :1], NEG_INF)
+    l = torch.zeros_like(m)
     for ci in range(n_chunks):
         kc = k[:, :, ci * chunk:(ci + 1) * chunk]
         vc = v[:, :, ci * chunk:(ci + 1) * chunk]
@@ -534,17 +540,20 @@ def chunked_attention_split(q: torch.Tensor, k: torch.Tensor,
 def chunked_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           out: torch.Tensor, dout: torch.Tensor,
                           lse: torch.Tensor, *, causal: bool,
-                          q_offset: int = 0):
+                          q_offset: int = 0,
+                          scale: float | None = None):
     """The backward kernels' algorithm in float32: the gradients of q, k
     and v of :func:`chunked_attention`, given its output, the output's
     cotangent and the per-row log-sum-exp.  The probabilities are
     recomputed from ``lse`` (``p = exp(s - lse)``, zero where masked),
     ``D = rowsum(dout * out)``, ``dS = p (dout vᵀ - D)``; then ``dq = dS k
     / √d``, ``dk = dSᵀ q / √d``, ``dv = pᵀ dout``, each in its input's
-    dtype.  Every row needs a live key (Tk >= 1, q_offset >= 0)."""
+    dtype.  Every row needs a live key (Tk >= 1, q_offset >= 0).
+    ``scale`` replaces ``1/√d``, as in :func:`chunked_attention`."""
     tq, d = q.shape[2], q.shape[3]
     tk = k.shape[2]
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
     s = (qf @ kf.transpose(-1, -2)) * scale
     valid = torch.ones((tq, tk), dtype=torch.bool, device=q.device)

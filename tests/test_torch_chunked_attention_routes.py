@@ -139,6 +139,48 @@ def test_wide_heads_plain_backward_matches_reference(d, causal, tq, tk,
         _near(g, w, BWD_TOL)
 
 
+#: the padding invariant's tolerance (float32, of max|want|): the same
+#: sums with zero terms added
+PAD_TOL = 1e-6
+
+
+@pytest.mark.parametrize("causal,tq,tk,chunk,q_offset", CASES)
+@pytest.mark.parametrize("d", WIDE)
+def test_zero_padded_width_gives_the_true_width(d, causal, tq, tk, chunk,
+                                                q_offset):
+    """The tile routes' layout at d 112 and 160, in float32: q, k, v and
+    the cotangent zero-padded from d to whole 64-column chunks, through
+    the plain loop and ``ref.chunked_attention_bwd`` with the true
+    width's scale, then sliced back to d, give the unpadded output,
+    log-sum-exp and gradients; the padding columns of every output are
+    zero."""
+    q, k, v, dout = (_t(a) for a in _inputs(tq, tk, d, 14))
+    width = -(-d // 64) * 64
+    assert width == {112: 128, 160: 192}[d]
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - d))
+
+    scale = 1.0 / (d ** 0.5)
+    out, lse = ref.chunked_attention(q, k, v, causal=causal, chunk=chunk,
+                                     q_offset=q_offset, return_lse=True)
+    p_out, p_lse = ref.chunked_attention(pad(q), pad(k), pad(v),
+                                         causal=causal, chunk=chunk,
+                                         q_offset=q_offset, return_lse=True,
+                                         scale=scale)
+    _near(p_out[..., :d], out, PAD_TOL)
+    _near(p_lse, lse, PAD_TOL)
+    assert not p_out[..., d:].any()
+    grads = ref.chunked_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                      q_offset=q_offset)
+    p_grads = ref.chunked_attention_bwd(pad(q), pad(k), pad(v), p_out,
+                                        pad(dout), p_lse, causal=causal,
+                                        q_offset=q_offset, scale=scale)
+    for g, p in zip(grads, p_grads):
+        _near(p[..., :d], g, PAD_TOL)
+        assert not p[..., d:].any()
+
+
 # ---------------------------------------------------------------------------
 # the route plans
 # ---------------------------------------------------------------------------
@@ -153,8 +195,8 @@ PATH_ROUTES = {
     "llama-cross-decode": ((8, 64, 1, 1024, 128, False), "split", "tile"),
     "phi4-train": ((8, 24, 256, 256, 128, True), "tile", "tile"),
     "grok-train": ((8, 48, 256, 256, 128, True), "tile", "tile"),
-    "kimi-train": ((8, 64, 256, 256, 112, True), "mma", "mma"),
-    "stablelm-train": ((8, 32, 256, 256, 160, True), "mma", "mma"),
+    "kimi-train": ((8, 64, 256, 256, 112, True), "tile", "tile"),
+    "stablelm-train": ((8, 32, 256, 256, 160, True), "tile", "tile"),
 }
 
 
@@ -181,14 +223,16 @@ EDGES = [
     (1, 64, torch.float32, "simt", "simt"),
     (300, 160, torch.float32, "simt", "simt"),
     (1, 16, torch.bfloat16, "split", "mma"),
-    (1, 112, torch.bfloat16, "split", "mma"),
-    (1, 160, torch.bfloat16, "split", "mma"),
+    (1, 112, torch.bfloat16, "split", "tile"),
+    (1, 160, torch.bfloat16, "split", "tile"),
     (ca.SPLIT_MAX_TQ, 64, torch.bfloat16, "split", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 64, torch.bfloat16, "tile", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 128, torch.bfloat16, "tile", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 16, torch.bfloat16, "mma", "mma"),
-    (ca.SPLIT_MAX_TQ + 1, 112, torch.bfloat16, "mma", "mma"),
-    (1500, 160, torch.bfloat16, "mma", "mma"),
+    (ca.SPLIT_MAX_TQ + 1, 112, torch.bfloat16, "tile", "tile"),
+    (ca.SPLIT_MAX_TQ + 1, 160, torch.bfloat16, "tile", "tile"),
+    (1500, 112, torch.bfloat16, "tile", "tile"),
+    (1500, 160, torch.bfloat16, "tile", "tile"),
 ]
 
 
@@ -224,6 +268,24 @@ def test_plan_sends_an_unaligned_tensor_to_mma(which, tq):
     assert bwd == "mma"
     assert fwd == ("split" if which == "out" and tq == 1 else
                    "tile" if which == "out" else "mma")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out"])
+@pytest.mark.parametrize("tq", [2, 300])
+@pytest.mark.parametrize("d", WIDE)
+def test_plan_sends_unaligned_wide_heads_to_mma(d, tq, which):
+    """At d 112 and 160, as at 64: more than one query with an unaligned
+    q, k or v goes by the mma route forward, and any unaligned tensor
+    backward; aligned, both by tile."""
+    shapes = dict(q=(1, 2, tq, d), k=(1, 2, 9, d), v=(1, 2, 9, d),
+                  out=(1, 2, tq, d))
+    ts = {n: (_unaligned(s) if n == which else
+              torch.zeros(s, dtype=torch.bfloat16))
+          for n, s in shapes.items()}
+    assert _plans(ts["q"], ts["k"], ts["v"], ts["out"], True) == (
+        "tile" if which == "out" else "mma", "mma")
+    aligned = [torch.zeros(s, dtype=torch.bfloat16) for s in shapes.values()]
+    assert _plans(*aligned, True) == ("tile", "tile")
 
 
 def _config_names():

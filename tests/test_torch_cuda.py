@@ -56,7 +56,11 @@ Tq in {1, 7, 64, 129, 1500} against Tk in {1, 9, 127, 128, 129, 513,
 1500}, the log-sum-exp within 1e-4 of the float32 loop's; each backward
 route from the output and log-sum-exp of each forward route), two runs
 of every route are bitwise equal, the layer takes the planned routes,
-and a route launched at a width it is not built for raises.
+and a route launched at a width it is not built for raises.  The tile
+route at d 112 and 160 (whole 64-column chunks in shared memory) is
+held forward and backward at two queries and at
+Tq and Tk off every tile, and writes no column past d (outputs in
+buffers poisoned past their end).
 
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
@@ -1504,7 +1508,7 @@ ROUTE_TQ = (1, 7, 64, 129, 1500)
 ROUTE_BWD_SHAPES = [(1, 1), (7, 9), (64, 128), (129, 129), (129, 513),
                     (1500, 1500), (1, 1500)]
 #: forward routes and the widths they take
-FWD_ROUTES = [("tile", torch.bfloat16, (64, 128)),
+FWD_ROUTES = [("tile", torch.bfloat16, (64, 112, 128, 160)),
               ("split", torch.bfloat16, (16, 64, 112, 128, 160)),
               ("mma", torch.bfloat16, (16, 64, 112, 128, 160)),
               ("simt", torch.float32, (16, 64, 112, 128, 160))]
@@ -1565,10 +1569,11 @@ def test_cuda_chunked_attention_route_forward(cuda, route, dtype, d, causal,
 
 #: backward route, forward route, dtype, widths
 BWD_CASES = ([("tile", f, torch.bfloat16, d) for f in ("tile", "split", "mma")
-              for d in (64, 128)]
+              for d in (64, 112, 128, 160)]
              + [("mma", f, torch.bfloat16, d) for f in ("split", "mma")
                 for d in (16, 64, 112, 128, 160)]
-             + [("mma", "tile", torch.bfloat16, d) for d in (64, 128)]
+             + [("mma", "tile", torch.bfloat16, d)
+                for d in (64, 112, 128, 160)]
              + [("simt", "simt", torch.float32, d)
                 for d in (16, 64, 112, 128, 160)])
 
@@ -1597,8 +1602,8 @@ def test_cuda_chunked_attention_route_backward(cuda, bwd, fwd, dtype, d,
 def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
     """Through the layer, each call takes its planned routes (the counts
     by route move by one), and the plain loop (made to raise) is never
-    reached: decode by split, prefill and training by tile at d 64 and
-    128, mma at 112 and 160, simt in float32."""
+    reached: decode by split, prefill and training by tile at d 64, 112,
+    128 and 160, mma at d 16, simt in float32."""
     from repro_torch.kernels import chunked_attention as ca
     from repro_torch.models import layers
 
@@ -1607,9 +1612,11 @@ def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
 
     monkeypatch.setattr(ref, "chunked_attention", refuse)
     cases = [(torch.bfloat16, 1, 300, 64, "split", "tile"),
-             (torch.bfloat16, 1, 300, 160, "split", "mma"),
+             (torch.bfloat16, 1, 300, 160, "split", "tile"),
              (torch.bfloat16, 200, 300, 128, "tile", "tile"),
-             (torch.bfloat16, 200, 300, 112, "mma", "mma"),
+             (torch.bfloat16, 200, 300, 112, "tile", "tile"),
+             (torch.bfloat16, 200, 300, 160, "tile", "tile"),
+             (torch.bfloat16, 200, 300, 16, "mma", "mma"),
              (torch.float32, 200, 300, 64, "simt", "simt")]
     for dtype, tq, tk, d, fwd, bwd in cases:
         q, k, v, dout = _attn_case(cuda, dtype, tq, tk, d)
@@ -1629,7 +1636,83 @@ def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
 def test_cuda_chunked_attention_route_refuses_other_widths(cuda, route):
     """A route launched at a width it is not built for raises; nothing
     falls back to another route or to the loop."""
-    width = 112 if route == "tile" else 32
+    width = 16 if route == "tile" else 32
     q, k, v, _ = _attn_case(cuda, torch.bfloat16, 4, 9, width)
     with pytest.raises(RuntimeError):
         _route_fwd(route)(q, k, v, True, 0)
+
+
+# ---------------------------------------------------------------------------
+# the tile route at d 112 and 160: whole 64-column chunks, padded
+# ---------------------------------------------------------------------------
+
+#: Tq, Tk: two queries, Tq and Tk off every tile (64 and 128 rows, 64 and
+#: 128 keys), a key tile and a chunk of 512 crossed
+WIDE_SHAPES = [(2, 9), (2, 600), (7, 129), (70, 64), (129, 513), (300, 257)]
+
+
+@pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
+@pytest.mark.parametrize("d", [112, 160])
+def test_cuda_chunked_attention_tile_wide_heads(cuda, d, causal, q_offset):
+    """The tile forward and backward at d 112 and 160 (the dK / dV split by
+    64-column chunks at d 112, a dV and a dK launch at d 160) against
+    the float32 loop within the d-64/128 tile tests' allowance at every
+    shape of ``WIDE_SHAPES``; two runs bitwise equal."""
+    from repro_torch.kernels import chunked_attention as ca
+    for tq, tk in WIDE_SHAPES:
+        q, k, v, dout = _attn_case(cuda, torch.bfloat16, tq, tk, d,
+                                   seed=tq * tk + d)
+        out, lse = ca.tile_fwd(q, k, v, causal, q_offset)
+        assert torch.equal(out, ca.tile_fwd(q, k, v, causal, q_offset)[0])
+        want, loop = _want(q, k, v, dout, causal, q_offset, False)
+        _attn_allow([out], want, loop, torch.bfloat16, False)
+        got = ca.tile_bwd(q, k, v, out, dout, lse, causal, q_offset)
+        again = ca.tile_bwd(q, k, v, out, dout, lse, causal, q_offset)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want, loop = _want(q, k, v, dout, causal, q_offset, True)
+        _attn_allow(got, want, loop, torch.bfloat16, True)
+
+
+def _poisoned(like, extra=4096):
+    """A view shaped as ``like`` at the start of a buffer of bf16 poison
+    (a NaN pattern) that runs ``extra`` elements past it."""
+    buf = torch.full((like.numel() + extra,), -1, dtype=torch.int16,
+                     device=like.device).view(torch.bfloat16)
+    return buf, buf[:like.numel()].view(like.shape)
+
+
+@pytest.mark.parametrize("d", [112, 160])
+def test_cuda_chunked_attention_tile_stores_only_true_columns(cuda, d):
+    """The padded chunks' columns past d never reach an output: out, dq,
+    dk and dv written into buffers poisoned past their last element
+    leave the poison there, and hold the loop's values."""
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.kernels.build import check, load
+    from repro_torch.kernels.dispatch import stream_of
+    q, k, v, dout = _attn_case(cuda, torch.bfloat16, 129, 200, d, seed=d)
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    obuf, out = _poisoned(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=cuda)
+    fwd = load("chunked_attention_sm90").chunked_attention_tile_fwd_bf16
+    bwd = load("chunked_attention_bwd_sm90").chunked_attention_tile_bwd_bf16
+    check(fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b * h, tq, tk, d, 1, 5, stream_of(q)), "forward")
+    bufs = [_poisoned(t) for t in (q, k, v)]
+    stats = torch.empty(2 * b * h * (-(-tq // ca.STAT_ROWS) * ca.STAT_ROWS),
+                        dtype=torch.float32, device=cuda)
+    dq, dk, dv = (g for _, g in bufs)
+    check(bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, tq, tk, d, 1, 5,
+        stream_of(q)), "backward")
+    torch.cuda.synchronize()
+    for buf, t in [(obuf, out)] + bufs:
+        tail = buf[t.numel():].view(torch.int16)
+        assert torch.equal(tail, torch.full_like(tail, -1))
+    want, loop = _want(q, k, v, dout, True, 5, False)
+    _attn_allow([out], want, loop, torch.bfloat16, False)
+    want, loop = _want(q, k, v, dout, True, 5, True)
+    _attn_allow([dq, dk, dv], want, loop, torch.bfloat16, True)

@@ -162,6 +162,90 @@ def test_cost_collectives_by_kind():
         "all-gather", "all-reduce", "reduce-scatter", "all-to-all"))
 
 
+@pytest.mark.parametrize("placements", [
+    (Shard(0), Shard(1)),     # batch over data, heads over model
+    (Replicate(), Shard(1)),  # heads over model
+    (Shard(0), Replicate()),  # batch over data
+])
+def test_cost_attention_loop_state_is_per_device(placements):
+    """The plain chunked-attention loop on DTensors (the dry run's path)
+    holds its running state (m, l and the float32 accumulator) as shards
+    of q: the live peak the counter reports, its products and its
+    collectives (none) are those of the same loop on one rank's local
+    shards, not of q's global shape."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ref
+    b, h, tq, tk, d = 4, 8, 40, 72, 32
+    with process_group("fake", 4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        g = torch.Generator().manual_seed(0)
+        xs = [distribute_tensor(torch.randn(b, h, t, d, generator=g), mesh,
+                                list(placements)) for t in (tq, tk, tk)]
+        local = [x.to_local().clone() for x in xs]
+        counted = CostCounter()
+        with implicit_replication(), counted:
+            out = ref.chunked_attention(*xs, causal=True, chunk=16,
+                                        q_offset=5)
+        plain = CostCounter()
+        with plain:
+            want = ref.chunked_attention(*local, causal=True, chunk=16,
+                                         q_offset=5)
+    assert tuple(out.placements) == placements
+    assert torch.equal(out.to_local(), want)
+    assert counted.peak_bytes == plain.peak_bytes
+    assert (counted.dot_flops, counted.dot_bytes) == (plain.dot_flops,
+                                                      plain.dot_bytes)
+    assert counted.totals()["collective_total"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("placements", [
+    (Shard(0), Shard(1)),
+    (Replicate(), Shard(1)),
+    (Shard(0), Replicate()),
+])
+def test_cost_attention_loop_backward_is_per_device(placements, dtype):
+    """The loop forward and its autograd backward on DTensors (the dry
+    run's training cells): the counted live peak and products are one
+    rank's, with no collective, and the gradients are the local loop's,
+    bitwise, placed as their inputs."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ref
+    b, h, tq, tk, d = 4, 8, 40, 72, 32
+    with process_group("fake", 4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        g = torch.Generator().manual_seed(1)
+        full = [torch.randn(b, h, t, d, generator=g).to(dtype)
+                for t in (tq, tk, tk, tq)]
+        xs = [distribute_tensor(t, mesh, list(placements)).requires_grad_()
+              for t in full[:3]]
+        dout = distribute_tensor(full[3], mesh, list(placements))
+        local = [x.to_local().detach().clone().requires_grad_()
+                 for x in xs]
+        counted = CostCounter()
+        with implicit_replication(), counted:
+            out = ref.chunked_attention(*xs, causal=True, chunk=16,
+                                        q_offset=5)
+            grads = torch.autograd.grad(out, xs, dout)
+        plain = CostCounter()
+        with plain:
+            want = torch.autograd.grad(
+                ref.chunked_attention(*local, causal=True, chunk=16,
+                                      q_offset=5), local, dout.to_local())
+    assert counted.peak_bytes == plain.peak_bytes
+    assert counted.dot_flops == plain.dot_flops
+    assert counted.totals()["collective_total"] == 0
+    for got, w in zip(grads, want):
+        assert tuple(got.placements) == placements
+        assert torch.equal(got.to_local(), w)
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("phi4_mini_3_8b", "train_4k"),       # tests/test_system.py's cell
     ("kimi_k2_1t_a32b", "decode_32k"),    # expert-parallel MoE
