@@ -67,8 +67,11 @@ compile cache with ``verify=True``, the warm objects run on the card
 bitwise; and the soundness verifier's sweeps with mutants, in-process.
 After the kernel API, ``[scan]`` holds the SSM scans' kernels
 (``repro_torch.kernels.scan``: RWKV-6 and Mamba, forward by each route
-and backward) against their plain loops: float32 at a small odd T by the
-step routes; the new bf16 routes (RWKV-6 chunked, Mamba chunk) against
+and backward) against their plain loops: float32 by the chunked routes
+(RWKV-6 chunked, Mamba chunk) at a small odd T, then forward and
+backward against the float32 loop at full width (T 2 to 2048) and at
+``[train-small]``'s shapes (heads of 16, 64 Mamba channels), and at 8 x
+512 and B = 2, T = 2048 beside the step routes; the new bf16 routes against
 the loop run in float32 on the same values at T from 2 to 2048 in three
 decay regimes, no further from it than the bf16 loop; then bf16 at one
 RWKV-6-7B layer's and one Jamba Mamba layer's shapes: 8 x 512 prefill by
@@ -1573,6 +1576,18 @@ SCAN_CHUNK = 16
 #: (the models' own; near 0; near 1), at full width, B = 2
 SCAN_SWEEP_T = (2, 17, 64, 65, 512, 2048)
 SCAN_REGIMES = ("model", "near0", "near1")
+#: the float32 routes' sweep (forward and backward in one pass): fewer T
+#: than the bf16 sweep's, the chunk's and the unit's edges and the longest;
+#: the float32 loop's own gradients are held to float64 up to the last but
+#: one (the float64 backward at T = 2048 would double the sweep's time)
+SCAN_SWEEP_T_F32 = (2, 17, 65, 2048)
+#: batch and tokens of ``[train-small]``'s steps (every config's float32
+#: smoke variant)
+TRAIN_SMALL = dict(batch=2, seq_len=16)
+#: the speed-up over the step routes below which [scan] prints a note:
+#: forward (RWKV-6, Mamba) and backward, by dtype
+SCAN_FWD_GAIN = {"rwkv": 3.0, "mamba": 1.8}
+SCAN_BWD_GAIN = {torch.bfloat16: 5.0, torch.float32: 4.0}
 
 
 def _scan_counters():
@@ -1619,10 +1634,10 @@ def _plain_scans():
         ssm._rwkv6_scan, ssm._mamba_scan = saved
 
 
-def _scan_args(kind, b, t, width, dtype, gen, regime="model"):
+def _scan_args(kind, b, t, width, dtype, gen, regime="model", hd=SCAN_HD):
     """Seeded inputs of one scan, made on the card: RWKV-6 at d_model
-    ``width`` (heads of 64), Mamba at ``width`` channels (N = 16).  Decays
-    and deltas in the ranges the models give them (``regime="model"``:
+    ``width`` in heads of ``hd``, Mamba at ``width`` channels (N = 16).
+    Decays and deltas in the ranges the models give them (``regime="model"``:
     w = sigmoid(x + 2), delta = softplus(x - 1)), near 0 (w <= 1e-3, a
     fifth of the channels exactly 0; delta a <= -20) or near 1 (w >=
     0.999 before the bf16 rounding, which takes it to 1 or 0.998; delta a
@@ -1637,8 +1652,8 @@ def _scan_args(kind, b, t, width, dtype, gen, regime="model"):
         return torch.rand(shape, generator=gen, device=dev)
 
     if kind == "rwkv":
-        h = width // SCAN_HD
-        shape = (b, t, h, SCAN_HD)
+        h = width // hd
+        shape = (b, t, h, hd)
         if regime == "model":
             w = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)
                               + 2)
@@ -1648,9 +1663,8 @@ def _scan_args(kind, b, t, width, dtype, gen, regime="model"):
         else:
             w = 1 - rand(*shape) * 1e-3
         return [f(*shape, scale=0.5), f(*shape, scale=0.5), f(*shape),
-                w.to(dtype), f(h, SCAN_HD, scale=0.5),
-                torch.randn((b, h, SCAN_HD, SCAN_HD), generator=gen,
-                            device=dev) * 0.3]
+                w.to(dtype), f(h, hd, scale=0.5),
+                torch.randn((b, h, hd, hd), generator=gen, device=dev) * 0.3]
     x = torch.randn((b, t, 1), generator=gen, device=dev)
     if regime == "model":
         delta = torch.nn.functional.softplus(x - 1)
@@ -1667,16 +1681,17 @@ def _scan_args(kind, b, t, width, dtype, gen, regime="model"):
             torch.randn((b, width, SCAN_N), generator=gen, device=dev) * 0.3]
 
 
-def _scan_bytes(kind, bwd, b, t, width) -> int:
-    """Bytes of one scan call at these shapes, bf16 activations: each
-    input read once and each output written once (the backward's
-    workspace is the kernel's choice, not the function's work)."""
+def _scan_bytes(kind, bwd, b, t, width, elem) -> int:
+    """Bytes of one scan call at these shapes, activations of ``elem``
+    bytes (2 bf16, 4 float32; the state and A are float32): each input
+    read once and each output written once (the backward's workspace is
+    the kernel's choice, not the function's work)."""
     if kind == "rwkv":
-        act, par = b * t * width * 2, width * 2
+        act, par = b * t * width * elem, width * elem
         state = b * (width // SCAN_HD) * SCAN_HD * SCAN_HD * 4
         fwd = 5 * act + par + 2 * state
         return fwd + (4 * act + par + state if bwd else 0)
-    act, small = b * t * width * 2, b * t * (1 + 2 * SCAN_N) * 2
+    act, small = b * t * width * elem, b * t * (1 + 2 * SCAN_N) * elem
     a, state = width * SCAN_N * 4, b * width * SCAN_N * 4
     fwd = 2 * act + small + a + 2 * state
     return fwd + (act + small + a + state if bwd else 0)
@@ -1691,7 +1706,7 @@ def _sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def _scan_bound(kind, route, bwd, b, t, width, clock) -> dict:
+def _scan_bound(kind, route, bwd, b, t, width, clock, elem) -> dict:
     """The least time of one scan call by this route at these shapes: the
     larger of the bytes over 3.35 TB/s and the route's operations over
     their rate.  Step routes (and the backward): :data:`SCAN_OPS` float32
@@ -1702,8 +1717,9 @@ def _scan_bound(kind, route, bwd, b, t, width, clock) -> dict:
     updates, S dy, G v and (k q) G; v.dy, the scores and their product
     with dy).  Mamba chunk: one exp a state element a step on the
     special-function units, forward and backward.  Also the step-serial
-    count's bound (``old``) beside every route's, for comparison."""
-    nbytes = _scan_bytes(kind, bwd, b, t, width)
+    count's bound (``old``) beside every route's, for comparison.
+    ``elem``: the activations' bytes."""
+    nbytes = _scan_bytes(kind, bwd, b, t, width, elem)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     elems = b * t * width * (SCAN_HD if kind == "rwkv" else SCAN_N)
     old_ops = SCAN_OPS[kind, bwd] * elems
@@ -1763,21 +1779,22 @@ def _against_float32(tag, got, args, plain) -> dict:
 def _scan_grads(fn, args, seed):
     """The gradients of all six inputs of ``fn``'s scan, given seeded
     cotangents of y and of the last state."""
-    return _scan_grads_both(fn, args, seed)[0]
+    return _scan_outs_grads(fn, args, seed)[1][0]
 
 
 def _scan_cots(s, y, seed):
-    """Seeded cotangents of a scan's last state (float32) and of y (y's
-    dtype)."""
+    """Seeded cotangents of a scan's last state and of y, in their dtypes
+    (the same values in float32 and float64)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    w_s = torch.randn(s.shape, generator=g, device="cuda")
+    w_s = torch.randn(s.shape, generator=g, device="cuda").to(s.dtype)
     return w_s, torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
 
 
-def _scan_grads_both(fn, args, seed):
-    """The gradients of all six inputs of ``fn``'s scan from one forward,
-    given seeded cotangents of y: with a seeded cotangent of the last
-    state, then without one (an input nothing reaches gets zeros)."""
+def _scan_outs_grads(fn, args, seed):
+    """``fn``'s (last state, y) and the gradients of all six inputs of its
+    scan from the same forward, given seeded cotangents of y: with a
+    seeded cotangent of the last state, then without one (an input
+    nothing reaches gets zeros)."""
     xs = [a.detach().clone().requires_grad_(True) for a in args]
     s, y = fn(*xs)
     w_s, w_y = _scan_cots(s, y, seed)
@@ -1787,7 +1804,7 @@ def _scan_grads_both(fn, args, seed):
                                     retain_graph=not out)
         out.append([torch.zeros_like(x) if gr is None else gr
                     for x, gr in zip(xs, grads)])
-    return out
+    return (s.detach(), y.detach()), out
 
 
 def _scan_kinds():
@@ -1813,10 +1830,12 @@ def _scan_kinds():
                       bwd_src="mamba_scan.cu")}
 
 
-def _scan_record(k, way, route, src, r) -> dict:
+def _scan_record(k, way, route, src, r, dtype=torch.bfloat16) -> dict:
     """One scan route's record of the kernels line (``launches`` filled
-    from the main path's phases)."""
-    return {"name": f"{k['name']}_{way}_{route}", "route": "cuda",
+    from the main path's phases); float32 routes' names end in ``_f32``."""
+    tail = "_f32" if dtype == torch.float32 else ""
+    return {"name": f"{k['name']}_{way}_{route}{tail}", "route": "cuda",
+            "dtype": str(dtype).removeprefix("torch."),
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/models/ssm.py:{k['line']}",
             "launches": None, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1918,7 +1937,7 @@ def _bwd_sweep(kind, k, gen) -> dict:
                          f"plan {k['bwd_plan'](*args, ds, dy)}, want {route}")
             del s, y, dy
             n0 = k["fn"].bwd_route_launches[route]
-            got = _scan_grads_both(k["fn"], args, 5 + t)
+            got = _scan_outs_grads(k["fn"], args, 5 + t)[1]
             if k["fn"].bwd_route_launches[route] != n0 + 2:
                 fail(f"scan {kind} backward B={b} T={t} width={width}: "
                      f"the {route} route "
@@ -1926,9 +1945,9 @@ def _bwd_sweep(kind, k, gen) -> dict:
                      f"times, want 2")
             for f32, tol in ((False, SCAN_GRAD_TOL[bf16]),
                              (True, SCAN_GRAD_F32_TOL)):
-                want = _scan_grads_both(
+                want = _scan_outs_grads(
                     k["plain"], [a.float() for a in args] if f32 else args,
-                    5 + t)
+                    5 + t)[1]
                 for last, gs, ws in zip(("with", "without"), got, want):
                     for i, (g, w) in enumerate(zip(gs, ws)):
                         tag = (f"scan {kind} {route} backward {regime} B={b} "
@@ -1949,65 +1968,72 @@ def _bwd_sweep(kind, k, gen) -> dict:
     return worst
 
 
-def _scan_backward(kind, k, gen, clock) -> dict:
-    """The backward at B = 2, T = 2048, one layer's width: the new route's
-    sweep (:func:`_bwd_sweep`), then the new route and the step pair on
+def _scan_backward(kind, k, gen, clock, dtype=torch.bfloat16) -> dict:
+    """The backward at B = 2, T = 2048, one layer's width, in ``dtype``:
+    in bf16 the new route's sweep first (:func:`_bwd_sweep`; float32 has
+    its own, :func:`_f32_sweep`), then the new route and the step pair on
     the same inputs, each timed (CUDA events around eager calls) beside
     the loop (forward and autograd backward through it), its bound, the
     step-serial bound, and the workspace it allocates.  Returns both
     routes' records."""
     bf16, width, name = torch.bfloat16, k["width"], k["name"]
     route = k["bwd_route"]
+    tol, elem = SCAN_GRAD_TOL[dtype], dtype.itemsize
+    label = "bf16" if dtype == bf16 else "float32"
     t1 = time.perf_counter()
-    worst = _bwd_sweep(kind, k, gen)
-    print(f"[scan] {name} backward, route {route}, bf16 B=2 width={width}: "
-          f"all six gradients finite and within {SCAN_GRAD_TOL[bf16]} of "
-          f"autograd through the bf16 loop and {SCAN_GRAD_F32_TOL} of the "
-          f"loop in float32 (shares of the largest) at every T in "
-          f"{SCAN_SWEEP_T} and at the main path's B, T, width "
-          f"{_bwd_main_shape(kind)}, with and without a cotangent of the "
-          f"last state; "
-          f"worst shares (bf16 loop / float32 loop): " + "; ".join(
-              f"{r} {a:.3g} / {b:.3g}" for r, (a, b) in worst.items())
-          + f" ({time.perf_counter() - t1:.1f} s)")
+    worst = None
+    if dtype == bf16:
+        worst = _bwd_sweep(kind, k, gen)
+        print(f"[scan] {name} backward, route {route}, bf16 B=2 "
+              f"width={width}: all six gradients finite and within "
+              f"{SCAN_GRAD_TOL[bf16]} of autograd through the bf16 loop and "
+              f"{SCAN_GRAD_F32_TOL} of the loop in float32 (shares of the "
+              f"largest) at every T in {SCAN_SWEEP_T} and at the main path's "
+              f"B, T, width {_bwd_main_shape(kind)}, with and without a "
+              f"cotangent of the last state; worst shares (bf16 loop / "
+              f"float32 loop): " + "; ".join(
+                  f"{r} {a:.3g} / {b:.3g}" for r, (a, b) in worst.items())
+              + f" ({time.perf_counter() - t1:.1f} s)")
     t1 = time.perf_counter()
-    args = _scan_args(kind, 2, 2048, width, bf16, gen)
+    args = _scan_args(kind, 2, 2048, width, dtype, gen)
     got = _scan_grads(k["fn"], args, 2)
     want = _scan_grads(k["plain"], args, 2)
-    errs = [_scan_err(f"scan {kind} backward gradient {i}", g, w,
-                      SCAN_GRAD_TOL[bf16])
+    errs = [_scan_err(f"scan {kind} {label} backward gradient {i}", g, w, tol)
             for i, (g, w) in enumerate(zip(got, want))]
     rel = [x / w.float().abs().max().item() for x, w in zip(errs, want)]
     # the step pair on the same cotangents, against the same loop
     w_s, w_y = _scan_cots(args[5], args[0], 2)
-    errs_step = [_scan_err(f"scan {kind} backward step pair gradient {i}",
-                           g, w, SCAN_GRAD_TOL[bf16])
+    errs_step = [_scan_err(f"scan {kind} {label} backward step pair "
+                           f"gradient {i}", g, w, tol)
                  for i, (g, w) in enumerate(zip(
                      k["bwd_step"](*args, w_s, w_y), want))]
     del want, w_s, w_y
-    want = _scan_grads(k["plain"], [a.float() for a in args], 2)
-    rel32 = [_scan_err(f"scan {kind} backward gradient {i} against "
-                       f"float32", g.float(), w, SCAN_GRAD_F32_TOL)
-             / w.abs().max().item()
-             for i, (g, w) in enumerate(zip(got, want))]
-    del got, want
+    rel32 = None
+    if dtype == bf16:
+        want = _scan_grads(k["plain"], [a.float() for a in args], 2)
+        rel32 = [_scan_err(f"scan {kind} backward gradient {i} against "
+                           f"float32", g.float(), w, SCAN_GRAD_F32_TOL)
+                 / w.abs().max().item()
+                 for i, (g, w) in enumerate(zip(got, want))]
+        del want
+    del got
     _free()
     g = torch.Generator(device="cuda").manual_seed(3)
     with torch.no_grad():
         s, y = k["fn"](*args)
     ds = torch.randn(s.shape, generator=g, device="cuda")
-    dy = torch.randn(y.shape, generator=g, device="cuda").to(bf16)
+    dy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
     del s, y
-    # the step pair (the bf16 loop's roundings) against the new route
+    # the step pair (the loop's roundings) against the new route
     new_g, step_g = k["bwd_new"](*args, ds, dy), k["bwd_step"](*args, ds, dy)
-    pair = [_scan_err(f"scan {kind} backward {route} against step, "
-                      f"gradient {i}", a.float(), b.float(),
-                      SCAN_GRAD_TOL[bf16])
+    pair = [_scan_err(f"scan {kind} {label} backward {route} against step, "
+                      f"gradient {i}", a.float(), b.float(), tol)
             for i, (a, b) in enumerate(zip(new_g, step_g))]
     del new_g, step_g
     _free()
+    # float32: the loop ran at this shape in the sweep, so no warm-up
     plain_ms = call_ms(lambda: _scan_grads(k["plain"], args, 4), reps=1,
-                       warm=1)
+                       warm=int(dtype == bf16))
     out = {}
     for r, fn, reps in ((route, k["bwd_new"], 10), ("step", k["bwd_step"], 3),
                         (route + "_again", k["bwd_new"], 10)):
@@ -2022,24 +2048,25 @@ def _scan_backward(kind, k, gen, clock) -> dict:
         out[r] = {"ms": ms, "plain_ms": plain_ms, "kernels_ms": split,
                   "max_abs_err": max(errs) if r == route else None,
                   "shape": [2, 2048, width], **ws,
-                  **_scan_bound(kind, r, True, 2, 2048, width, clock)}
+                  **_scan_bound(kind, r, True, 2, 2048, width, clock, elem)}
     out[route].update(grad_max_abs_err=errs, grad_err_share_of_max=rel,
-                      grad_err_share_of_max_vs_float32=rel32,
-                      sweep_worst_share=worst,
                       vs_step_max_abs_err=pair)
+    if dtype == bf16:
+        out[route].update(grad_err_share_of_max_vs_float32=rel32,
+                          sweep_worst_share=worst)
     out["step"].update(max_abs_err=max(errs_step),
                        grad_max_abs_err=errs_step)
     del ds, dy, args
     _free()
     new, step = out[route], out["step"]
-    print(f"[scan] {name} backward bf16 B=2 T=2048 width={width}: route "
-          f"{route} max abs err vs autograd through the bf16 loop "
+    print(f"[scan] {name} backward {label} B=2 T=2048 width={width}: route "
+          f"{route} max abs err vs autograd through the {label} loop "
           f"{max(errs):.3g} (by input, as a share of max: "
           + ", ".join(f"{x:.2g}" for x in rel)
-          + "; against the loop in float32 on the same values: "
-          + ", ".join(f"{x:.2g}" for x in rel32) + ")")
+          + ("; against the loop in float32 on the same values: "
+             + ", ".join(f"{x:.2g}" for x in rel32) if rel32 else "") + ")")
     for r, rec in ((route, new), ("step", step)):
-        print(f"[scan] {name} backward B=2 T=2048, route {r}: "
+        print(f"[scan] {name} backward {label} B=2 T=2048, route {r}: "
               f"{rec['ms'] * 1e3:.2f} us a launch (eager, CUDA events"
               + (f"; again after the step pair {rec['ms_again'] * 1e3:.2f}"
                  if "ms_again" in rec else "")
@@ -2056,39 +2083,194 @@ def _scan_backward(kind, k, gen, clock) -> dict:
                                            rec["kernels_ms"].items())
                                  or "not captured")
               + f" ({smi()})")
-    print(f"[scan] {name} backward B=2 T=2048: route {route} "
+    gain = step["ms"] / new["ms"]
+    share = new["workspace_bytes"] / step["workspace_bytes"]
+    new.update(step_ratio=gain, workspace_share_of_step=share)
+    print(f"[scan] {name} backward {label} B=2 T=2048: route {route} "
           f"{new['ms'] * 1e3:.2f} us, step pair {step['ms'] * 1e3:.2f} us on "
-          f"the same inputs, {step['ms'] / new['ms']:.2f}x; workspace "
+          f"the same inputs, {gain:.2f}x; workspace "
           f"{new['workspace_bytes'] / 1e9:.4f} GB against "
-          f"{step['workspace_bytes'] / 1e9:.4f} GB "
-          f"({new['workspace_bytes'] / step['workspace_bytes']:.4f}); the "
-          f"two routes' gradients agree within {max(pair):.3g}; "
+          f"{step['workspace_bytes'] / 1e9:.4f} GB ({share:.4f}); the two "
+          f"routes' gradients agree within {max(pair):.3g}; "
           f"{time.perf_counter() - t1:.1f} s")
-    if step["ms"] < 5 * new["ms"] or \
-            16 * new["workspace_bytes"] > step["workspace_bytes"]:
-        print(f"[scan] {name} backward: route {route} short of 5x the step "
-              f"pair's speed or a sixteenth of its workspace")
+    if gain < SCAN_BWD_GAIN[dtype] or 16 * share > 1:
+        print(f"[scan] {name} backward {label}: route {route} short of "
+              f"{SCAN_BWD_GAIN[dtype]:g}x the step pair's speed "
+              f"({gain:.2f}x) or a sixteenth of its workspace ({share:.4f})")
     return out
+
+
+def _f32_main_shapes(kind) -> list:
+    """B, T, width and head width of the float32 routes on their main
+    path, ``[train-small]``: the rwkv6_7b smoke config (d_model 64 in
+    heads of 16) and the jamba smoke config (64 Mamba channels) at
+    :data:`TRAIN_SMALL`'s batch, at its T and at T 2, 17 and 65 (the
+    chunk's edges at that width)."""
+    from repro_torch.configs import base as cbase
+    cfg = cbase.smoke(cbase.get(
+        "rwkv6_7b" if kind == "rwkv" else "jamba_1_5_large_398b"))
+    return [(TRAIN_SMALL["batch"], t, cfg.d_model, cfg.hd)
+            for t in (2, TRAIN_SMALL["seq_len"], 17, 65)]
+
+
+def _f32_sweep(kind, k, gen, shapes) -> dict:
+    """The float32 routes (RWKV-6 ``chunked``, Mamba ``chunk``) through
+    autograd at ``shapes`` (B, T, width, RWKV-6 head width), in every
+    decay regime: the last state within ``SCAN_STATE_TOL`` and y within
+    ``SCAN_TOL`` of the float32 loop, each gradient within
+    ``SCAN_GRAD_TOL`` of autograd through it (as a share of the largest),
+    with and without a cotangent of the last state; the plans take the
+    routes, and each call launches the forward route once and the
+    backward route twice.  Beside each, the float32 loop's own error
+    against the loop run in float64 (the gradients' below T =
+    ``SCAN_SWEEP_T_F32[-1]``).  Returns the worst errors by regime, state
+    / y / gradients: the route's and the loop's as shares of the largest
+    (``route``, ``loop``), and the route's max abs error
+    (``route_abs``)."""
+    f32, route = torch.float32, k["route"]
+    out = {}
+    for regime in SCAN_REGIMES:
+        worst = {x: [0.0, 0.0, 0.0] for x in ("route", "loop", "route_abs")}
+        for b, t, width, hd in shapes:
+            args = _scan_args(kind, b, t, width, f32, gen, regime, hd)
+            tag = (f"scan {kind} {route} float32 {regime} B={b} T={t} "
+                   f"width={width}" + (f" hd={hd}" if kind == "rwkv" else ""))
+            dy = torch.zeros_like(args[0])
+            if k["plan"](*args) != route or any(
+                    k["bwd_plan"](*args, ds, dy) != k["bwd_route"]
+                    for ds in (args[5], None)):
+                fail(f"{tag}: plans {k['plan'](*args)} / "
+                     f"{k['bwd_plan'](*args, args[5], dy)}, want {route}")
+            del dy
+            n0 = (k["fn"].route_launches[route],
+                  k["fn"].bwd_route_launches[k["bwd_route"]])
+            got, got_g = _scan_outs_grads(k["fn"], args, 7 + t)
+            n1 = (k["fn"].route_launches[route],
+                  k["fn"].bwd_route_launches[k["bwd_route"]])
+            if (n1[0] - n0[0], n1[1] - n0[1]) != (1, 2):
+                fail(f"{tag}: launched {n1[0] - n0[0]} forward, "
+                     f"{n1[1] - n0[1]} backward by the route, want 1, 2")
+            want, want_g = _scan_outs_grads(k["plain"], args, 7 + t)
+            wide = [a.double() for a in args]
+            if t < SCAN_SWEEP_T_F32[-1]:
+                d64, d64_g = _scan_outs_grads(k["plain"], wide, 7 + t)
+            else:
+                with torch.no_grad():
+                    d64, d64_g = k["plain"](*wide), (None, None)
+            for i, tol in enumerate((SCAN_STATE_TOL, SCAN_TOL[f32])):
+                what = ("state", "y")[i]
+                err = _scan_err(f"{tag} {what}", got[i], want[i], tol)
+                scale = want[i].abs().max().item()
+                worst["route"][i] = max(worst["route"][i], err / scale)
+                worst["route_abs"][i] = max(worst["route_abs"][i], err)
+                own = (want[i].double() - d64[i]).abs().max().item()
+                worst["loop"][i] = max(worst["loop"][i],
+                                       own / d64[i].abs().max().item())
+            for last, gs, ws, w64 in zip(("with", "without"), got_g, want_g,
+                                         d64_g):
+                for i, (g, w) in enumerate(zip(gs, ws)):
+                    err = _scan_err(f"{tag} {last} ds, gradient {i}", g, w,
+                                    SCAN_GRAD_TOL[f32])
+                    big = w.abs().max().item()
+                    if big == 0:  # nothing reaches it: zeros all round
+                        continue
+                    worst["route"][2] = max(worst["route"][2], err / big)
+                    worst["route_abs"][2] = max(worst["route_abs"][2], err)
+                    if w64 is not None:
+                        x = w64[i]
+                        worst["loop"][2] = max(
+                            worst["loop"][2], (w.double() - x).abs().max()
+                            .item() / x.abs().max().item())
+            del args, got, got_g, want, want_g, d64, d64_g, wide
+        _free()
+        out[regime] = worst
+    return out
+
+
+def _scan_prefill_f32(kind, k, gen, clock, b) -> tuple:
+    """Float32 prefill (b x 512, one layer's width) by the new route and
+    by the step route on the same inputs: the new route's state and y
+    within ``SCAN_STATE_TOL`` / ``SCAN_TOL`` of the float32 loop, the
+    step route's state bitwise the loop's; each timed beside its bound,
+    the step-serial bound and the loop, and the float32 loop's own error
+    against the loop in float64 beside.  Returns both routes' records."""
+    f32, width, name, route = torch.float32, k["width"], k["name"], k["route"]
+    args = _scan_args(kind, b, 512, width, f32, gen)
+    plain_ms = call_ms(lambda: k["plain"](*args), reps=2, warm=1)
+    want = k["plain"](*args)
+    w64 = k["plain"](*[a.double() for a in args])
+    own = [(w.double() - x).abs().max().item() for w, x in zip(want, w64)]
+    del w64
+    tols = (SCAN_STATE_TOL, SCAN_TOL[f32])
+    got = k["new"](*args)
+    errs = [_scan_err(f"scan {kind} prefill float32 {route} {what}", g, w,
+                      tol)
+            for g, w, tol, what in zip(got, want, tols, ("state", "y"))]
+    got = k["step"](*args)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(got[0], want[0])
+    if not bitwise:
+        fail(f"scan {kind} prefill float32 step: state not bitwise the "
+             f"loop's")
+    errs_s = [_scan_err(f"scan {kind} prefill float32 step {what}", g, w,
+                        tol)
+              for g, w, tol, what in zip(got, want, tols, ("state", "y"))]
+    del got, want
+    shape = [b, 512, width]
+    new = {"ms": device_ms(lambda: k["new"](*args), reps=50, replays=3),
+           "plain_ms": plain_ms, "max_abs_err": errs[1],
+           "state_max_abs_err": errs[0],
+           "float32_loop_err_vs_float64": {"state": own[0], "y": own[1]},
+           "err_against": "the float32 loop", "shape": shape,
+           **_scan_bound(kind, route, False, b, 512, width, clock, 4)}
+    step = {"ms": device_ms(lambda: k["step"](*args), reps=20, replays=3),
+            "plain_ms": plain_ms, "max_abs_err": errs_s[1],
+            "state_max_abs_err": errs_s[0], "state_bitwise": bitwise,
+            "shape": shape,
+            **_scan_bound(kind, "step", False, b, 512, width, clock, 4)}
+    del args
+    _free()
+    _scan_line(f"float32 prefill, route {route}", name, b, 512, width, new,
+               f"against the float32 loop, state {errs[0]:.3g} and y "
+               f"{errs[1]:.3g} (the float32 loop's own against the loop in "
+               f"float64: {own[0]:.3g} and {own[1]:.3g})")
+    _scan_line("float32 prefill, route step", name, b, 512, width, step,
+               f"max abs err vs the float32 loop {errs_s[1]:.3g} (state "
+               f"bitwise {bitwise})")
+    gain = step["ms"] / new["ms"]
+    new["step_ratio"] = gain
+    print(f"[scan] {name} float32 prefill: route {route} "
+          f"{new['ms'] * 1e3:.2f} us, route step {step['ms'] * 1e3:.2f} us "
+          f"on the same inputs, {gain:.2f}x")
+    if gain < SCAN_FWD_GAIN[kind]:
+        print(f"[scan] {name} float32 prefill: route {route} short of "
+              f"{SCAN_FWD_GAIN[kind]:g}x the step route's speed "
+              f"({gain:.2f}x)")
+    return new, step
 
 
 def phase_scan() -> list:
     """The scans' kernels against their plain loops on the card, route by
-    route.  First float32 at a small odd shape (T = 37, forward by the
-    step routes and backward).  Then the new bf16 routes (RWKV-6
-    chunked, Mamba chunk) against the loop run in float32 on the same
-    values at T in :data:`SCAN_SWEEP_T` and three decay regimes, at full
-    width (B = 2): state and y finite and no further from it than the
-    bf16 loop is.  Then the main path's shapes in bf16, one RWKV-6-7B
+    route.  First float32 at a small odd shape (T = 37, forward and
+    backward by the planned routes).  Then the new routes (RWKV-6
+    chunked, Mamba chunk) at T in :data:`SCAN_SWEEP_T` and three decay
+    regimes, at full width (B = 2): in bf16 against the loop run in
+    float32 on the same values (state and y finite and no further from it
+    than the bf16 loop is); in float32 (:func:`_f32_sweep`, T in
+    :data:`SCAN_SWEEP_T_F32`, forward and backward) against the float32
+    loop at its tolerances, and so again at the float32 routes' own main
+    path's shapes (:func:`_f32_main_shapes`: ``[train-small]``'s heads of
+    16 and 64 Mamba channels).  Then the main path's shapes, one RWKV-6-7B
     layer (64 heads of 64) and one Jamba Mamba layer (8192 channels, N =
-    16): prefill (8 x 512) by the new route and by the step route on the
-    same inputs, the step route's state bitwise the bf16 loop's; decode
-    (T = 1) by RWKV-6's step route and Mamba's decode route, both
-    bitwise, beside Mamba's step kernel at T = 1; the backward by the new
-    route and by the step pair (:func:`_scan_backward`).  Each timed
-    beside its route's bound, the step-serial bound and its plain loop
-    (no library call computes the recurrence).  Returns the kernels
-    line's records, one a route (``launches`` filled from the main path's
-    phases)."""
+    16), in bf16 and in float32: prefill (8 x 512) by the new route and by
+    the step route on the same inputs, the step route's state bitwise the
+    loop's; decode (T = 1, bf16) by RWKV-6's step route and Mamba's decode
+    route, both bitwise, beside Mamba's step kernel at T = 1; the backward
+    (B = 2, T = 2048) by the new route and by the step pair
+    (:func:`_scan_backward`).  Each timed beside its route's bound, the
+    step-serial bound and its plain loop (no library call computes the
+    recurrence).  Returns the kernels line's records, one a route and
+    dtype (``launches`` filled from the main path's phases)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(25)
     kinds = _scan_kinds()
@@ -2096,24 +2278,26 @@ def phase_scan() -> list:
     saved = _scan_launches(), {n: (dict(c.route_launches),
                                    dict(c.bwd_route_launches))
                                for n, c in _scan_counters().items()}
+    f32 = torch.float32
     for kind, k in kinds.items():
-        args = _scan_args(kind, 2, 37, 256, torch.float32, gen)
-        if k["plan"](*args) != "step":
-            fail(f"scan {kind} float32: plan {k['plan'](*args)}, want step")
+        args = _scan_args(kind, 2, 37, 256, f32, gen)
+        if k["plan"](*args) != k["route"]:
+            fail(f"scan {kind} float32: plan {k['plan'](*args)}, want "
+                 f"{k['route']}")
         for got, want, what in zip(k["fn"](*args), k["plain"](*args),
                                    ("state", "y")):
             _scan_err(f"scan {kind} float32 {what}", got, want,
                       SCAN_STATE_TOL if what == "state" else
-                      SCAN_TOL[torch.float32])
+                      SCAN_TOL[f32])
         for i, (got, want) in enumerate(zip(_scan_grads(k["fn"], args, 1),
                                             _scan_grads(k["plain"], args,
                                                         1))):
             _scan_err(f"scan {kind} float32 gradient {i}", got, want,
-                      SCAN_GRAD_TOL[torch.float32])
-    print(f"[scan] float32, T = 37 (step routes): both scans' states, "
-          f"outputs and the gradients of all six inputs agree with the "
-          f"plain loops (rtol {SCAN_STATE_TOL} / {SCAN_TOL[torch.float32]} / "
-          f"{SCAN_GRAD_TOL[torch.float32]} of max)")
+                      SCAN_GRAD_TOL[f32])
+    print(f"[scan] float32, T = 37 (chunked / chunk routes): both scans' "
+          f"states, outputs and the gradients of all six inputs agree with "
+          f"the plain loops (rtol {SCAN_STATE_TOL} / {SCAN_TOL[f32]} / "
+          f"{SCAN_GRAD_TOL[f32]} of max)")
     bf16 = torch.bfloat16
     t1 = time.perf_counter()
     for kind, k in kinds.items():
@@ -2139,6 +2323,34 @@ def phase_scan() -> list:
     print(f"[scan] the new routes no further from the float32 loop than "
           f"the bf16 loop at every T in {SCAN_SWEEP_T} and decay regime "
           f"({time.perf_counter() - t1:.1f} s)")
+    f32_worst, f32_main = {}, {}
+    for kind, k in kinds.items():
+        main = _f32_main_shapes(kind)
+        for where, shapes in (
+                (f"B=2 width={k['width']}, T in {SCAN_SWEEP_T_F32}",
+                 [(2, t, k["width"], SCAN_HD) for t in SCAN_SWEEP_T_F32]),
+                (f"the main path's B, T, width, head width {main}", main)):
+            t1 = time.perf_counter()
+            w = _f32_sweep(kind, k, gen, shapes)
+            if shapes is main:
+                f32_main[kind] = {"shapes": [list(x) for x in main],
+                                  "worst": w}
+            else:
+                f32_worst[kind] = w
+            print(f"[scan] {k['name']} float32 routes {k['route']} / "
+                  f"{k['bwd_route']} (forward / backward), {where}, with and "
+                  f"without a cotangent of the last state: state, y and the "
+                  f"six gradients within {SCAN_STATE_TOL} / {SCAN_TOL[f32]} "
+                  f"/ {SCAN_GRAD_TOL[f32]} of the float32 loop; worst shares "
+                  f"of the largest, route against the float32 loop (the "
+                  f"float32 loop's own against the loop in float64; its "
+                  f"gradients' at T < {SCAN_SWEEP_T_F32[-1]}), state / y / "
+                  f"gradients: " + "; ".join(
+                      f"{r} " + " / ".join(
+                          f"{a:.3g} ({b:.3g})" for a, b in zip(x["route"],
+                                                              x["loop"]))
+                      for r, x in w.items())
+                  + f" ({time.perf_counter() - t1:.1f} s)")
     records = []
     b = SERVE["requests"]
     for kind, k in kinds.items():
@@ -2156,7 +2368,8 @@ def phase_scan() -> list:
                "bf16_loop_err": {"state": e["state"][1], "y": e["y"][1]},
                "err_against": "the loop in float32 on the same bf16 values",
                "shape": [b, 512, width],
-               **_scan_bound(kind, k["route"], False, b, 512, width, clock)}
+               **_scan_bound(kind, k["route"], False, b, 512, width, clock,
+                             2)}
         got, want = k["step"](*args), k["plain"](*args)
         torch.cuda.synchronize()
         bitwise = torch.equal(got[0], want[0])
@@ -2170,7 +2383,7 @@ def phase_scan() -> list:
                 "plain_ms": plain_ms, "max_abs_err": err,
                 "state_max_abs_err": err_s, "state_bitwise": bitwise,
                 "shape": [b, 512, width],
-                **_scan_bound(kind, "step", False, b, 512, width, clock)}
+                **_scan_bound(kind, "step", False, b, 512, width, clock, 2)}
         _scan_line("prefill, route " + k["route"], name, b, 512, width, new,
                    f"against the loop in float32, state {e['state'][0]:.3g}"
                    f" and y {e['y'][0]:.3g} (the bf16 loop's own "
@@ -2183,6 +2396,14 @@ def phase_scan() -> list:
               f"us on the same inputs, {step['ms'] / new['ms']:.2f}x")
         del args
         _free()
+        new_f, step_f = _scan_prefill_f32(kind, k, gen, clock, b)
+        # the worst errors at the main path's shapes: y forward, the
+        # gradients backward
+        main_w = f32_main[kind]["worst"].values()
+        new_f.update(sweep_worst_share=f32_worst[kind],
+                     main_path_sweep=f32_main[kind],
+                     main_path_max_abs_err=max(w["route_abs"][1]
+                                               for w in main_w))
         # decode: RWKV-6's step route; Mamba's decode route beside its
         # step kernel at T = 1
         args = _scan_args(kind, b, 1, width, bf16, gen)
@@ -2212,7 +2433,7 @@ def phase_scan() -> list:
                 "plain_ms": plain_ms, "max_abs_err": err,
                 "state_max_abs_err": err_s, "state_bitwise": bitwise,
                 "shape": [b, 1, width],
-                **_scan_bound(kind, route, False, b, 1, width, clock)}
+                **_scan_bound(kind, route, False, b, 1, width, clock, 2)}
             _scan_line(f"decode, route {route}", name, b, 1, width,
                        decode[route], f"max abs err vs the bf16 loop {err:.3g}"
                        f" (state {err_s:.3g}, bitwise {bitwise})")
@@ -2224,18 +2445,30 @@ def phase_scan() -> list:
                   f"{decode['step']['ms'] / decode['decode']['ms']:.2f}x")
         del args, want, step_y
         _free()
-        # backward: the new route and the step pair on the same inputs
+        # backward: the new route and the step pair on the same inputs, in
+        # bf16 and in float32
         back = _scan_backward(kind, k, gen, clock)
+        back_f = _scan_backward(kind, k, gen, clock, f32)
+        back_f[k["bwd_route"]].update(
+            main_path_sweep=f32_main[kind],
+            main_path_max_abs_err=max(w["route_abs"][2] for w in main_w))
         src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
-        records.append(_scan_record(k, "fwd", k["route"], k["src"], new))
+        bwd_route = k["bwd_route"]
+        records += [
+            _scan_record(k, "fwd", k["route"], k["src"], new),
+            _scan_record(k, "fwd", k["route"], k["src"], new_f, f32)]
         if "decode" in decode:
             records.append(_scan_record(k, "fwd", "decode", src,
                                         decode["decode"]))
-        records.append(_scan_record(k, "fwd", "step", src,
-                                    {**step, "decode": decode["step"]}))
-        records.append(_scan_record(k, "bwd", k["bwd_route"], k["bwd_src"],
-                                    back[k["bwd_route"]]))
-        records.append(_scan_record(k, "bwd", "step", src, back["step"]))
+        records += [
+            _scan_record(k, "fwd", "step", src,
+                         {**step, "decode": decode["step"]}),
+            _scan_record(k, "fwd", "step", src, step_f, f32),
+            _scan_record(k, "bwd", bwd_route, k["bwd_src"], back[bwd_route]),
+            _scan_record(k, "bwd", bwd_route, k["bwd_src"], back_f[bwd_route],
+                         f32),
+            _scan_record(k, "bwd", "step", src, back["step"]),
+            _scan_record(k, "bwd", "step", src, back_f["step"], f32)]
     for n, c in _scan_counters().items():
         c.launches, c.bwd_launches = saved[0][n]
         c.route_launches, c.bwd_route_launches = saved[1][n]
@@ -4294,13 +4527,14 @@ def phase_train_small() -> dict:
     and batches (stub memory for vlm and encdec); losses within
     ``rtol = SMOKE_TOL`` and every parameter within ``atol = SMOKE_TOL``;
     the rwkv and jamba configs' scans launched as kernels on the card,
-    forward and backward, once a layer a pass.  Then a gradient through
-    ``dispatch="spec-kernel"`` and through each of the five Pallas sites'
-    entries must raise on CUDA tensors, as ``jax.grad`` through the
-    reference's Pallas kernels does.  Returns the scans' launches:
-    backward, and forward by route (float32 takes the step routes), and
-    the chunked-attention launches (forward, backward): on the card one
-    where the CPU run called the plain loop."""
+    forward and backward, once a layer a pass, every one (float32, T = 16)
+    by the chunked routes (RWKV-6 ``chunked``, Mamba ``chunk``), forward
+    and backward.  Then a gradient through ``dispatch="spec-kernel"`` and
+    through each of the five Pallas sites' entries must raise on CUDA
+    tensors, as ``jax.grad`` through the reference's Pallas kernels does.
+    Returns the scans' launches, backward and forward, and the
+    chunked-attention launches (forward, backward): on the card one where
+    the CPU run called the plain loop."""
     from repro_torch.configs import base as cbase
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
@@ -4314,9 +4548,11 @@ def phase_train_small() -> dict:
         init, step_fn, name = make_train_step(
             build_model(cfg, "spec"), peak_lr=1e-3, warmup=1, total=10)
         state0 = init(torch.Generator().manual_seed(7), "cpu")
-        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
-                                      global_batch=2))
-        mem = _stub_memory(cfg, 2, torch.Generator().manual_seed(8), "cpu",
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab,
+                                      seq_len=TRAIN_SMALL["seq_len"],
+                                      global_batch=TRAIN_SMALL["batch"]))
+        mem = _stub_memory(cfg, TRAIN_SMALL["batch"],
+                           torch.Generator().manual_seed(8), "cpu",
                            torch.float32)
         runs = {}
         for dev in ("cpu", "cuda"):
@@ -4342,13 +4578,15 @@ def phase_train_small() -> dict:
                  f"{loop_calls} times")
         attn = (attn[0] + fwd, attn[1] + bwd)
         # on the card each scan layer runs forward twice a step (the
-        # group's checkpoint recomputes it) and backward once
+        # group's checkpoint recomputes it) and backward once, all by the
+        # chunked routes (float32, T = 16)
         want = {n: (2 * 3 * k, 3 * k) for n, k in (
             ("rwkv6_scan", _n_sublayers(state0.params, "rwkv")),
             ("mamba_scan", _n_sublayers(state0.params, "mamba"))) if k}
+        chunked = {"rwkv6_scan": "chunked", "mamba_scan": "chunk"}
         _check_scans(f"train-small {arch}", want,
-                     {n: {"step": f} for n, (f, _) in want.items()},
-                     {n: {"step": b} for n, (_, b) in want.items()})
+                     {n: {chunked[n]: f} for n, (f, _) in want.items()},
+                     {n: {chunked[n]: b} for n, (_, b) in want.items()})
         for n, (f, b) in want.items():
             scan_bwd[n] = scan_bwd.get(n, 0) + b
             scan_fwd[n] = scan_fwd.get(n, 0) + f
@@ -4420,13 +4658,14 @@ def phase_train_small() -> dict:
           f"on CUDA tensors a gradient through dispatch=spec-kernel and "
           f"through each of the {len(calls)} kernel entries raises "
           f"NotImplementedError; the scans' backward kernels launched "
-          f"{scan_bwd}, their forward ones {scan_fwd} (float32: all by the "
-          f"step routes, forward and backward); chunked attention "
+          f"{scan_bwd}, their forward ones {scan_fwd} (float32, T = 16: all "
+          f"by the chunked / chunk routes, forward and backward); chunked "
+          f"attention "
           f"launched {attn[0]} forward, {attn[1]} backward (float32), no "
           f"plain loop reached on the card")
     if not all(attn):
         fail(f"train-small: chunked attention launched {attn}")
-    return {"bwd": scan_bwd, "fwd_step": scan_fwd, "attn": attn}
+    return {"bwd": scan_bwd, "fwd": scan_fwd, "attn": attn}
 
 
 def _multiply_params(cfg, params) -> float:
@@ -4940,34 +5179,52 @@ def main() -> None:
     ssm_train = phase_train_ssm()
     stablelm = phase_train_stablelm()
     # the scans' launches by route on their main paths: the bf16 forward
-    # routes in one served wave ([ssm], [hybrid]); the float32 step routes,
-    # forward and backward, in [train-small]; the chunked backward routes
-    # in [train-ssm] (RWKV-6-7B at full width; Jamba's smoke config in
-    # bf16)
+    # routes in one served wave ([ssm], [hybrid]); the float32 chunked
+    # routes, forward and backward, in [train-small]; the bf16 chunked
+    # backward routes in [train-ssm] (RWKV-6-7B at full width; Jamba's
+    # smoke config in bf16).  A step route no main path takes (Mamba's at
+    # T >= 2, both backward step pairs, the float32 forward step routes:
+    # the timing baseline, and the route of T = 1 and of tensors the
+    # chunked routes cannot take) is listed apart, under "scan_baselines"
     small = "[train-small] smoke configs (float32), 3 steps"
     served = {"rwkv6_scan": (ssm, "[ssm] RWKV-6-7B wave"),
               "mamba_scan": (hybrid["mamba_scan"], "[hybrid] Jamba wave")}
     trained = {"rwkv6_scan": f"[train-ssm] RWKV-6-7B, {TRAIN_SSM['n_layers']} "
                              f"layers at full width, bf16",
                "mamba_scan": "[train-ssm] Jamba smoke config, bf16, 3 steps"}
+    baselines = []
     for rec in scans:
         name, route = rec["scan"], rec["scan_route"]
         wave, where = served[name]
-        if route == "bwd_step":
-            rec["launches"], rec["main_path"] = train["bwd"][name], small
+        if route.endswith("step") and (route == "bwd_step"
+                                       or rec["dtype"] == "float32"
+                                       or not wave["routes"].get(route)):
+            rec["launches"], rec["main_path"] = 0, None
+            rec["baseline"] = (
+                "the step-serial route, timed beside the chunked route on "
+                "the same inputs; no main path takes it (float32 prefill "
+                "and training, and bf16 prefill and training, go by the "
+                "chunked routes; T = 1 and tensors the chunked routes "
+                "cannot take still go by it)")
+            baselines.append(rec)
+            continue
+        if rec["dtype"] == "float32":
+            rec["launches"] = train["bwd" if route.startswith("bwd_")
+                                   else "fwd"][name]
+            rec["main_path"] = small
         elif route.startswith("bwd_"):
             rec["launches"] = ssm_train[name][route.removeprefix("bwd_")]
             rec["main_path"] = trained[name]
             if name == "rwkv6_scan":
                 rec["train_ssm"] = ssm_train["train"]
-        elif wave["routes"].get(route):
+        else:
             rec["launches"], rec["main_path"] = wave["routes"][route], where
             rec["tokens_vs_plain"] = wave["tokens"]
-        else:
-            rec["launches"] = train["fwd_step"][name]
-            rec["main_path"] = small
         if not rec["launches"]:
             fail(f"{rec['name']}: no launch on its main path")
+    line["kernels"] = [r for r in line["kernels"]
+                       if not any(r is x for x in baselines)]
+    line["scan_baselines"] = baselines
     # chunked attention's launches by route and path: bf16 in [cross]
     # (prefill by tile, decode by split) and the full-width training
     # phases (tile, d 128 and 160), Jamba's bf16 smoke run in [train-ssm]

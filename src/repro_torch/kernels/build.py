@@ -94,18 +94,21 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     # r, k, v, w, u, s0, y, s_out; B, T, H, hd; stream
     "rwkv6_chunk_sm90": {
-        "rwkv6_scan_chunked_bf16": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,),
+        f"rwkv6_scan_chunked_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
+        for t in ("f32", "bf16")
     },
     # r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du, ds0; B, T, H, hd;
     # stream
     "rwkv6_chunk_bwd_sm90": {
-        "rwkv6_scan_bwd_chunked_bf16": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,),
+        f"rwkv6_scan_bwd_chunked_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
+        for t in ("f32", "bf16")
     },
     "mamba_scan": {
         # u, delta, B, C, a, s0, y, s_out; batch, T, D, N; stream
         **{f"mamba_scan_fwd_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
            for t in ("f32", "bf16")},
-        "mamba_scan_chunk_bf16": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,),
+        **{f"mamba_scan_chunk_{t}": (_PTR,) * 8 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
         # the same at T = 1: batch, D, N
         **{f"mamba_scan_decode_{t}": (_PTR,) * 8 + (_I64,) * 3 + (_PTR,)
            for t in ("f32", "bf16")},
@@ -115,7 +118,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
            for t in ("f32", "bf16")},
         # u, delta, B, C, a, s0, dy, ds, ws, du, sums (dB, dC, ddelta), da,
         # ds0; batch, T, D, N; stream
-        "mamba_scan_bwd_chunk_bf16": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,),
+        **{f"mamba_scan_bwd_chunk_{t}": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,)
+           for t in ("f32", "bf16")},
     },
     "chunked_attention_sm90": {
         # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream

@@ -57,26 +57,38 @@
 // write 8 state values as two 16-byte stores.  Bound: the state read and written and a read,
 // 9.0 MB at Jamba decode (B = 8, D = 8192), 2.7 us at 3.35 TB/s.
 //
-// `chunk` (bf16, T >= 2; prefill): the forward's thread-per-channel scan
-// with the arithmetic the card is fast at.  exp(delta a) is one
+// `chunk` (T >= 2, prefill and training, float32 with D a multiple of 4 or
+// bf16 with D a multiple of 8: `mamba_scan_chunk_f32` / `_bf16`): the
+// forward's thread-per-channel scan with the arithmetic the card is fast
+// at.  exp(delta a) is one
 // `ex2.approx`, of 1 + delta (a log2 e) halved (`exp_neg`), a log2 e formed
-// once a thread; the state update is one fused multiply-add, e s + x B;
-// x = delta u stays float32; the read-out sums the float32 state times C
-// in float32.  (The step kernel rounds x and the read-out's state to bf16,
-// as the reference does; an output rounded from a bf16 state is as far
-// from the float32 loop as the bf16 loop's, so the route could not be held
-// below the bf16 loop's error with that rounding kept.)  u arrives and y
-// leaves as 16-byte vectors through shared memory, 32 steps at a time, and
-// B and C are staged as 16-byte vectors too.  The route no longer rounds
-// as the loop does, so it is held to the plain loop run in float32 on the
-// same bf16 values: no further from it than the bf16 loop is.  Bound: one
-// ex2 a state value a step on the special-function units, 16 a clock on
-// each SM: at Jamba prefill 5.37e8 exps, 128 us at 1.98 GHz on 132 SMs,
-// above the 143 MB (42.7 us) of bytes; the step route's 56 us counted an
-// exp as one float32 operation.
+// once a thread, the halving folded into powers of two that scale the
+// state inside a chunk (bit for bit `exp_neg`'s state); the state update
+// is one fused multiply-add, e s + x B; x = delta u stays float32; the
+// read-out sums the float32 state times C in float32, in two chains.
+// (The step kernel rounds x and the
+// read-out's state to bf16, as the reference does; an output rounded from
+// a bf16 state is as far from the float32 loop as the bf16 loop's, so the
+// route could not be held below the bf16 loop's error with that rounding
+// kept.)  u arrives by cp.async and y leaves as 16-byte vectors through
+// shared memory, 32 steps at a time, the next chunk's u loading while
+// this one is walked; B and C are staged as 16-byte vectors too.  The
+// route no longer rounds as the loop does: in bf16 it is held to the plain
+// loop run in float32 on the same values, no further from it than the
+// bf16 loop is; in float32 to the float32 loop at 1e-5 of the largest
+// state and y.  `ex2.approx` stays in float32 too: with it the route
+// meets those tolerances in all three decay regimes up to T = 2048 at
+// Jamba's width (chip_smoke.py's [scan] prints the errors beside the
+// float32 loop's own against the loop in float64), so float32 needs no
+// `expf`.  Bound: one ex2 a state value
+// a step on the special-function units, 16 a clock on each SM: at Jamba
+// prefill 5.37e8 exps, 128 us at 1.98 GHz on 132 SMs, above the bytes
+// (143 MB, 42.8 us, in bf16; 278 MB, 83.0 us, in float32); the step
+// route's 56 us counted an exp as one float32 operation.
 //
 // The `chunk` backward route (the chunk forward route's inputs;
-// `mamba_scan_bwd_chunk_bf16`, picked by scan.mamba_bwd_plan) replaces the
+// `mamba_scan_bwd_chunk_f32` / `_bf16`, picked by scan.mamba_bwd_plan)
+// replaces the
 // step pair's workspace of every step's state (2.1 GB at Jamba's width,
 // B = 2, T = 2048) and its walk over all T steps in B * D / 128 blocks:
 //   1. `mamba_bound_kernel`, a thread per (batch, channel, quarter of the
@@ -90,7 +102,8 @@
 //      sum is the same from run to run, and nothing is added atomically.
 // exp(delta a) is `exp_neg` throughout, x = delta u and the states float32.
 // Bound: one exp a state value a step, 5.37e8 at that shape, 128 us on
-// the special-function units, above the 206 MB of bytes (62 us).
+// the special-function units, above the bytes (206 MB, 62 us, in bf16;
+// 408 MB, 122 us, in float32).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,19 +118,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-template <typename T>
-__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 // Stage steps [t0, t0 + len) of delta, B and C (shared by the row) and
 // the block's channels of `per_channel` into shared memory.
@@ -399,23 +399,39 @@ __device__ __forceinline__ float exp_neg(float dt, float a2) {
   return 0.5f * ex2(fmaf(dt, a2, 1.f));
 }
 
-// The `chunk` route: bf16 prefill, D a multiple of 8
-template <int N>
-__global__ void __launch_bounds__(kThreads)
-mamba_chunk_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
-                   const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+// 2**e for -126 <= e <= 127, exactly
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((127 + e) << 23);
+}
+
+// The `chunk` route's shared memory (above the 48 KB of a static
+// allocation in float32: 52.1 KB, four blocks an SM)
+template <typename T, int N>
+struct ChunkSm {
+  T su[2][kChunk][kThreads];  // u of a chunk, two buffers (cp.async)
+  T sy[kChunk][kThreads];     // y of a chunk
+  float sb[kChunk][N], sc[kChunk][N];
+  float sdt[kChunk];
+};
+
+// The `chunk` route: prefill, D a multiple of kVecOf<T>.  The next
+// chunk's u arrives by cp.async while this one is walked.  Four blocks an
+// SM (a block a (batch row, 128 channels): 512 at Jamba prefill, 3.9 an
+// SM), so the compiler may give a thread up to 128 registers, and four
+// steps an iteration use them.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 4)
+mamba_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                   const T* __restrict__ bm, const T* __restrict__ cm,
                    const float* __restrict__ a, const float* __restrict__ s0,
-                   bf16* __restrict__ y, float* __restrict__ s_out,
+                   T* __restrict__ y, float* __restrict__ s_out,
                    int64_t n_t, int64_t n_d) {
-  static_assert(N % 8 == 0, "B and C rows are staged as 16-byte vectors");
-  constexpr int kVec = kThreads / 8;  // 16-byte vectors of a step's u or y
+  constexpr int kE = kVecOf<T>;
+  static_assert(N % kE == 0, "B and C rows are staged as 16-byte vectors");
+  constexpr int kVec = kThreads / kE;  // 16-byte vectors of a step's u or y
   constexpr float kLog2e = 1.4426950408889634f;
-  __shared__ float sdt[kChunk];
-  __shared__ __align__(16) float sb[kChunk][N];
-  __shared__ __align__(16) float sc[kChunk][N];
-  // u and y of the chunk, bf16 bits
-  __shared__ __align__(16) uint16_t su[kChunk][kThreads];
-  __shared__ __align__(16) uint16_t sy[kChunk][kThreads];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ChunkSm<T, N>& sm = *reinterpret_cast<ChunkSm<T, N>*>(smem_raw);
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.y, d0 = blockIdx.x * int64_t{kThreads};
   const int64_t d = d0 + tid;
@@ -429,54 +445,77 @@ mamba_chunk_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) a2[n] *= kLog2e;
+  const auto steps = [&](int64_t t0) {
+    return static_cast<int>(n_t - t0 < kChunk ? n_t - t0 : kChunk);
+  };
+  // u of the chunk at step t0 into buffer buf, 16 bytes a thread
+  const auto load_u = [&](int64_t t0, int buf) {
+    for (int e = tid; e < steps(t0) * kVec; e += kThreads) {
+      const int c = e / kVec, v = e % kVec;
+      const bool ok = d0 + v * kE < n_d;
+      cp_async16(&sm.su[buf][c][v * kE],
+                 u + (b * n_t + t0 + c) * n_d + (ok ? d0 + v * kE : 0), ok);
+    }
+    cp_async_commit();
+  };
   // y of the chunk at step t0 (len steps) from sy, 16 bytes a thread
   const auto flush = [&](int64_t t0, int len) {
     for (int e = tid; e < len * kVec; e += kThreads) {
       const int c = e / kVec, v = e % kVec;
-      if (d0 + v * 8 < n_d)
-        *reinterpret_cast<uint4*>(y + (b * n_t + t0 + c) * n_d + d0 + v * 8) =
-            *reinterpret_cast<const uint4*>(&sy[c][v * 8]);
+      if (d0 + v * kE < n_d)
+        *reinterpret_cast<uint4*>(y + (b * n_t + t0 + c) * n_d + d0 + v * kE) =
+            *reinterpret_cast<const uint4*>(&sm.sy[c][v * kE]);
     }
   };
-  for (int64_t t0 = 0; t0 < n_t; t0 += kChunk) {
-    const int len = static_cast<int>(n_t - t0 < kChunk ? n_t - t0 : kChunk);
+  load_u(0, 0);
+  int buf = 0;
+  for (int64_t t0 = 0; t0 < n_t; t0 += kChunk, buf ^= 1) {
+    const int len = steps(t0);
+    const bool more = t0 + kChunk < n_t;
     __syncthreads();  // the last chunk's readers are done
     if (t0 > 0) flush(t0 - kChunk, kChunk);
-    for (int e = tid; e < len * kVec; e += kThreads) {
-      const int c = e / kVec, v = e % kVec;
-      if (d0 + v * 8 < n_d)
-        *reinterpret_cast<uint4*>(&su[c][v * 8]) =
-            *reinterpret_cast<const uint4*>(u + (b * n_t + t0 + c) * n_d +
-                                            d0 + v * 8);
-    }
-    for (int e = tid; e < 2 * len * (N / 8); e += kThreads) {
-      const int which = e / (len * (N / 8)), f = e % (len * (N / 8));
-      const int c = f / (N / 8), n = f % (N / 8) * 8;
-      float vals[8];
-      load_row<bf16, 8>(vals, (which ? cm : bm) + (b * n_t + t0 + c) * N + n);
-      float* dst = which ? &sc[c][n] : &sb[c][n];
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(vals[0], vals[1], vals[2], vals[3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(vals[4], vals[5], vals[6], vals[7]);
+    if (more) load_u(t0 + kChunk, buf ^ 1);
+    for (int e = tid; e < 2 * len * (N / kE); e += kThreads) {
+      const int which = e / (len * (N / kE)), f = e % (len * (N / kE));
+      const int c = f / (N / kE), n = f % (N / kE) * kE;
+      float vals[kE];
+      load_row<T, kE>(vals, (which ? cm : bm) + (b * n_t + t0 + c) * N + n);
+      store_row<kE>(which ? &sm.sc[c][n] : &sm.sb[c][n], vals);
     }
     for (int c = tid; c < len; c += kThreads)
-      sdt[c] = to_f(delta[b * n_t + t0 + c]);
+      sm.sdt[c] = to_f(delta[b * n_t + t0 + c]);
+    if (more) {
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
     __syncthreads();
     if (!live) continue;
+    // Inside the chunk the registers hold 2**(c+1) s after step c: with
+    // E = ex2(1 + dt a log2 e) = 2 exp(dt a), 2**(c+1) s_c = E (2**c
+    // s_{c-1}) + (2**(c+1) x) B, every power of two exact, so the state is
+    // exp_neg's bit for bit without its halving multiply (a sixth of the
+    // step's float32 instructions, which share the dispatch slots with the
+    // exps); y takes 2**-(c+1) once, the state 2**-len at the chunk's end.
+    // Four steps an iteration and the read-out in two chains, so that the
+    // next steps' exponentials are dispatched beside this step's sums.
+#pragma unroll 4
     for (int c = 0; c < len; ++c) {
-      const float dt = sdt[c];
-      const float x = dt * to_f(__ushort_as_bfloat16(su[c][tid]));
-      float acc = 0.f;
+      const float dt = sm.sdt[c];
+      const float x = dt * to_f(sm.su[buf][c][tid]) * pow2(c + 1);
+      float acc0 = 0.f, acc1 = 0.f;
 #pragma unroll
       for (int n = 0; n < N; n += 2) {
-        s[n] = fmaf(exp_neg(dt, a2[n]), s[n], x * sb[c][n]);
-        s[n + 1] = fmaf(exp_neg(dt, a2[n + 1]), s[n + 1], x * sb[c][n + 1]);
-        acc = fmaf(s[n], sc[c][n], acc);
-        acc = fmaf(s[n + 1], sc[c][n + 1], acc);
+        s[n] = fmaf(ex2(fmaf(dt, a2[n], 1.f)), s[n], x * sm.sb[c][n]);
+        s[n + 1] = fmaf(ex2(fmaf(dt, a2[n + 1], 1.f)), s[n + 1],
+                        x * sm.sb[c][n + 1]);
+        acc0 = fmaf(s[n], sm.sc[c][n], acc0);
+        acc1 = fmaf(s[n + 1], sm.sc[c][n + 1], acc1);
       }
-      sy[c][tid] = __bfloat16_as_ushort(__float2bfloat16(acc));
+      sm.sy[c][tid] = from_f<T>((acc0 + acc1) * pow2(-(c + 1)));
     }
+#pragma unroll
+    for (int n = 0; n < N; ++n) s[n] *= pow2(-len);
   }
   __syncthreads();
   const int64_t last = (n_t - 1) / kChunk * kChunk;
@@ -485,7 +524,7 @@ mamba_chunk_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
 }
 
 
-// The `chunk` backward route: bf16 prefill, D a multiple of 8, every
+// The `chunk` backward route: prefill, D a multiple of kVecOf<T>, every
 // tensor 16-byte aligned (the chunk forward route's inputs).  Units of
 // kUnitM steps; the arithmetic is the chunk forward's (x = delta u and the
 // read-out's state in float32, exp(delta a) from `exp_neg`).  A thread
@@ -507,8 +546,12 @@ __device__ __forceinline__ void lds4(float (&out)[kQ], const float* p) {
   out[3] = f.w;
 }
 
-// kQ bf16 values (8-byte aligned bits) as float32
-__device__ __forceinline__ void ld4_bf16(float (&out)[kQ], const uint16_t* p) {
+// kQ activations (aligned to their size) as float32
+__device__ __forceinline__ void ld4(float (&out)[kQ], const float* p) {
+  lds4(out, p);
+}
+
+__device__ __forceinline__ void ld4(float (&out)[kQ], const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const float2 lo = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
@@ -530,27 +573,28 @@ __device__ __forceinline__ void ld4_bf16(float (&out)[kQ], const uint16_t* p) {
 // a step each.  The block stages a unit's u (or dy) and B (or C) as bf16
 // by cp.async, two buffers, the next unit's loading while this one is
 // walked (delta through a register).
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kBndThreads)
-mamba_bound_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
-                   const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+mamba_bound_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                   const T* __restrict__ bm, const T* __restrict__ cm,
                    const float* __restrict__ a, const float* __restrict__ s0,
-                   const bf16* __restrict__ dy, const float* __restrict__ ds,
+                   const T* __restrict__ dy, const float* __restrict__ ds,
                    float* __restrict__ ws_s, float* __restrict__ ws_g,
                    float* __restrict__ ds0, int64_t n_t, int64_t n_d) {
   static_assert(N == 4 * kQ, "four threads a channel");
   constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int kE = kVecOf<T>;
   constexpr int kCh = kBndThreads / (N / kQ);  // channels a block
-  constexpr int kVV = kCh / 8, kVW = N / 8;    // 16-byte vectors a step
+  constexpr int kVV = kCh / kE, kVW = N / kE;  // 16-byte vectors a step
   __shared__ float sdt[2][kUnitM];
-  __shared__ __align__(16) uint16_t sv[2][kUnitM][kCh];
-  __shared__ __align__(16) uint16_t sw[2][kUnitM][N];
+  __shared__ __align__(16) T sv[2][kUnitM][kCh];
+  __shared__ __align__(16) T sw[2][kUnitM][N];
   const int tid = threadIdx.x, q = tid % (N / kQ), dl = tid / (N / kQ);
   const int64_t b = blockIdx.y, d0 = blockIdx.x * int64_t{kCh}, d = d0 + dl;
   const bool live = d < n_d, fwd = blockIdx.z == 0;
   const int64_t n_u = (n_t + kUnitM - 1) / kUnitM;
-  const bf16* vsrc = fwd ? u : dy;
-  const bf16* wsrc = fwd ? bm : cm;
+  const T* vsrc = fwd ? u : dy;
+  const T* wsrc = fwd ? bm : cm;
   const int64_t at = (b * n_d + d) * N + q * kQ;  // (b, d, quarter)
   // unit k's u (or dy) and B (or C) into buffer buf; rows past T and
   // channels past D are zeros
@@ -558,7 +602,8 @@ mamba_bound_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
     for (int e = tid; e < kUnitM * (kVV + kVW); e += kBndThreads) {
       const bool isv = e < kUnitM * kVV;
       const int f = isv ? e : e - kUnitM * kVV;
-      const int c = isv ? f / kVV : f / kVW, x = (isv ? f % kVV : f % kVW) * 8;
+      const int c = isv ? f / kVV : f / kVW;
+      const int x = (isv ? f % kVV : f % kVW) * kE;
       const int64_t t = k * kUnitM + c;
       const bool ok = t < n_t && (!isv || d0 + x < n_d);
       const int64_t row = b * n_t + (ok ? t : 0);
@@ -602,9 +647,9 @@ mamba_bound_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
 #pragma unroll 4
         for (int c = 0; c < len; ++c) {
           const float dt = sdt[buf][c];
-          const float x = dt * bfu(sv[buf][c][dl]);
+          const float x = dt * to_f(sv[buf][c][dl]);
           float w4[kQ];
-          ld4_bf16(w4, &sw[buf][c][q * kQ]);
+          ld4(w4, &sw[buf][c][q * kQ]);
 #pragma unroll
           for (int j = 0; j < kQ; ++j)
             m[j] = fmaf(exp_neg(dt, a2[j]), m[j], x * w4[j]);
@@ -613,9 +658,9 @@ mamba_bound_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
 #pragma unroll 4
         for (int c = len - 1; c >= 0; --c) {
           const float dt = sdt[buf][c];
-          const float v = bfu(sv[buf][c][dl]);
+          const float v = to_f(sv[buf][c][dl]);
           float w4[kQ];
-          ld4_bf16(w4, &sw[buf][c][q * kQ]);
+          ld4(w4, &sw[buf][c][q * kQ]);
 #pragma unroll
           for (int j = 0; j < kQ; ++j)
             m[j] = exp_neg(dt, a2[j]) * fmaf(v, w4[j], m[j]);
@@ -648,33 +693,34 @@ mamba_bound_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
 constexpr int kGradCh = kGradThreads / 4;  // channels a pass-2 group
 
 // pass 2's shared memory (above the 48 KB of a static allocation)
-template <int N>
+template <typename T, int N>
 struct GradSm {
   float sdt[kUnitM];
   float sb[kUnitM][N], sc[kUnitM][N];  // B and C of the unit
-  // u, dy and du of a group (bf16 bits)
-  uint16_t su[kUnitM][kGradCh], sdy[kUnitM][kGradCh], sdu[kUnitM][kGradCh];
+  // u, dy and du of a group
+  T su[kUnitM][kGradCh], sdy[kUnitM][kGradCh], sdu[kUnitM][kGradCh];
   float acc[kGradThreads / 32][kUnitM][2 * N + 1];  // a slot a warp
 };
 
-template <int N>
+template <typename T, int N>
 __global__ void __launch_bounds__(kGradThreads)
-mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
-                  const bf16* __restrict__ bm, const bf16* __restrict__ cm,
-                  const float* __restrict__ a, const bf16* __restrict__ dy,
+mamba_grad_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                  const T* __restrict__ bm, const T* __restrict__ cm,
+                  const float* __restrict__ a, const T* __restrict__ dy,
                   const float* __restrict__ ws_s,
-                  const float* __restrict__ ws_g, bf16* __restrict__ du,
+                  const float* __restrict__ ws_g, T* __restrict__ du,
                   float* __restrict__ part, float* __restrict__ da_ws,
                   int64_t n_t, int64_t n_d) {
   static_assert(N == 4 * kQ, "four lanes a channel, eight channels a warp");
   constexpr float kLog2e = 1.4426950408889634f;
+  constexpr int kE = kVecOf<T>;
   constexpr int kWarpsG = kGradThreads / 32;
   constexpr int kS = 2 * N + 1;  // dB, dC (N each) and ddelta a step
   constexpr int kCh = kGradCh;
   constexpr int kNSub = kUnitM / kSub;
   static_assert(kCh == kGradThreads / (N / kQ), "a group's channels");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  GradSm<N>& sm = *reinterpret_cast<GradSm<N>*>(smem_raw);
+  GradSm<T, N>& sm = *reinterpret_cast<GradSm<T, N>*>(smem_raw);
   auto& sdt = sm.sdt;
   auto& sb = sm.sb;
   auto& sc = sm.sc;
@@ -695,22 +741,22 @@ mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
     (&acc[0][0][0])[e] = 0.f;
   for (int c = tid; c < kUnitM; c += kGradThreads)
     sdt[c] = c < len ? to_f(delta[b * n_t + t0 + c]) : 0.f;
-  for (int e = tid; e < 2 * len * (N / 8); e += kGradThreads) {
-    const int which = e / (len * (N / 8)), f = e % (len * (N / 8));
-    const int c = f / (N / 8), x = f % (N / 8) * 8;
-    float vals[8];
-    load_row<bf16, 8>(vals, (which ? cm : bm) + (b * n_t + t0 + c) * N + x);
+  for (int e = tid; e < 2 * len * (N / kE); e += kGradThreads) {
+    const int which = e / (len * (N / kE)), f = e % (len * (N / kE));
+    const int c = f / (N / kE), x = f % (N / kE) * kE;
+    float vals[kE];
+    load_row<T, kE>(vals, (which ? cm : bm) + (b * n_t + t0 + c) * N + x);
 #pragma unroll
-    for (int y = 0; y < 8; ++y) (which ? sc : sb)[c][x + y] = vals[y];
+    for (int y = 0; y < kE; ++y) (which ? sc : sb)[c][x + y] = vals[y];
   }
   for (int64_t d0 = blockIdx.x * int64_t{kBlkCh};
        d0 < n_d && d0 < (blockIdx.x + 1) * int64_t{kBlkCh}; d0 += kCh) {
     const int64_t d = d0 + dl;
     const bool live = d < n_d;
     __syncthreads();  // the last group's readers are done
-    for (int e = tid; e < 2 * len * (kCh / 8); e += kGradThreads) {
-      const int which = e / (len * (kCh / 8)), f = e % (len * (kCh / 8));
-      const int c = f / (kCh / 8), x = f % (kCh / 8) * 8;
+    for (int e = tid; e < 2 * len * (kCh / kE); e += kGradThreads) {
+      const int which = e / (len * (kCh / kE)), f = e % (len * (kCh / kE));
+      const int c = f / (kCh / kE), x = f % (kCh / kE) * kE;
       const bool ok = d0 + x < n_d;
       cp_async16(&(which ? sdy : su)[c][x],
                  (which ? dy : u) + (b * n_t + t0 + c) * n_d + (ok ? d0 + x : 0),
@@ -731,7 +777,7 @@ mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
     }
     // one step forward: s_{t-1} -> s_t
     const auto step = [&](float (&v)[kQ], int c) {
-      const float dt = sdt[c], x = dt * bfu(su[c][dl]);
+      const float dt = sdt[c], x = dt * to_f(su[c][dl]);
       float bv[kQ];
       lds4(bv, &sb[c][q * kQ]);
 #pragma unroll
@@ -766,7 +812,8 @@ mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
         for (int c8 = kSub - 1; c8 >= 0; --c8) {
           const int c = k * kSub + c8;
           if (!kWhole && c >= len) continue;
-          const float dt = sdt[c], uv = bfu(su[c][dl]), dyv = bfu(sdy[c][dl]);
+          const float dt = sdt[c], uv = to_f(su[c][dl]);
+          const float dyv = to_f(sdy[c][dl]);
           const float x = dt * uv;
           float bv[kQ], cv[kQ], p[2 * kQ];
           lds4(bv, &sb[c][q * kQ]);
@@ -793,7 +840,7 @@ mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
           v += __shfl_xor_sync(0xffffffffu, v, 1);
           const float other = __shfl_xor_sync(0xffffffffu, v, 2);
           // on lane q = 0: dx = v, du = dx dt, ddelta's share other + dx u
-          if (q == 0) sdu[c][dl] = __bfloat16_as_ushort(__float2bfloat16(v * dt));
+          if (q == 0) sdu[c][dl] = from_f<T>(v * dt);
           float dd = sel(q == 0, fmaf(v, uv, other), 0.f);
           dd += __shfl_xor_sync(0xffffffffu, dd, 4);
           dd += __shfl_xor_sync(0xffffffffu, dd, 8);
@@ -839,8 +886,8 @@ mamba_grad_kernel(const bf16* __restrict__ u, const bf16* __restrict__ delta,
       for (int j = 0; j < kQ; ++j) da_ws[at + j] = da[j];
     }
     __syncthreads();  // sdu written
-    for (int e = tid; e < len * (kCh / 8); e += kGradThreads) {
-      const int c = e / (kCh / 8), x = e % (kCh / 8) * 8;
+    for (int e = tid; e < len * (kCh / kE); e += kGradThreads) {
+      const int c = e / (kCh / kE), x = e % (kCh / kE) * kE;
       if (d0 + x < n_d)
         *reinterpret_cast<uint4*>(du + (b * n_t + t0 + c) * n_d + d0 + x) =
             *reinterpret_cast<const uint4*>(&sdu[c][x]);
@@ -918,20 +965,43 @@ int decode(const void* u, const void* delta, const void* bm, const void* cm,
 }
 
 
+template <typename T>
+int chunk_fwd(const void* u, const void* delta, const void* bm,
+              const void* cm, const void* a, const void* s0, void* y,
+              void* s_out, int64_t n_b, int64_t n_t, int64_t n_d,
+              int64_t n_s, void* stream) {
+  if (n_b * n_d == 0) return 0;
+  if (n_t < 1 || n_s != 16 || n_d % kVecOf<T>) return cudaErrorInvalidValue;
+  const dim3 grid((n_d + kThreads - 1) / kThreads, n_b);
+  const int smem = static_cast<int>(sizeof(ChunkSm<T, 16>));
+  const cudaError_t err = cudaFuncSetAttribute(
+      mamba_chunk_kernel<T, 16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  mamba_chunk_kernel<T, 16>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(u), static_cast<const T*>(delta),
+          static_cast<const T*>(bm), static_cast<const T*>(cm),
+          static_cast<const float*>(a), static_cast<const float*>(s0),
+          static_cast<T*>(y), static_cast<float*>(s_out), n_t, n_d);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int chunk_bwd(const void* u, const void* delta, const void* bm, const void* cm,
               const void* a, const void* s0, const void* dy, const void* ds,
               void* ws, void* du, void* sums, void* da, void* ds0,
               int64_t n_b, int64_t n_t, int64_t n_d, int64_t n_s,
               void* stream) {
   if (n_b * n_d == 0) return 0;
-  if (n_t < 1 || n_s != 16 || n_d % 8) return cudaErrorInvalidValue;
+  if (n_t < 1 || n_s != 16 || n_d % kVecOf<T>) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto up = static_cast<const bf16*>(u);
-  const auto dp = static_cast<const bf16*>(delta);
-  const auto bp = static_cast<const bf16*>(bm);
-  const auto cp = static_cast<const bf16*>(cm);
+  const auto up = static_cast<const T*>(u);
+  const auto dp = static_cast<const T*>(delta);
+  const auto bp = static_cast<const T*>(bm);
+  const auto cp = static_cast<const T*>(cm);
   const auto ap = static_cast<const float*>(a);
-  const auto dyp = static_cast<const bf16*>(dy);
+  const auto dyp = static_cast<const T*>(dy);
   const int64_t n_u = (n_t + kUnitM - 1) / kUnitM;
   const int64_t n_blk = (n_d + kBlkCh - 1) / kBlkCh;
   const int64_t m = n_b * n_u * n_d * n_s;
@@ -940,20 +1010,20 @@ int chunk_bwd(const void* u, const void* delta, const void* bm, const void* cm,
   float* da_ws = ws_g + m;
   float* part = da_ws + m;
   constexpr int kCh = kBndThreads / (16 / kQ);
-  mamba_bound_kernel<16>
+  mamba_bound_kernel<T, 16>
       <<<dim3((n_d + kCh - 1) / kCh, n_b, 2), kBndThreads, 0, st>>>(
           up, dp, bp, cp, ap, static_cast<const float*>(s0), dyp,
           static_cast<const float*>(ds), ws_s, ws_g, static_cast<float*>(ds0),
           n_t, n_d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(GradSm<16>));
-  err = cudaFuncSetAttribute(mamba_grad_kernel<16>,
+  const int smem = static_cast<int>(sizeof(GradSm<T, 16>));
+  err = cudaFuncSetAttribute(mamba_grad_kernel<T, 16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  mamba_grad_kernel<16><<<dim3(n_blk, n_u, n_b), kGradThreads, smem, st>>>(
-      up, dp, bp, cp, ap, dyp, ws_s, ws_g, static_cast<bf16*>(du), part,
+  mamba_grad_kernel<T, 16><<<dim3(n_blk, n_u, n_b), kGradThreads, smem, st>>>(
+      up, dp, bp, cp, ap, dyp, ws_s, ws_g, static_cast<T*>(du), part,
       da_ws, n_t, n_d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1011,36 +1081,34 @@ MAMBA_BWD(mamba_scan_bwd_bf16, bf16)
 MAMBA_DECODE(mamba_scan_decode_f32, float)
 MAMBA_DECODE(mamba_scan_decode_bf16, bf16)
 
-// bf16: u, delta, B, C, a (float32), s0 (float32), y, s_out (float32);
-// batch, T, D (a multiple of 8), N; stream.  Every tensor 16-byte aligned.
-extern "C" int mamba_scan_chunk_bf16(const void* u, const void* delta,
-                                     const void* bm, const void* cm,
-                                     const void* a, const void* s0, void* y,
-                                     void* s_out, int64_t n_b, int64_t n_t,
-                                     int64_t n_d, int64_t n_s, void* stream) {
-  if (n_b * n_d == 0) return 0;
-  if (n_t < 1 || n_s != 16 || n_d % 8) return cudaErrorInvalidValue;
-  const dim3 grid((n_d + kThreads - 1) / kThreads, n_b);
-  mamba_chunk_kernel<16>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(u), static_cast<const bf16*>(delta),
-          static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
-          static_cast<const float*>(a), static_cast<const float*>(s0),
-          static_cast<bf16*>(y), static_cast<float*>(s_out), n_t, n_d);
-  return cudaGetLastError();
-}
+// the chunk route: u, delta, B, C, a (float32), s0 (float32), y, s_out
+// (float32); batch, T, D (a multiple of 8 in bf16, of 4 in float32), N;
+// stream.  Every tensor 16-byte aligned.
+#define MAMBA_CHUNK(name, T)                                                  \
+  extern "C" int name(const void* u, const void* delta, const void* bm,       \
+                      const void* cm, const void* a, const void* s0, void* y, \
+                      void* s_out, int64_t n_b, int64_t n_t, int64_t n_d,     \
+                      int64_t n_s, void* stream) {                            \
+    return chunk_fwd<T>(u, delta, bm, cm, a, s0, y, s_out, n_b, n_t, n_d,     \
+                        n_s, stream);                                         \
+  }
+MAMBA_CHUNK(mamba_scan_chunk_f32, float)
+MAMBA_CHUNK(mamba_scan_chunk_bf16, bf16)
 
-// the chunk backward route, bf16: u, delta, B, C, a (float32), s0
-// (float32), dy, ds (float32 or null), ws (float32: 3 * batch *
-// ceil(T / 64) * D * N + ceil(D / 256) * batch * T * (2N + 1)); du, sums
-// (float32 (batch, T, 2N + 1): dB, dC, ddelta), da (float32 (D, N)), ds0
-// (float32); batch, T, D (a multiple of 8), N; stream.  Every tensor
+// the chunk backward route: u, delta, B, C, a (float32), s0 (float32), dy,
+// ds (float32 or null), ws (float32: 3 * batch * ceil(T / 64) * D * N +
+// ceil(D / 256) * batch * T * (2N + 1)); du, sums (float32 (batch, T,
+// 2N + 1): dB, dC, ddelta), da (float32 (D, N)), ds0 (float32); batch, T,
+// D (a multiple of 8 in bf16, of 4 in float32), N; stream.  Every tensor
 // 16-byte aligned.
-extern "C" int mamba_scan_bwd_chunk_bf16(
-    const void* u, const void* delta, const void* bm, const void* cm,
-    const void* a, const void* s0, const void* dy, const void* ds, void* ws,
-    void* du, void* sums, void* da, void* ds0, int64_t n_b, int64_t n_t,
-    int64_t n_d, int64_t n_s, void* stream) {
-  return chunk_bwd(u, delta, bm, cm, a, s0, dy, ds, ws, du, sums, da, ds0,
-                   n_b, n_t, n_d, n_s, stream);
-}
+#define MAMBA_BWD_CHUNK(name, T)                                              \
+  extern "C" int name(const void* u, const void* delta, const void* bm,       \
+                      const void* cm, const void* a, const void* s0,          \
+                      const void* dy, const void* ds, void* ws, void* du,     \
+                      void* sums, void* da, void* ds0, int64_t n_b,           \
+                      int64_t n_t, int64_t n_d, int64_t n_s, void* stream) {  \
+    return chunk_bwd<T>(u, delta, bm, cm, a, s0, dy, ds, ws, du, sums, da,    \
+                        ds0, n_b, n_t, n_d, n_s, stream);                     \
+  }
+MAMBA_BWD_CHUNK(mamba_scan_bwd_chunk_f32, float)
+MAMBA_BWD_CHUNK(mamba_scan_bwd_chunk_bf16, bf16)

@@ -1,6 +1,7 @@
 // rwkv6_chunk.cuh: what the RWKV-6 chunked kernels share (the forward,
-// rwkv6_chunk_sm90.cu, and the backward, rwkv6_chunk_bwd_sm90.cu): bf16
-// and TF32 helpers, cp.async, and the scores of a chunk's own tokens.
+// rwkv6_chunk_sm90.cu, and the backward, rwkv6_chunk_bwd_sm90.cu), for
+// both activation types (float32 and bf16): staging, TF32 helpers, and the
+// scores of a chunk's own tokens.
 #pragma once
 
 #include <cstdint>
@@ -15,7 +16,11 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int kC = 16;         // tokens a chunk
 
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+// row pitch of a staged chunk tile of T, in elements: rows stay 16-byte
+// aligned, and the B-operand fragments (rows q, columns g) fall in
+// distinct banks for float32 (72 = 8 mod 32 words)
+template <int HD>
+constexpr int kPitch = HD + 8;
 
 // bf16 bits as float32 bits: exact, so exact in tf32 as well
 __device__ __forceinline__ uint32_t bf_bits(bf16 x) {
@@ -41,11 +46,45 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// N channels of one staged bf16 row as float32
-template <int N>
-__device__ __forceinline__ void ld_row(float (&out)[N], const bf16* p) {
+// d += a b and e += the small terms over one m16n8k8 step, a float32 A as
+// a hi + lo pair of tf32 operands and B as activations (b0 and b1 its
+// fragment's two values): a bf16 b is exact in tf32, so two products (lo
+// b into e, hi b into d); a float32 b is a pair too, and its products
+// are three (lo b_hi and hi b_lo into e, hi b_hi into d), about 2**-20
+// of float32 where one tf32 product keeps 2**-11.  d and e may be one
+// array.
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&e)[4],
+                                          const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], bf16 b0,
+                                          bf16 b1) {
+  mma_tf32(e, lo, bf_bits(b0), bf_bits(b1));
+  mma_tf32(d, hi, bf_bits(b0), bf_bits(b1));
+}
+
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&e)[4],
+                                          const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], float b0,
+                                          float b1) {
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma_tf32(e, lo, h0, h1);
+  mma_tf32(e, hi, l0, l1);
+  mma_tf32(d, hi, h0, h1);
+}
+
+// N channels of one staged row of T as float32
+template <int N, typename T>
+__device__ __forceinline__ void ld_row(float (&out)[N], const T* p) {
   if constexpr (N == 1) {
-    out[0] = bf(p[0]);
+    out[0] = to_f(p[0]);
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int x = 0; x < N; x += 2) {
+      const float2 f = *reinterpret_cast<const float2*>(p + x);
+      out[x] = f.x;
+      out[x + 1] = f.y;
+    }
   } else {
 #pragma unroll
     for (int x = 0; x < N; x += 2) {
@@ -57,6 +96,14 @@ __device__ __forceinline__ void ld_row(float (&out)[N], const bf16* p) {
   }
 }
 
+// two adjacent outputs rounded to T, one store
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // The scores of a chunk's own tokens in float32, into sc[t][s] (t the
 // query, s < t the key; the diagonal is the bonus):
 //   sc[t][s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]
@@ -66,10 +113,10 @@ __device__ __forceinline__ void ld_row(float (&out)[N], const bf16* p) {
 // down from t - 1 so each step multiplies its decay by one w; the channel
 // groups meet in a butterfly reduce-scatter of warp shuffles.  Entries
 // above the diagonal are left as they were or written 0.
-template <int HD, int P>
-__device__ __forceinline__ void chunk_scores(const bf16 (*in_r)[P],
-                                             const bf16 (*in_k)[P],
-                                             const bf16 (*in_w)[P],
+template <int HD, int P, typename T>
+__device__ __forceinline__ void chunk_scores(const T (*in_r)[P],
+                                             const T (*in_k)[P],
+                                             const T (*in_w)[P],
                                              const float* u,
                                              float (*sc)[kC + 4], int tid) {
   constexpr int kCH = HD / 16;  // channels a thread

@@ -1,16 +1,18 @@
 // rwkv6_chunk_bwd_sm90: the RWKV-6 recurrence's backward in chunked form,
 // parallel in T, for Hopper (sm_90a).  The `chunked` backward route of
-// repro_torch.kernels.scan.rwkv6_scan: bf16 inputs, T >= 2, the route the
-// forward's `chunked` kernel (rwkv6_chunk_sm90.cu) takes.
+// repro_torch.kernels.scan.rwkv6_scan: float32 or bf16 inputs, T >= 2
+// (`rwkv6_scan_bwd_chunked_f32` / `_bf16`), the inputs the forward's
+// `chunked` kernel (rwkv6_chunk_sm90.cu) takes.
 //
-// Replaces, for bf16, the step pair of rwkv6_scan.cu (a forward into a
+// Replaces, in either dtype, the step pair of rwkv6_scan.cu (a forward into a
 // float32 workspace of every step's state, B * H * T * hd^2 * 4 bytes,
 // then a walk back over all T steps in B * H blocks), itself the port of
 // the gradient of the `jax.lax.scan` of `rwkv6_block` in
 // src/repro/models/ssm.py.  The plain version is
 // `ref.rwkv6_scan_bwd_chunked` (the same passes in float32); the route is
-// held to autograd through `ref.rwkv6_scan`, in bf16 and in float32 on
-// the same values.
+// held to autograd through `ref.rwkv6_scan`: bf16 inputs against the loop
+// in bf16 and in float32 on the same values, float32 inputs against the
+// float32 loop (1e-4 of the largest gradient).
 //
 // With S the state, G its cotangent (G_{t-1} = diag(w_t) G_t + r_t^T dy_t)
 // and chunks of C = 16 tokens, units of U = 64 tokens (four chunks):
@@ -43,7 +45,9 @@
 //             + sum_{s'<t<s} D[s',t] D[t,s] k_s' r_s (v_s'.dy_s)
 //    The products S dy, G v, (k q) G and score^T dy run on the tensor
 //    cores as the forward's do (mma.sync TF32, every float32 operand a
-//    hi + lo pair); v.dy and the scores (the forward's `chunk_scores`) in
+//    hi + lo pair, dy and v too when float32: `mma_split`; fresh
+//    accumulators, so the tensor cores' sums stay relative to each
+//    product); v.dy and the scores (the forward's `chunk_scores`) in
 //    float32 on the CUDA cores; the walks over the chunk's tokens (dr, dk,
 //    dw, du) take a thread per (channel, token of four).  du's partial
 //    sums go to a workspace of (B * T / U, H, hd).
@@ -53,7 +57,9 @@
 // Bound: at RWKV-6-7B training (B = 2, T = 2048, H = 64, hd = 64) the
 // function reads r, k, v, w, dy, u, the state and the last state's
 // cotangent and writes dr, dk, dv, dw, du and the first state's
-// gradient: 308 MB, 92 us at 3.35 TB/s.  Its products in chunked form
+// gradient: 308 MB in bf16, 92 us at 3.35 TB/s (610 MB, 182 us, in
+// float32, whose staged tiles, 16 bytes a cp.async, hold half as many
+// values).  Its products in chunked form
 // are 10 hd^2 + 6 C hd operations a (token, head), 12.3 GFLOP, 25 us at
 // the TF32 rate: the bytes bound it.  These kernels run the state updates
 // in float32 on the CUDA cores and recompute states (the unit's state
@@ -114,13 +120,12 @@ __device__ __forceinline__ void st_tile(float* m, const float (&t)[TR][TC],
 }
 
 // t <- diag(dec) t + a^T v over a chunk, on the thread's tile: a (C x hd)
-// float32 with row pitch F, v (C x hd) staged bf16 bits with row pitch P;
-// rows past T have a = 0
-template <int TR, int TC, int F, int P>
+// float32 with row pitch F, v (C x hd) staged activations with row pitch
+// P; rows past T have a = 0
+template <int TR, int TC, int F, int P, typename T>
 __device__ __forceinline__ void tile_update(float (&t)[TR][TC],
                                             const float* dec, const float* a,
-                                            const uint16_t* v, int i0,
-                                            int j0) {
+                                            const T* v, int i0, int j0) {
 #pragma unroll
   for (int x = 0; x < TR; ++x) {
     const float d = dec[i0 + x];
@@ -132,7 +137,7 @@ __device__ __forceinline__ void tile_update(float (&t)[TR][TC],
     float av[TR], vv[TC];
 #pragma unroll
     for (int x = 0; x < TR; ++x) av[x] = a[s * F + i0 + x];
-    ld_row<TC>(vv, reinterpret_cast<const bf16*>(v + s * P + j0));
+    ld_row<TC>(vv, v + s * P + j0);
 #pragma unroll
     for (int x = 0; x < TR; ++x)
 #pragma unroll
@@ -140,11 +145,11 @@ __device__ __forceinline__ void tile_update(float (&t)[TR][TC],
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 struct BoundSmem {
-  static constexpr int kP = HD + 8;  // bf16 row pitch: 16-byte rows
-  static constexpr int kF = HD + 4;  // float row pitch
-  uint16_t in[kStages][3][kC][kP];   // k, v, w or r, dy, w (bf16 bits)
+  static constexpr int kP = kPitch<HD>;  // staged row pitch: 16-byte rows
+  static constexpr int kF = HD + 4;      // float row pitch
+  T in[kStages][3][kC][kP];              // k, v, w or r, dy, w
   float a[kC][kF];                   // k_s Q_s or r_s P'_s
   float dec[HD];                     // the chunk's decay
 };
@@ -153,17 +158,18 @@ struct BoundSmem {
 // entering every unit into ws_s; blockIdx.y = 1 walks the cotangents back
 // from ds (or 0), writes the cotangent leaving every unit into ws_g and
 // the first state's gradient into ds0.
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-rwkv6_bound_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ w,
-                   const bf16* __restrict__ dy, const float* __restrict__ s0,
+rwkv6_bound_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ w,
+                   const T* __restrict__ dy, const float* __restrict__ s0,
                    const float* __restrict__ ds, float* __restrict__ ws_s,
                    float* __restrict__ ws_g, float* __restrict__ ds0,
                    int64_t n_t, int64_t n_h) {
-  using Sm = BoundSmem<HD>;
+  using Sm = BoundSmem<T, HD>;
   constexpr int TR = HD / 16, TC = HD / 16;  // 16 x 16 threads of tiles
-  constexpr int kV = HD / 8;                 // 16-byte vectors a row
+  constexpr int kE = kVecOf<T>;              // activations a 16-byte vector
+  constexpr int kV = HD / kE;                // 16-byte vectors a row
   __shared__ __align__(16) Sm sm;
   const int tid = threadIdx.x;
   const int i0 = (tid >> 4) * TR, j0 = (tid & 15) * TC;
@@ -171,17 +177,17 @@ rwkv6_bound_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   const int64_t bh = blockIdx.x, b = bh / n_h, h = bh % n_h;
   const int64_t stride = n_h * HD, base = (b * n_t * n_h + h) * HD;
   const int64_t n_c = (n_t + kC - 1) / kC, n_u = (n_t + kUnit - 1) / kUnit;
-  const bf16* a_src = fwd ? k : r;
-  const bf16* v_src = fwd ? v : dy;
+  const T* a_src = fwd ? k : r;
+  const T* v_src = fwd ? v : dy;
 
   const auto load = [&](int64_t c, int st) {
     for (int e = tid; e < 3 * kC * kV; e += kThreads) {
       const int arr = e / (kC * kV), row = e / kV % kC, vec = e % kV;
-      const bf16* src = arr == 0 ? a_src : arr == 1 ? v_src : w;
+      const T* src = arr == 0 ? a_src : arr == 1 ? v_src : w;
       const int64_t t = c * kC + row;
       const bool ok = t < n_t;
-      cp_async16(&sm.in[st][arr][row][vec * 8],
-                 src + base + (ok ? t : 0) * stride + vec * 8, ok);
+      cp_async16(&sm.in[st][arr][row][vec * kE],
+                 src + base + (ok ? t : 0) * stride + vec * kE, ok);
     }
     cp_async_commit();
   };
@@ -215,14 +221,14 @@ rwkv6_bound_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       if (fwd) {
 #pragma unroll
         for (int t = kC - 1; t >= 0; --t) {
-          sm.a[t][tid] = bfu(in_a[t][tid]) * p;
-          p *= t < valid ? bfu(in_w[t][tid]) : 1.f;
+          sm.a[t][tid] = to_f(in_a[t][tid]) * p;
+          p *= t < valid ? to_f(in_w[t][tid]) : 1.f;
         }
       } else {
 #pragma unroll
         for (int t = 0; t < kC; ++t) {
-          sm.a[t][tid] = bfu(in_a[t][tid]) * p;
-          p *= t < valid ? bfu(in_w[t][tid]) : 1.f;
+          sm.a[t][tid] = to_f(in_a[t][tid]) * p;
+          p *= t < valid ? to_f(in_w[t][tid]) : 1.f;
         }
       }
       sm.dec[tid] = p;
@@ -234,11 +240,11 @@ rwkv6_bound_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   if (!fwd) st_tile(ds0 + bh * HD * HD, m, HD, i0, j0);
 }
 
-template <int HD>
+template <typename T, int HD>
 struct GradSmem {
-  static constexpr int kP = HD + 8;  // bf16 row pitch: 16-byte rows
+  static constexpr int kP = kPitch<HD>;  // staged row pitch: 16-byte rows
   static constexpr int kF = HD + 4;  // float row pitch: conflict-free rows
-  uint16_t in[5][kC][kP];  // r, k, v, w, dy of a chunk (bf16 bits)
+  T in[5][kC][kP];         // r, k, v, w, dy of a chunk
   float s[HD][kF];         // the state entering the chunk
   float g[HD][kF];         // the cotangent leaving it
   float kq[kC][kF];        // k_t q_t
@@ -255,20 +261,21 @@ struct GradSmem {
 };
 
 // Pass 2: a block per (batch, head) x unit
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ w,
-                  const bf16* __restrict__ u, const bf16* __restrict__ dy,
+rwkv6_grad_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ w,
+                  const T* __restrict__ u, const T* __restrict__ dy,
                   const float* __restrict__ ws_s,
-                  const float* __restrict__ ws_g, bf16* __restrict__ dr,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv,
-                  bf16* __restrict__ dw, float* __restrict__ du_ws,
+                  const float* __restrict__ ws_g, T* __restrict__ dr,
+                  T* __restrict__ dk, T* __restrict__ dv,
+                  T* __restrict__ dw, float* __restrict__ du_ws,
                   int64_t n_t, int64_t n_h) {
-  using Sm = GradSmem<HD>;
+  using Sm = GradSmem<T, HD>;
   constexpr int kP = Sm::kP, kF = Sm::kF;
   constexpr int TR = HD / 16, TC = HD / 16;
-  constexpr int kV = HD / 8;
+  constexpr int kE = kVecOf<T>;
+  constexpr int kV = HD / kE;
   constexpr int kParts = kThreads / HD;  // threads a channel
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
@@ -281,31 +288,30 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   const int64_t n_c = (n_t + kC - 1) / kC, n_u = (n_t + kUnit - 1) / kUnit;
   const int per = static_cast<int>(n_c - n * kPer < kPer ? n_c - n * kPer
                                                          : kPer);
-  using Row = const uint16_t(*)[kP];
+  using Row = const T(*)[kP];
   Row in_r = sm.in[0], in_k = sm.in[1], in_v = sm.in[2], in_w = sm.in[3],
       in_dy = sm.in[4];
-  using BRow = const bf16(*)[kP];
 
   // arrays [first, first + count) of chunk c into sm.in, then a barrier
   const auto stage = [&](int64_t c, int first, int count) {
     for (int e = tid; e < count * kC * kV; e += kThreads) {
       const int arr = first + e / (kC * kV), row = e / kV % kC, vec = e % kV;
-      const bf16* src = arr == 0   ? r
-                        : arr == 1 ? k
-                        : arr == 2 ? v
-                        : arr == 3 ? w
-                                   : dy;
+      const T* src = arr == 0   ? r
+                     : arr == 1 ? k
+                     : arr == 2 ? v
+                     : arr == 3 ? w
+                                : dy;
       const int64_t t = c * kC + row;
       const bool ok = t < n_t;
-      cp_async16(&sm.in[arr][row][vec * 8],
-                 src + base + (ok ? t : 0) * stride + vec * 8, ok);
+      cp_async16(&sm.in[arr][row][vec * kE],
+                 src + base + (ok ? t : 0) * stride + vec * kE, ok);
     }
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
   };
 
-  if (tid < HD) sm.u[tid] = __bfloat162float(u[h * HD + tid]);
+  if (tid < HD) sm.u[tid] = to_f(u[h * HD + tid]);
   const float* unit_s = ws_s + (bh * n_u + n) * HD * HD;
   float gt[TR][TC];  // the cotangent leaving the chunk
   ld_tile(gt, ws_g + (bh * n_u + n) * HD * HD, HD, i0, j0);
@@ -324,8 +330,8 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
         float q = 1.f;
 #pragma unroll
         for (int t = kC - 1; t >= 0; --t) {
-          sm.kq[t][tid] = bfu(in_k[t][tid]) * q;
-          q *= bfu(in_w[t][tid]);
+          sm.kq[t][tid] = to_f(in_k[t][tid]) * q;
+          q *= to_f(in_w[t][tid]);
         }
         sm.dec[tid] = q;
       }
@@ -341,8 +347,8 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       float p = 1.f;
 #pragma unroll
       for (int t = 0; t < kC; ++t) {
-        sm.rp[t][tid] = bfu(in_r[t][tid]) * p;
-        p *= t < valid ? bfu(in_w[t][tid]) : 1.f;
+        sm.rp[t][tid] = to_f(in_r[t][tid]) * p;
+        p *= t < valid ? to_f(in_w[t][tid]) : 1.f;
       }
       sm.dec[tid] = p;
     } else if (tid < 2 * HD) {
@@ -350,8 +356,8 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       float q = 1.f;
 #pragma unroll
       for (int t = kC - 1; t >= 0; --t) {
-        sm.kq[t][i] = bfu(in_k[t][i]) * q;
-        q *= t < valid ? bfu(in_w[t][i]) : 1.f;
+        sm.kq[t][i] = to_f(in_k[t][i]) * q;
+        q *= t < valid ? to_f(in_w[t][i]) : 1.f;
       }
     }
     st_tile(&sm.s[0][0], st, kF, i0, j0);
@@ -361,9 +367,7 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
     // (b) the scores (threads 0-127) and v_s . dy_t (128-255), then the
     // products S dy, G v, (k q) G (the tensor cores) and the rows' S.G
     if (tid < 128) {
-      chunk_scores<HD, kP>(reinterpret_cast<BRow>(in_r),
-                           reinterpret_cast<BRow>(in_k),
-                           reinterpret_cast<BRow>(in_w), sm.u, sm.sc, tid);
+      chunk_scores<HD, kP>(in_r, in_k, in_w, sm.u, sm.sc, tid);
     } else {
       for (int o = tid - 128; o < kC * kC; o += 128) {
         const int s = o / kC, t = o % kC;
@@ -371,8 +375,8 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
 #pragma unroll
         for (int x = 0; x < HD; x += 4) {
           float va[4], da[4];
-          ld_row<4>(va, reinterpret_cast<const bf16*>(&in_v[s][x]));
-          ld_row<4>(da, reinterpret_cast<const bf16*>(&in_dy[t][x]));
+          ld_row<4>(va, &in_v[s][x]);
+          ld_row<4>(da, &in_dy[t][x]);
 #pragma unroll
           for (int y = 0; y < 4; ++y) acc = fmaf(va[y], da[y], acc);
         }
@@ -381,7 +385,8 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
     }
     // the products on the tensor cores (mma.sync m16n8k8, TF32 operands,
     // float32 accumulators; the float32 S, G and k q as hi + lo pairs, dy
-    // and v bf16 and so exact): warp `warp` takes tile `warp` (16 x 8) of
+    // and v exact when bf16, pairs too when float32: `mma_split`): warp
+    // `warp` takes tile `warp` (16 x 8) of
     // each of S dy^T and G v^T (channels i x tokens) and (k q) G (tokens x
     // channels j); each has HD / 8 tiles
     if (warp < HD / 8) {
@@ -402,16 +407,10 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
           split(sv[x], shi[x], slo[x]);
           split(gv[x], ghi[x], glo[x]);
         }
-        const uint32_t d0 = static_cast<uint32_t>(in_dy[n0 + g][kk + q]) << 16;
-        const uint32_t d1 = static_cast<uint32_t>(in_dy[n0 + g][kk + q + 4])
-                            << 16;
-        const uint32_t v0 = static_cast<uint32_t>(in_v[n0 + g][kk + q]) << 16;
-        const uint32_t v1 = static_cast<uint32_t>(in_v[n0 + g][kk + q + 4])
-                            << 16;
-        mma_tf32(dsb, slo, d0, d1);
-        mma_tf32(dsa, shi, d0, d1);
-        mma_tf32(gvb, glo, v0, v1);
-        mma_tf32(gva, ghi, v0, v1);
+        mma_split(dsa, dsb, shi, slo, in_dy[n0 + g][kk + q],
+                  in_dy[n0 + g][kk + q + 4]);
+        mma_split(gva, gvb, ghi, glo, in_v[n0 + g][kk + q],
+                  in_v[n0 + g][kk + q + 4]);
       }
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
@@ -469,20 +468,12 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
         uint32_t hi[4], lo[4];
 #pragma unroll
         for (int x = 0; x < 4; ++x) split(sv[x], hi[x], lo[x]);
-        const uint32_t b0 = static_cast<uint32_t>(in_dy[ks + q][warp * 8 + g])
-                            << 16;
-        const uint32_t b1 =
-            static_cast<uint32_t>(in_dy[ks + q + 4][warp * 8 + g]) << 16;
-        mma_tf32(db, lo, b0, b1);
-        mma_tf32(da, hi, b0, b1);
+        mma_split(da, db, hi, lo, in_dy[ks + q][warp * 8 + g],
+                  in_dy[ks + q + 4][warp * 8 + g]);
       }
-      bf16* out = dv + base + (c * kC + g) * stride + nj;
-      if (g < valid)
-        *reinterpret_cast<__nv_bfloat162*>(out) =
-            __floats2bfloat162_rn(da[0] + db[0], da[1] + db[1]);
-      if (g + 8 < valid)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * stride) =
-            __floats2bfloat162_rn(da[2] + db[2], da[3] + db[3]);
+      T* out = dv + base + (c * kC + g) * stride + nj;
+      if (g < valid) st2(out, da[0] + db[0], da[1] + db[1]);
+      if (g + 8 < valid) st2(out + 8 * stride, da[2] + db[2], da[3] + db[3]);
     }
     // the walks: channel ci, tokens t with t % kParts == part
     {
@@ -494,20 +485,20 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
         float d = 1.f, dr_i = 0.f, t2 = 0.f;
 #pragma unroll
         for (int s = t - 1; s >= 0; --s) {  // D[s, t] k_s
-          al[s] = d * bfu(in_k[s][ci]);
+          al[s] = d * to_f(in_k[s][ci]);
           dr_i = fmaf(al[s], sm.vdy[s][t], dr_i);
           t2 = fmaf(al[s], sm.gv[s][ci], t2);
-          d *= bfu(in_w[s][ci]);
+          d *= to_f(in_w[s][ci]);
         }
         const float p = d;
         d = 1.f;
         float dk_i = 0.f, t3 = 0.f;
 #pragma unroll
         for (int s = t + 1; s < kC; ++s) {  // D[t, s] r_s
-          be[s] = d * bfu(in_r[s][ci]);
+          be[s] = d * to_f(in_r[s][ci]);
           dk_i = fmaf(be[s], sm.vdy[t][s], dk_i);
           t3 = fmaf(be[s], sm.ds[s][ci], t3);
-          d *= s < valid ? bfu(in_w[s][ci]) : 1.f;
+          d *= s < valid ? to_f(in_w[s][ci]) : 1.f;
         }
         const float q = d;
         float t4 = 0.f;
@@ -520,11 +511,11 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
           t4 = fmaf(al[a], cc, t4);
         }
         const float diag = sm.vdy[t][t];
-        const float rt = bfu(in_r[t][ci]), kt = bfu(in_k[t][ci]);
+        const float rt = to_f(in_r[t][ci]), kt = to_f(in_k[t][ci]);
         const int64_t o = base + (c * kC + t) * stride + ci;
-        dr[o] = __float2bfloat16(p * sm.ds[t][ci] + dr_i + ui * kt * diag);
-        dk[o] = __float2bfloat16(q * sm.gv[t][ci] + dk_i + ui * rt * diag);
-        dw[o] = __float2bfloat16(p * q * sgi + q * t2 + p * t3 + t4);
+        dr[o] = from_f<T>(p * sm.ds[t][ci] + dr_i + ui * kt * diag);
+        dk[o] = from_f<T>(q * sm.gv[t][ci] + dk_i + ui * rt * diag);
+        dw[o] = from_f<T>(p * q * sgi + q * t2 + p * t3 + t4);
         du_acc = fmaf(rt * kt, diag, du_acc);
       }
     }
@@ -544,35 +535,35 @@ rwkv6_grad_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int backward(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* s0, const void* dy, const void* ds,
              void* ws, void* dr, void* dk, void* dv, void* dw, void* du,
              void* ds0, int64_t n_b, int64_t n_t, int64_t n_h,
              cudaStream_t st) {
-  const auto rp = static_cast<const bf16*>(r), kp = static_cast<const bf16*>(k),
-             vp = static_cast<const bf16*>(v), wp = static_cast<const bf16*>(w),
-             dyp = static_cast<const bf16*>(dy);
+  const auto rp = static_cast<const T*>(r), kp = static_cast<const T*>(k),
+             vp = static_cast<const T*>(v), wp = static_cast<const T*>(w),
+             dyp = static_cast<const T*>(dy);
   const int64_t n_u = (n_t + kUnit - 1) / kUnit;
   const int64_t mat = n_b * n_h * n_u * HD * HD;
   float* ws_s = static_cast<float*>(ws);
   float* ws_g = ws_s + mat;
   float* du_ws = ws_g + mat;
-  rwkv6_bound_kernel<HD><<<dim3(n_b * n_h, 2), kThreads, 0, st>>>(
+  rwkv6_bound_kernel<T, HD><<<dim3(n_b * n_h, 2), kThreads, 0, st>>>(
       rp, kp, vp, wp, dyp, static_cast<const float*>(s0),
       static_cast<const float*>(ds), ws_s, ws_g, static_cast<float*>(ds0),
       n_t, n_h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(GradSmem<HD>));
-  err = cudaFuncSetAttribute(rwkv6_grad_kernel<HD>,
+  const int smem = static_cast<int>(sizeof(GradSmem<T, HD>));
+  err = cudaFuncSetAttribute(rwkv6_grad_kernel<T, HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  rwkv6_grad_kernel<HD><<<dim3(n_b * n_h, n_u), kThreads, smem, st>>>(
-      rp, kp, vp, wp, static_cast<const bf16*>(u), dyp, ws_s, ws_g,
-      static_cast<bf16*>(dr), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<bf16*>(dw), du_ws, n_t, n_h);
+  rwkv6_grad_kernel<T, HD><<<dim3(n_b * n_h, n_u), kThreads, smem, st>>>(
+      rp, kp, vp, wp, static_cast<const T*>(u), dyp, ws_s, ws_g,
+      static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(dw), du_ws, n_t, n_h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t cols = n_h * HD;
@@ -581,32 +572,47 @@ int backward(const void* r, const void* k, const void* v, const void* w,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// r, k, v, w, dy (B, T, H, hd) and u (H, hd) bf16, 16-byte aligned; s0
-// (B, H, hd, hd) float32, ds float32 or null; ws float32 of
-// 2 * B * H * ceil(T / 64) * hd^2 + B * ceil(T / 64) * H * hd; dr, dk, dv,
-// dw bf16 like r; du float32 (H, hd); ds0 float32 like s0; B, T (>= 1), H,
-// hd; stream
-extern "C" int rwkv6_scan_bwd_chunked_bf16(
-    const void* r, const void* k, const void* v, const void* w,
-    const void* u, const void* s0, const void* dy, const void* ds, void* ws,
-    void* dr, void* dk, void* dv, void* dw, void* du, void* ds0, int64_t n_b,
-    int64_t n_t, int64_t n_h, int64_t hd, void* stream) {
+template <typename T>
+int backward_entry(const void* r, const void* k, const void* v,
+                   const void* w, const void* u, const void* s0,
+                   const void* dy, const void* ds, void* ws, void* dr,
+                   void* dk, void* dv, void* dw, void* du, void* ds0,
+                   int64_t n_b, int64_t n_t, int64_t n_h, int64_t hd,
+                   void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   if (n_b * n_h == 0) return 0;
   if (n_t < 1) return cudaErrorInvalidValue;
   switch (hd) {
     case 16:
-      return backward<16>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du,
-                          ds0, n_b, n_t, n_h, st);
+      return backward<T, 16>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw,
+                             du, ds0, n_b, n_t, n_h, st);
     case 32:
-      return backward<32>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du,
-                          ds0, n_b, n_t, n_h, st);
+      return backward<T, 32>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw,
+                             du, ds0, n_b, n_t, n_h, st);
     case 64:
-      return backward<64>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw, du,
-                          ds0, n_b, n_t, n_h, st);
+      return backward<T, 64>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw,
+                             du, ds0, n_b, n_t, n_h, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// r, k, v, w, dy (B, T, H, hd) and u (H, hd) in the entry's type, 16-byte
+// aligned; s0 (B, H, hd, hd) float32, ds float32 or null; ws float32 of
+// 2 * B * H * ceil(T / 64) * hd^2 + B * ceil(T / 64) * H * hd; dr, dk, dv,
+// dw like r; du float32 (H, hd); ds0 float32 like s0; B, T (>= 1), H, hd;
+// stream
+#define RWKV6_BWD_CHUNKED(name, T)                                            \
+  extern "C" int name(const void* r, const void* k, const void* v,            \
+                      const void* w, const void* u, const void* s0,           \
+                      const void* dy, const void* ds, void* ws, void* dr,     \
+                      void* dk, void* dv, void* dw, void* du, void* ds0,      \
+                      int64_t n_b, int64_t n_t, int64_t n_h, int64_t hd,      \
+                      void* stream) {                                         \
+    return backward_entry<T>(r, k, v, w, u, s0, dy, ds, ws, dr, dk, dv, dw,   \
+                             du, ds0, n_b, n_t, n_h, hd, stream);             \
+  }
+RWKV6_BWD_CHUNKED(rwkv6_scan_bwd_chunked_f32, float)
+RWKV6_BWD_CHUNKED(rwkv6_scan_bwd_chunked_bf16, bf16)

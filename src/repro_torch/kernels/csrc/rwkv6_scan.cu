@@ -61,20 +61,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-// a float32 value rounded to T and widened again
-template <typename T>
-__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
 // OUT: write y and the last state; SAVE: write S_{t-1} of every step
 // into ws (B, H, T, hd, hd)
 template <typename T, int HD, bool OUT, bool SAVE>

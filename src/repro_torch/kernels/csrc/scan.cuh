@@ -1,7 +1,8 @@
 // scan.cuh: what the SSM scans' kernels share (rwkv6_scan.cu,
-// mamba_scan.cu, rwkv6_chunk_sm90.cu, rwkv6_chunk_bwd_sm90.cu): cp.async,
-// a warp reduce-scatter, and the column sums that reduce the chunked
-// backward routes' partial sums.
+// mamba_scan.cu, rwkv6_chunk_sm90.cu, rwkv6_chunk_bwd_sm90.cu): the
+// activations' conversions to and from float32 and their 16-byte vector
+// width, cp.async, a warp reduce-scatter, and the column sums that reduce
+// the chunked backward routes' partial sums.
 #pragma once
 
 #include <cstdint>
@@ -23,10 +24,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// bf16 bits as float32
-__device__ __forceinline__ float bfu(uint16_t x) {
-  return __bfloat162float(__ushort_as_bfloat16(x));
+// all but the newest committed group landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+
+// an activation (float32 or bf16) as float32, and back
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// a float32 value rounded to T and widened again
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+// activations a 16-byte vector (a cp.async or a vector load) holds: 8
+// bf16, 4 float32; the chunked routes need widths that are multiples of
+// it (scan.py's plans check the same rule)
+template <typename T>
+constexpr int kVecOf = 16 / static_cast<int>(sizeof(T));
 
 // c ? a : b as one selp, so that the compiler cannot turn a choice
 // between two elements of a register array into an indexed load from

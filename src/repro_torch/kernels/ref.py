@@ -134,6 +134,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _softmax_pv(s, v, round_p=False)[:, :, 0].to(q.dtype)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is float64 (the loops'
+    float32 steps, so that a float64 run stays float64 throughout)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, s: torch.Tensor):
     """The RWKV-6 recurrence over time, one step a token.  r, k, v, w:
@@ -143,15 +149,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Each step rounds where the reference's ``lax.scan`` step, as XLA runs
     it, rounds: k·v in the activations' dtype, then float32; the state
     plus u·kv cast to r's dtype for the read-out, whose product sums in
-    float32 and rounds once; the state update in float32."""
+    float32 and rounds once; the state update in float32.  Given float64
+    throughout, it runs in float64."""
     ub = u[None, :, :, None]
     outs = []
     for i in range(r.shape[1]):
         rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
         # the outer product in the activations' dtype, then float32
-        kv = (kt[..., :, None] * vt[..., None, :]).float()
+        kv = _wide(kt[..., :, None] * vt[..., None, :])
         outs.append((rt[..., None, :] @ (s + ub * kv).to(rt.dtype))[..., 0, :])
-        s = wt[..., None].float() * s + kv
+        s = _wide(wt[..., None]) * s + kv
     return s, torch.stack(outs, dim=1)
 
 
@@ -162,7 +169,7 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
     (B, D, N) float32.  Returns the last state and the outputs (B, T, D)
     in cmat's dtype.  exp(Δ·A) and the state are float32, Δ·u rounds to
     the activations' dtype, the read-out takes the state in cmat's dtype
-    and sums in float32."""
+    and sums in float32.  Given float64 throughout, it runs in float64."""
     ys = []
     for i in range(u.shape[1]):
         ut, dt, bt, ct = u[:, i], delta[:, i], bmat[:, i], cmat[:, i]
@@ -170,7 +177,7 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
         # dt·u in the activations' dtype; its product with B joins the
         # float32 state unrounded, as the reference's fused step computes
         # it (XLA keeps the fused product in float32)
-        s = da * s + (dt * ut).float()[..., None] * bt.float()[:, None, :]
+        s = da * s + _wide(dt * ut)[..., None] * _wide(bt)[:, None, :]
         ys.append((s.to(ct.dtype) @ ct[..., None])[..., 0])
     return s, torch.stack(ys, dim=1)
 

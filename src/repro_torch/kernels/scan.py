@@ -14,37 +14,43 @@ Pallas sites' entries, these take a gradient, as the reference's scan
 does.
 
 Each forward has more than one route, picked by :func:`rwkv6_plan` and
-:func:`mamba_plan` from the dtype, T and the tensors' alignment:
+:func:`mamba_plan` from the dtype, T, the width and the tensors'
+alignment; each route has an entry for float32 and one for bfloat16:
 
-* RWKV-6 ``"chunked"`` — bfloat16, T >= :data:`CHUNKED_MIN_T`:
+* RWKV-6 ``"chunked"`` — T >= :data:`CHUNKED_MIN_T`, aligned tensors:
   ``csrc/rwkv6_chunk_sm90.cu``, the recurrence in chunks of 16 tokens on
-  the tensor cores (TF32), the state carried in registers from chunk to
-  chunk; ``"step"`` — float32 and T = 1: the step-serial kernel of
+  the tensor cores (TF32 products of hi + lo operand pairs, about 2**-20
+  of float32), the state carried in registers from chunk to chunk;
+  ``"step"`` — T = 1 and unaligned tensors: the step-serial kernel of
   ``csrc/rwkv6_scan.cu``, bitwise the loop's state.
-* Mamba ``"decode"`` — T = 1, both dtypes: one step without staging, the
-  step kernel's arithmetic, bitwise the loop's state; ``"chunk"`` —
-  bfloat16 prefill with D a multiple of 8: ``ex2.approx`` exponentials,
-  fused updates, Δ·u and the read-out's state in float32, 16-byte loads
-  and stores of u and y; ``"step"`` —
-  float32 prefill: the step-serial kernel.  Both in ``csrc/mamba_scan.cu``.
+* Mamba ``"decode"`` — T = 1: one step without staging, the step
+  kernel's arithmetic, bitwise the loop's state; ``"chunk"`` — prefill
+  with D a multiple of the 16-byte vector (8 in bfloat16, 4 in float32)
+  and aligned tensors: ``ex2.approx`` exponentials, fused updates, Δ·u
+  and the read-out's state in float32, 16-byte loads and stores of u and
+  y; ``"step"`` — the rest: the step-serial kernel.  All in
+  ``csrc/mamba_scan.cu``.
 
 The ``chunked`` and ``chunk`` routes round otherwise than the loops (the
-loops round as the reference's step does), so they are held to the loop
-run in float32 on the same bfloat16 values: no further from it than the
-bfloat16 loop is.
+loops round as the reference's step does): in bfloat16 they are held to
+the loop run in float32 on the same values, no further from it than the
+bfloat16 loop is; in float32 to the float32 loop at its own tolerances
+(``1e-5`` of the largest for y and the last state).
 
 Each backward has two routes, picked by :func:`rwkv6_bwd_plan` and
 :func:`mamba_bwd_plan`: the inputs the forward's ``chunked`` (``chunk``)
 route takes go by a ``chunked`` (``chunk``) backward, parallel in T
-(``csrc/rwkv6_chunk_bwd_sm90.cu``; ``mamba_scan_bwd_chunk_bf16`` in
+(``csrc/rwkv6_chunk_bwd_sm90.cu``; ``mamba_scan_bwd_chunk_*`` in
 ``csrc/mamba_scan.cu``): one pass keeps the state entering and the
 cotangent leaving every :data:`BWD_UNIT` tokens, then every (batch, head
 or channel block, unit) recomputes its states and emits its gradients
 (plain versions: ``ref.rwkv6_scan_bwd_chunked``,
-``ref.mamba_scan_bwd_chunked``).  The rest (float32, T = 1, unaligned
-tensors) go by the ``step`` pair (the forward's states recomputed step by
-step into a workspace, then the walk back), whose gradient is the
-loop's.  Every entry of each pair stays callable alone, for timing.
+``ref.mamba_scan_bwd_chunked``).  The rest (T = 1, unaligned tensors,
+Mamba's ragged widths) go by the ``step`` pair (the forward's states
+recomputed step by step into a workspace, then the walk back), whose
+gradient is the loop's.  Every entry of each pair stays callable alone,
+for timing: the step entries are the baseline the chunked routes are
+timed against.
 
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
 loops of :mod:`repro_torch.kernels.ref`, and autograd differentiates
@@ -112,25 +118,28 @@ def _grad(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv6_plan(r, k, v, w, u, s) -> str:
-    """The forward route of a checked RWKV-6 call: ``"chunked"`` for
-    bfloat16 with T >= :data:`CHUNKED_MIN_T` and r, k, v, w and the state
-    16-byte aligned (the kernel loads 16-byte vectors), else ``"step"``."""
-    if (r.dtype == torch.bfloat16 and r.shape[1] >= CHUNKED_MIN_T
-            and all(aligned16(t) for t in (r, k, v, w, s))):
+    """The forward route of a checked RWKV-6 call (float32 or bfloat16):
+    ``"chunked"`` for T >= :data:`CHUNKED_MIN_T` with r, k, v, w and the
+    state 16-byte aligned (the kernel loads 16-byte vectors), else
+    ``"step"``."""
+    if r.shape[1] >= CHUNKED_MIN_T and all(aligned16(t)
+                                           for t in (r, k, v, w, s)):
         return "chunked"
     return "step"
 
 
 def mamba_plan(u, delta, bmat, cmat, a, s) -> str:
     """The forward route of a checked Mamba call: ``"decode"`` at T = 1,
-    ``"chunk"`` for bfloat16 prefill with D a multiple of 8, else
-    ``"step"``; both new routes take B, C, A and the state as 16-byte
-    vectors (and the chunk route u), so an unaligned one goes by
-    ``"step"``."""
+    ``"chunk"`` for prefill with D a multiple of the 16-byte vector (8 in
+    bfloat16, 4 in float32), else ``"step"``; both new routes take B, C,
+    A and the state as 16-byte vectors (and the chunk route u), so an
+    unaligned one goes by ``"step"``."""
     vectors = [bmat, cmat, a, s]
     if u.shape[1] == 1:
         return "decode" if all(aligned16(t) for t in vectors) else "step"
-    if (u.dtype == torch.bfloat16 and u.shape[2] % 8 == 0
+    # D a multiple of the activations in a 16-byte vector (``kVecOf`` in
+    # csrc/scan.cuh)
+    if (u.shape[2] % (16 // u.dtype.itemsize) == 0
             and all(aligned16(t) for t in vectors + [u])):
         return "chunk"
     return "step"
@@ -151,8 +160,8 @@ def rwkv6_bwd_plan(r, k, v, w, u, s, ds, dy) -> str:
 def mamba_bwd_plan(u, delta, bmat, cmat, a, s, ds, dy) -> str:
     """The backward route of a checked Mamba call, given the cotangents
     as the backward takes them: ``"chunk"`` where the forward's plan is
-    ``"chunk"`` (bfloat16 prefill, D a multiple of 8, aligned) and dy is
-    16-byte aligned too, else ``"step"``."""
+    ``"chunk"`` (prefill, D a multiple of the 16-byte vector, aligned) and
+    dy is 16-byte aligned too, else ``"step"``."""
     if mamba_plan(u, delta, bmat, cmat, a, s) == "chunk" and aligned16(dy):
         return "chunk"
     return "step"
@@ -172,9 +181,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in their dtype; s (B, H, hd, hd) float32.  Returns the last state
     (float32) and y (B, T, H, hd) in r's dtype, rounded as
     :func:`repro_torch.kernels.ref.rwkv6_scan` rounds, except on the
-    chunked route (:func:`rwkv6_plan`), whose TF32 products stand closer
-    to the float32 loop.  On CUDA tensors (hd in :data:`HEAD_DIMS`) the
-    kernels launch, forward and backward.
+    chunked route (:func:`rwkv6_plan`), whose split TF32 products stand
+    closer to the float32 loop than the bfloat16 loop does.  On CUDA
+    tensors (hd in :data:`HEAD_DIMS`) the kernels launch, forward and
+    backward.
     """
     cuda = on_cuda(r, k, v, w, u, s)
     if r.dim() != 4:
@@ -201,13 +211,11 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0):
 
 
 def rwkv6_chunked_fwd(r, k, v, w, u, s0):
-    """One launch of the chunked route's kernel on checked bfloat16 CUDA
-    tensors, 16-byte aligned: ``(last state, y)``."""
-    if r.dtype != torch.bfloat16:
-        raise TypeError(f"rwkv6_scan chunked route: bfloat16 only, got "
-                        f"{r.dtype}")
+    """One launch of the chunked route's kernel on checked CUDA tensors
+    (either dtype), 16-byte aligned: ``(last state, y)``."""
     return _rwkv6_launch("chunked", "rwkv6_chunk_sm90",
-                         "rwkv6_scan_chunked_bf16", r, k, v, w, u, s0)
+                         f"rwkv6_scan_chunked_{suffix(r.dtype)}", r, k, v, w,
+                         u, s0)
 
 
 def _rwkv6_launch(route, lib, entry, r, k, v, w, u, s0):
@@ -264,14 +272,11 @@ def rwkv6_step_bwd(r, k, v, w, u, s0, ds, dy):
 
 def rwkv6_chunked_bwd(r, k, v, w, u, s0, ds, dy):
     """One launch of the chunked route's backward entry
-    (``csrc/rwkv6_chunk_bwd_sm90.cu``) on checked bfloat16 CUDA tensors,
-    16-byte aligned: the state entering and the cotangent leaving every
-    :data:`BWD_UNIT` tokens, float32, and du's partial sums are its
+    (``csrc/rwkv6_chunk_bwd_sm90.cu``) on checked CUDA tensors (either
+    dtype), 16-byte aligned: the state entering and the cotangent leaving
+    every :data:`BWD_UNIT` tokens, float32, and du's partial sums are its
     workspace: (2 * B * H * hd * hd + B * H * hd) * ceil(T / 64) * 4
     bytes."""
-    if r.dtype != torch.bfloat16:
-        raise TypeError(f"rwkv6_scan chunked backward: bfloat16 only, got "
-                        f"{r.dtype}")
     b, t, h, hd = r.shape
     dy = _grad(dy, r)
     ds = None if ds is None else _grad(ds, s0)
@@ -281,7 +286,8 @@ def rwkv6_chunked_bwd(r, k, v, w, u, s0, ds, dy):
     ds0 = torch.empty_like(s0)
     ws = torch.empty(n_u * b * h * hd * (2 * hd + 1), dtype=torch.float32,
                      device=r.device)
-    fn = load("rwkv6_chunk_bwd_sm90").rwkv6_scan_bwd_chunked_bf16
+    fn = getattr(load("rwkv6_chunk_bwd_sm90"),
+                 f"rwkv6_scan_bwd_chunked_{suffix(r.dtype)}")
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _ptr(ds),
@@ -343,7 +349,8 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
     rounded as :func:`repro_torch.kernels.ref.mamba_scan` rounds, except
     on the chunk route (:func:`mamba_plan`), which keeps Δ·u and the
     read-out's state in float32 and takes its exponentials from
-    ``ex2.approx``.  On CUDA tensors (N in
+    ``ex2.approx`` (in float32 within ``1e-5`` of the loop's largest).  On
+    CUDA tensors (N in
     :data:`STATE_DIMS`) the kernels launch, forward and backward.
     """
     cuda = on_cuda(u, delta, bmat, cmat, a, s)
@@ -382,13 +389,11 @@ def mamba_decode_fwd(u, delta, bmat, cmat, a, s0):
 
 
 def mamba_chunk_fwd(u, delta, bmat, cmat, a, s0):
-    """One launch of the chunk route's kernel on checked bfloat16 CUDA
-    tensors, D a multiple of 8, 16-byte aligned: ``(last state, y)``."""
-    if u.dtype != torch.bfloat16:
-        raise TypeError(f"mamba_scan chunk route: bfloat16 only, got "
-                        f"{u.dtype}")
-    return _mamba_launch("chunk", "mamba_scan_chunk_bf16", True, u, delta,
-                         bmat, cmat, a, s0)
+    """One launch of the chunk route's kernel on checked CUDA tensors
+    (either dtype), D a multiple of the 16-byte vector, 16-byte aligned:
+    ``(last state, y)``."""
+    return _mamba_launch("chunk", f"mamba_scan_chunk_{suffix(u.dtype)}", True,
+                         u, delta, bmat, cmat, a, s0)
 
 
 def _mamba_launch(route, entry, with_t, u, delta, bmat, cmat, a, s0):
@@ -455,16 +460,14 @@ def mamba_step_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
 
 def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
     """One launch of the chunk route's backward entry
-    (``mamba_scan_bwd_chunk_bf16`` in ``csrc/mamba_scan.cu``) on checked
-    bfloat16 CUDA tensors, D a multiple of 8, 16-byte aligned.  Its
-    workspace, float32: the state entering and the cotangent leaving
-    every :data:`BWD_UNIT` steps and da's partial sums over each unit (3 *
-    B * ceil(T / 64) * D * N), and the partial sums of dB, dC and ddelta
-    over each block of :data:`MAMBA_BWD_BLOCK` channels (ceil(D / 256) *
-    B * T * (2N + 1)); every sum is reduced in a fixed order."""
-    if u.dtype != torch.bfloat16:
-        raise TypeError(f"mamba_scan chunk backward: bfloat16 only, got "
-                        f"{u.dtype}")
+    (``mamba_scan_bwd_chunk_*`` in ``csrc/mamba_scan.cu``) on checked CUDA
+    tensors (either dtype), D a multiple of the 16-byte vector, 16-byte
+    aligned.  Its workspace, float32: the state entering and the
+    cotangent leaving every :data:`BWD_UNIT` steps and da's partial sums
+    over each unit (3 * B * ceil(T / 64) * D * N), and the partial sums of
+    dB, dC and ddelta over each block of :data:`MAMBA_BWD_BLOCK` channels
+    (ceil(D / 256) * B * T * (2N + 1)); every sum is reduced in a fixed
+    order."""
     b, t, d = u.shape
     n = bmat.shape[2]
     dy = _grad(dy, u)
@@ -477,7 +480,8 @@ def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
     da = torch.empty((d, n), **f32)
     ds0 = torch.empty_like(s0)
     ws = torch.empty(3 * b * n_u * d * n + n_blk * b * t * (2 * n + 1), **f32)
-    fn = load("mamba_scan").mamba_scan_bwd_chunk_bf16
+    fn = getattr(load("mamba_scan"),
+                 f"mamba_scan_bwd_chunk_{suffix(u.dtype)}")
     with torch.cuda.device(u.device):
         err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), dy.data_ptr(),

@@ -16,7 +16,8 @@ backward) are held to their plain loops on the card in float32 and
 bfloat16 at T = 1, at odd T and across Mamba's 32-step staging chunks,
 from a carried state.  The step routes and Mamba's decode route keep the
 loops' roundings: the last state within ``1e-6`` (bitwise unless ``exp``
-differs; decode bitwise, state and y), outputs at
+differs; decode bitwise, state and y; the float32 step entries' states
+bitwise), outputs at
 ``SCAN_TOL`` (another order of the read-out's float32 sum: float32
 ``1e-5``, bfloat16 one bf16 ulp, ``2**-7``), and the gradients of all
 six inputs, given both cotangents, against autograd through the plain
@@ -26,10 +27,14 @@ bfloat16 where the kernels sum them in float32), and in bfloat16 also
 against the loop in float32 on the same values at ``2**-6``.  The
 chunked (RWKV-6) and chunk (Mamba) routes round otherwise by design (TF32
 products; ``ex2``-based exponentials, Δ·u and the read-out's state
-unrounded): their state and y
+unrounded): in bf16 their state and y
 are held to the loop run in float32 on the same bf16 values, no further
 from it than the bf16 loop's own, at odd T, one and 64 heads, every head
-width and three decay regimes.  Launches are counted by route, and a
+width and three decay regimes; in float32 (the routes float32 prefill
+and training take since the float32 entries were added) the four
+entries, forward and backward, are held to the float32 loop at its own
+tolerances (state and y ``1e-5``, gradients ``1e-4`` of the largest) at
+T = 2, 17 and 65 in the three regimes, with and without ``ds``.  Launches are counted by route, and a
 CUDA tensor never reaches the plain loop.  The chunked backward routes
 (RWKV-6 ``chunked``, Mamba ``chunk``) are held to their plain chunked
 versions (``ref.rwkv6_scan_bwd_chunked``, ``ref.mamba_scan_bwd_chunked``:
@@ -68,6 +73,8 @@ port is installed::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -942,6 +949,18 @@ SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -3}
 #: bf16 gradients against autograd through the loop in float32 on the
 #: same values, as a share of max|want|
 SCAN_GRAD_F32_TOL = 2.0 ** -6
+#: the last state against the plain loop: rtol, and atol as a share of
+#: max|want| (chip_smoke.py's)
+SCAN_STATE_TOL = 1e-5
+
+
+def _f32_close(got, want, tol):
+    """float32 ``got`` finite and within rtol ``tol``, atol ``tol *
+    max|want|`` of ``want``."""
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * want.abs().max().item())
 
 
 def _scan_case(kind, dev, dtype, b, t, width, seed=31, heads=2):
@@ -997,7 +1016,9 @@ def _no_worse_than_bf16_loop(got, args, plain):
 def test_cuda_scan_forward_matches_plain(cuda, kind, width, t, dtype):
     """The step and decode routes keep the loop's roundings: the state
     within 1e-6 (bitwise unless exp differs), y at SCAN_TOL; the chunked
-    and chunk routes (bf16, T >= 2) are held to the float32 loop."""
+    and chunk routes (T >= 2) are held to the float32 loop: in bf16 no
+    further from it than the bf16 loop, in float32 at SCAN_STATE_TOL and
+    SCAN_TOL."""
     fn, plain, plan = _scan_fns(kind)
     args = _scan_case(kind, cuda, dtype, 3, t, width)
     route = plan(*args)
@@ -1006,10 +1027,14 @@ def test_cuda_scan_forward_matches_plain(cuda, kind, width, t, dtype):
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1 and fn.route_launches[route] == r0 + 1
     assert y.dtype == dtype and s.dtype == torch.float32
-    if route in ("chunked", "chunk"):
+    if route in ("chunked", "chunk") and dtype == torch.bfloat16:
         _no_worse_than_bf16_loop((s, y), args, plain)
         return
     ws, wy = plain(*args)
+    if route in ("chunked", "chunk"):
+        _f32_close(s, ws, SCAN_STATE_TOL)
+        _f32_close(y, wy, SCAN_TOL[torch.float32])
+        return
     torch.testing.assert_close(s, ws, rtol=1e-6, atol=1e-6)
     tol = SCAN_TOL[dtype]
     torch.testing.assert_close(y.float(), wy.float(), rtol=tol,
@@ -1099,11 +1124,12 @@ def test_cuda_scan_launches_by_route(cuda):
     from repro_torch.kernels import scan
     cases = [("rwkv", torch.bfloat16, 5, "chunked"),
              ("rwkv", torch.bfloat16, 1, "step"),
-             ("rwkv", torch.float32, 5, "step"),
+             ("rwkv", torch.float32, 5, "chunked"),
+             ("rwkv", torch.float32, 1, "step"),
              ("mamba", torch.bfloat16, 5, "chunk"),
              ("mamba", torch.float32, 1, "decode"),
              ("mamba", torch.bfloat16, 1, "decode"),
-             ("mamba", torch.float32, 5, "step")]
+             ("mamba", torch.float32, 5, "chunk")]
     for kind, dtype, t, route in cases:
         fn, _, _ = _scan_fns(kind)
         args = _scan_case(kind, cuda, dtype, 2, t, 64)
@@ -1276,16 +1302,20 @@ def test_cuda_scan_chunked_bwd_matches_plain(cuda, kind, n, hd, t, regime,
 
 def test_cuda_scan_bwd_launches_by_route(cuda):
     """Each backward counts one launch, on the route its plan names:
-    bf16 prefill by the chunked routes; float32, T = 1, Mamba's ragged
-    channels and an unaligned dy by the step pair."""
+    prefill in either dtype by the chunked routes; T = 1, Mamba's ragged
+    channels (300 in bf16, 30 in float32) and an unaligned dy by the step
+    pair."""
     from repro_torch.kernels import scan
     cases = [("rwkv", torch.bfloat16, 5, 64, "chunked"),
              ("rwkv", torch.bfloat16, 1, 64, "step"),
-             ("rwkv", torch.float32, 5, 64, "step"),
+             ("rwkv", torch.float32, 5, 64, "chunked"),
+             ("rwkv", torch.float32, 1, 64, "step"),
              ("mamba", torch.bfloat16, 5, 64, "chunk"),
              ("mamba", torch.bfloat16, 1, 64, "step"),
              ("mamba", torch.bfloat16, 5, 300, "step"),
-             ("mamba", torch.float32, 5, 64, "step")]
+             ("mamba", torch.float32, 5, 64, "chunk"),
+             ("mamba", torch.float32, 5, 300, "chunk"),
+             ("mamba", torch.float32, 5, 30, "step")]
     for kind, dtype, t, width, route in cases:
         fn, _, _ = _scan_fns(kind)
         args = [a.requires_grad_(True) for a in
@@ -1299,10 +1329,11 @@ def test_cuda_scan_bwd_launches_by_route(cuda):
         assert (dict(fn.bwd_route_launches), fn.bwd_launches) == (
             want, before[1] + 1), (kind, dtype, t, width, route)
     # an unaligned cotangent of y goes by the step pair
-    for kind, route in (("rwkv", scan.rwkv6_scan_bwd),
-                        ("mamba", scan.mamba_scan_bwd)):
+    for (kind, route), dtype in itertools.product(
+            (("rwkv", scan.rwkv6_scan_bwd), ("mamba", scan.mamba_scan_bwd)),
+            (torch.bfloat16, torch.float32)):
         fn, _, _ = _scan_fns(kind)
-        args = _scan_case(kind, cuda, torch.bfloat16, 2, 5, 64)
+        args = _scan_case(kind, cuda, dtype, 2, 5, 64)
         s, y = fn(*args)
         flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda)
         dy = flat[1:].view(y.shape)
@@ -1310,7 +1341,7 @@ def test_cuda_scan_bwd_launches_by_route(cuda):
         before = fn.bwd_route_launches["step"]
         route(*args, None, dy)
         torch.cuda.synchronize()
-        assert fn.bwd_route_launches["step"] == before + 1, kind
+        assert fn.bwd_route_launches["step"] == before + 1, (kind, dtype)
 
 
 def test_cuda_scan_bwd_never_reaches_the_loop(cuda, monkeypatch):
@@ -1360,6 +1391,113 @@ def test_cuda_scan_chunked_bwd_workspace_under_bound(cuda, kind):
     peak = torch.cuda.max_memory_allocated() - base
     kept = sum(o.numel() * o.element_size() for o in out)
     assert peak - kept <= step_ws / 16, (peak, kept, step_ws)
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans' float32 chunked routes
+# ---------------------------------------------------------------------------
+
+#: the float32 routes' cases: (kind, heads or channels, head width, T);
+#: T = 2, 17 and 65 (within a chunk of 16, across it, across a unit of
+#: 64), every head width, Mamba at widths a multiple of 4 only (36: not
+#: of 8, the float32 vector's rule); and the shapes the smoke configs'
+#: training gives them (4 heads of 16, 64 channels, T = 16)
+F32_CASES = [(kind, n, hd, t) for t in (2, 17, 65) for kind, n, hd in (
+    ("rwkv", 3, 16), ("rwkv", 2, 32), ("rwkv", 64, 64), ("mamba", 36, 16),
+    ("mamba", 1032, 16))] + [("rwkv", 4, 16, 16), ("mamba", 64, 16, 16)]
+
+
+def _f32_case(cuda, kind, n, hd, t, regime):
+    g = torch.Generator().manual_seed(60 + t)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, torch.float32, 2, t, hd, heads=n)
+    else:
+        args = _scan_case(kind, cuda, torch.float32, 2, t, n)
+    return _regime(args, kind, regime, g), g
+
+
+@pytest.mark.parametrize("regime", ["model", "near0", "near1"])
+@pytest.mark.parametrize("kind,n,hd,t", F32_CASES)
+def test_cuda_scan_f32_routes_match_the_loop(cuda, kind, n, hd, t, regime):
+    """The four float32 entries (RWKV-6 ``chunked`` and Mamba ``chunk``,
+    forward and backward) against the float32 loop: the last state at
+    SCAN_STATE_TOL and y at SCAN_TOL (rtol, and atol as a share of the
+    largest), each of the six gradients within SCAN_GRAD_TOL of the
+    largest of autograd through the loop, with and without a cotangent
+    of the last state; the plan takes these routes, and each call counts
+    one launch on it."""
+    from repro_torch.kernels import scan
+    fn, plain, plan = _scan_fns(kind)
+    _, _, entry, _, route = _bwd_fns(kind)
+    fwd = scan.rwkv6_chunked_fwd if kind == "rwkv" else scan.mamba_chunk_fwd
+    args, g = _f32_case(cuda, kind, n, hd, t, regime)
+    assert plan(*args) == route
+    n0 = fn.route_launches[route]
+    s, y = fwd(*args)
+    torch.cuda.synchronize()
+    assert fn.route_launches[route] == n0 + 1
+    ws, wy = plain(*args)
+    _f32_close(s, ws, SCAN_STATE_TOL)
+    _f32_close(y, wy, SCAN_TOL[torch.float32])
+    w_s = torch.randn(s.shape, generator=g).to(cuda)
+    w_y = torch.randn(y.shape, generator=g).to(cuda)
+    for ds in (w_s, None):
+        n0 = fn.bwd_route_launches[route]
+        got = entry(*args, ds, w_y)
+        torch.cuda.synchronize()
+        assert fn.bwd_route_launches[route] == n0 + 1
+        want = _grads_through(plain, args, ds, w_y)
+        for i, (a, b) in enumerate(zip(got, want)):
+            b = torch.zeros_like(a) if b is None else b
+            assert a.dtype == b.dtype == torch.float32, i
+            assert torch.isfinite(a).all(), i
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            assert err <= SCAN_GRAD_TOL[torch.float32] * scale + 1e-30, (
+                i, ds is None, err, scale)
+
+
+@pytest.mark.parametrize("kind,width,t", [("rwkv", 64, 37), ("rwkv", 16, 2),
+                                          ("mamba", 300, 33),
+                                          ("mamba", 128, 70)])
+def test_cuda_scan_f32_step_entries_are_bitwise_the_loop(cuda, kind, width,
+                                                         t):
+    """The float32 step entries, now the timing baseline and the route of
+    T = 1 and unaligned tensors, keep the loop's roundings: their last
+    state is the float32 loop's bit for bit."""
+    from repro_torch.kernels import scan
+    _, plain, _ = _scan_fns(kind)
+    step = scan.rwkv6_scan_fwd if kind == "rwkv" else scan.mamba_scan_fwd
+    args = _scan_case(kind, cuda, torch.float32, 3, t, width)
+    s, y = step(*args)
+    ws, wy = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(s, ws)
+    tol = SCAN_TOL[torch.float32]
+    torch.testing.assert_close(y, wy, rtol=tol,
+                               atol=tol * wy.abs().max().item())
+
+
+def test_cuda_scan_f32_unaligned_and_ragged_go_by_step(cuda):
+    """float32 tensors the chunked routes cannot take launch the step
+    kernels: an unaligned r or u, Mamba's D = 30 (not a multiple of 4)."""
+    from repro_torch.kernels import scan
+    for kind, width, which in (("rwkv", 64, 0), ("mamba", 64, 0),
+                               ("mamba", 30, None)):
+        fn, plain, plan = _scan_fns(kind)
+        args = _scan_case(kind, cuda, torch.float32, 2, 9, width)
+        if which is not None:
+            flat = torch.empty(args[which].numel() + 1, device=cuda)
+            moved = flat[1:].view(args[which].shape)
+            moved.copy_(args[which])
+            args[which] = moved
+        assert plan(*args) == "step", (kind, width)
+        n0 = fn.route_launches["step"]
+        s, y = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.route_launches["step"] == n0 + 1
+        ws, wy = plain(*args)
+        assert torch.equal(s, ws)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,9 @@ tensors, which count no backward launch.
 """
 from __future__ import annotations
 
+import functools
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,6 +163,82 @@ def test_chunked_bwd_bf16_within_the_loops(kind, t, regime, carried, last):
         err = (a.float() - c).abs().max().item()
         assert err <= SCAN_GRAD_F32_TOL * c.abs().max().item() + 1e-30, (
             i, err)
+
+
+@functools.lru_cache(maxsize=None)
+def _recorded_step(kind):
+    """The reference block's scan step (float32) and the name of the
+    array it closes over (RWKV-6's u, Mamba's A), recorded from one call
+    of ``rwkv6_block`` / ``mamba_block``."""
+    rng = np.random.default_rng(9)
+    calls = []
+    real = jax.lax.scan
+
+    def recording(fn, init, xs, *args, **kw):
+        calls.append(fn)
+        return real(fn, init, xs, *args, **kw)
+
+    jax.lax.scan = recording
+    try:
+        if kind == "rwkv":
+            p = {k: jnp.asarray(v) for k, v in _params(kind, rng).items()}
+            rssm.rwkv6_block(p, jnp.asarray(_rand(rng, B, 3, D_RWKV)),
+                             n_heads=H, head_dim=HD)
+        else:
+            p = {k: jnp.asarray(v) for k, v in _params(kind, rng).items()}
+            rssm.mamba_block(p, jnp.asarray(_rand(rng, B, 3, D)), d_state=N)
+    finally:
+        jax.lax.scan = real
+    step, = calls
+    return step, "u" if kind == "rwkv" else "a"
+
+
+def _reference_grads(kind, args, w_s, w_y):
+    """``jax.grad`` of the reference's ``lax.scan`` over its recorded step
+    (the closed-over u or A made an argument) of sum(y * w_y) plus, when
+    given, sum(last state * w_s): the gradients of the six inputs in the
+    port's order and layout."""
+    step, closed = _recorded_step(kind)
+    names = step.__code__.co_freevars
+    cells = {n: c.cell_contents for n, c in zip(names, step.__closure__)}
+    arrs = [jnp.asarray(a.numpy()) for a in args]
+    wy = jnp.asarray(w_y.numpy())
+    ws = None if w_s is None else jnp.asarray(w_s.numpy())
+
+    def loss(*xs):
+        par = xs[4]
+        fn = types.FunctionType(
+            step.__code__, step.__globals__, "step", None,
+            tuple(types.CellType(par if n == closed else cells[n])
+                  for n in names))
+        seq = tuple(jnp.swapaxes(x, 0, 1) for x in xs[:4])
+        s, ys = jax.lax.scan(fn, xs[5], seq)
+        out = (jnp.swapaxes(ys, 0, 1) * wy).sum()
+        return out if ws is None else out + (s * ws).sum()
+
+    grads = jax.grad(loss, argnums=tuple(range(6)))(*arrs)
+    return [torch.from_numpy(np.array(g)) for g in grads]
+
+
+@pytest.mark.parametrize("last", [True, False])
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("t", [2, 17, 65])
+@pytest.mark.parametrize("kind", ["rwkv", "mamba"])
+def test_chunked_bwd_matches_reference_grad_float32(kind, t, regime, last):
+    """float32: the plain chunked backward (the card's float32 ``chunked``
+    / ``chunk`` routes' algorithm) against ``jax.grad`` of the reference's
+    own ``lax.scan`` step, from a carried state, with and without a
+    cotangent of the last state, at ``F32_TOL`` as against autograd
+    through the loop."""
+    args, plain, w_s, w_y, got = _case(kind, t, regime, True, last,
+                                       torch.float32)
+    want = _reference_grads(kind, args, w_s, w_y)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
+        atol = F32_TOL * max(1.0, b.abs().max().item())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=F32_TOL,
+                                   atol=atol, err_msg=str(i))
 
 
 def test_chunked_bwd_checks_its_split():
@@ -317,8 +396,8 @@ def _plan_args(kind, t, dtype, d=64):
 
 @pytest.mark.parametrize("dtype,t,want", [
     (torch.bfloat16, 1, "step"), (torch.bfloat16, 2, "chunked"),
-    (torch.bfloat16, 65, "chunked"), (torch.float32, 2, "step"),
-    (torch.float32, 65, "step")])
+    (torch.bfloat16, 65, "chunked"), (torch.float32, 2, "chunked"),
+    (torch.float32, 65, "chunked"), (torch.float32, 1, "step")])
 def test_rwkv6_bwd_plan_routes_by_dtype_and_t(dtype, t, want):
     args, ds, dy = _plan_args("rwkv", t, dtype)
     assert scan.rwkv6_bwd_plan(*args, ds, dy) == want
@@ -339,10 +418,35 @@ def test_rwkv6_bwd_plan_takes_unaligned_tensors_by_step(which):
 @pytest.mark.parametrize("dtype,t,d,want", [
     (torch.bfloat16, 1, 64, "step"), (torch.bfloat16, 2, 64, "chunk"),
     (torch.bfloat16, 65, 64, "chunk"), (torch.bfloat16, 9, 300, "step"),
-    (torch.float32, 9, 64, "step")])
+    (torch.float32, 9, 64, "chunk"), (torch.float32, 1, 64, "step"),
+    (torch.float32, 9, 36, "chunk"), (torch.bfloat16, 9, 36, "step"),
+    (torch.float32, 9, 30, "step")])
 def test_mamba_bwd_plan_routes_by_dtype_t_and_width(dtype, t, d, want):
     args, ds, dy = _plan_args("mamba", t, dtype, d)
     assert scan.mamba_bwd_plan(*args, ds, dy) == want
+
+
+@pytest.mark.parametrize("which", ["r", "w", "s", "ds", "dy"])
+def test_rwkv6_bwd_plan_takes_unaligned_float32_by_step(which):
+    args, ds, dy = _plan_args("rwkv", 5, torch.float32)
+    assert scan.rwkv6_bwd_plan(*args, ds, dy) == "chunked"
+    i = {"r": 0, "w": 3, "s": 5}.get(which)
+    if i is not None:
+        args[i] = _offset(args[i])
+    ds = _offset(ds) if which == "ds" else ds
+    dy = _offset(dy) if which == "dy" else dy
+    assert scan.rwkv6_bwd_plan(*args, ds, dy) == "step"
+
+
+@pytest.mark.parametrize("which", ["u", "bmat", "dy"])
+def test_mamba_bwd_plan_takes_unaligned_float32_by_step(which):
+    args, ds, dy = _plan_args("mamba", 9, torch.float32)
+    assert scan.mamba_bwd_plan(*args, ds, dy) == "chunk"
+    i = {"u": 0, "bmat": 2}.get(which)
+    if i is not None:
+        args[i] = _offset(args[i])
+    dy = _offset(dy) if which == "dy" else dy
+    assert scan.mamba_bwd_plan(*args, ds, dy) == "step"
 
 
 @pytest.mark.parametrize("which", ["u", "bmat", "dy"])

@@ -20,6 +20,9 @@ finite.
 The route plans (``scan.rwkv6_plan``, ``scan.mamba_plan``) are pure
 functions of dtype, shape and alignment, so they are checked here on CPU
 tensors; a CPU tensor still runs the plain loop and counts no launch.
+Prefill in either dtype takes the chunked routes (float32 since the
+float32 entries were added); T = 1, unaligned tensors and Mamba's widths
+off the 16-byte vector (8 bf16, 4 float32 values) go by step.
 """
 from __future__ import annotations
 
@@ -176,8 +179,8 @@ def _offset(t: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("dtype,t,want", [
     (torch.bfloat16, 1, "step"), (torch.bfloat16, 2, "chunked"),
     (torch.bfloat16, 17, "chunked"), (torch.bfloat16, 512, "chunked"),
-    (torch.float32, 1, "step"), (torch.float32, 2, "step"),
-    (torch.float32, 512, "step")])
+    (torch.float32, 1, "step"), (torch.float32, 2, "chunked"),
+    (torch.float32, 512, "chunked")])
 def test_rwkv6_plan_routes_by_dtype_and_t(dtype, t, want):
     assert scan.rwkv6_plan(*_rwkv(t, dtype)) == want
 
@@ -197,7 +200,7 @@ def test_rwkv6_plan_takes_unaligned_tensors_by_step(which):
 @pytest.mark.parametrize("dtype,t,want", [
     (torch.bfloat16, 1, "decode"), (torch.float32, 1, "decode"),
     (torch.bfloat16, 2, "chunk"), (torch.bfloat16, 33, "chunk"),
-    (torch.float32, 2, "step"), (torch.float32, 33, "step")])
+    (torch.float32, 2, "chunk"), (torch.float32, 33, "chunk")])
 def test_mamba_plan_routes_by_dtype_and_t(dtype, t, want):
     assert scan.mamba_plan(*_mamba(t, dtype)) == want
 
@@ -216,6 +219,35 @@ def test_mamba_plan_takes_unaligned_vectors_by_step(t, which, want):
 def test_mamba_plan_takes_ragged_channels_by_step():
     assert scan.mamba_plan(*_mamba(9, torch.bfloat16, d=300)) == "step"
     assert scan.mamba_plan(*_mamba(1, torch.bfloat16, d=300)) == "decode"
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 36, "chunk"), (torch.bfloat16, 36, "step"),
+    (torch.float32, 300, "chunk"), (torch.float32, 30, "step"),
+    (torch.float32, 8, "chunk"), (torch.bfloat16, 8, "chunk")])
+def test_mamba_plan_width_rule(dtype, d, want):
+    """The chunk route moves u and y as 16-byte vectors: D a multiple of
+    4 in float32, of 8 in bfloat16."""
+    assert scan.mamba_plan(*_mamba(9, dtype, d=d)) == want
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 5])
+def test_rwkv6_plan_takes_unaligned_float32_by_step(which):
+    args = _rwkv(5, torch.float32)
+    assert scan.rwkv6_plan(*args) == "chunked"
+    args[which] = _offset(args[which])
+    assert scan.rwkv6_plan(*args) == "step"
+
+
+@pytest.mark.parametrize("t,which,want", [
+    (9, 0, "step"), (9, 2, "step"), (9, 3, "step"), (9, 4, "step"),
+    (9, 5, "step"), (9, 1, "chunk"), (1, 0, "decode"), (1, 2, "step")])
+def test_mamba_plan_takes_unaligned_float32_by_step(t, which, want):
+    """float32: the chunk route reads u, B, C, A and the state as 16-byte
+    vectors (delta element by element); decode B, C, A and the state."""
+    args = _mamba(t, torch.float32)
+    args[which] = _offset(args[which])
+    assert scan.mamba_plan(*args) == want
 
 
 @pytest.mark.parametrize("kind", ["rwkv", "mamba"])
