@@ -102,12 +102,17 @@ and the bound.  The bf16 kernels take routes
 ``csrc/chunked_attention_sm90.cu`` and the tile backward in
 ``csrc/chunked_attention_bwd_sm90.cu`` (TMA + ``wgmma``; split keys for
 one query; head widths 112 and 160 padded to whole 64-column chunks in
-shared memory), the first kernels' ``mma`` at head width 16;
-``[attn]`` sweeps every width, times each path's planned route beside
-the ``mma`` route on the same inputs (Kimi-K2 and StableLM-12B training
-among the paths), sweeps the split / tile threshold, and the kernels
-line has a record a route and way, its launches summed over the main
-paths that take it.
+shared memory), ``head`` (``csrc/chunked_attention_head.cu``, the
+eighteenth slice: d 16 with at most 64 queries and keys, float32 too,
+one block a head and one launch a way) and the first kernels' ``mma``
+(``simt`` in float32) past it; ``[attn]`` sweeps every width and the head
+route's own edges, times each path's planned route beside the ``mma``
+route on the same inputs (Kimi-K2 and StableLM-12B training among the
+paths; ``head`` beside ``simt`` and ``mma`` at the float32 and the bf16
+smoke shapes, with a launch floor), sweeps the split / tile threshold,
+and the kernels line has a record a route and way, its launches summed
+over the main paths that take it (``mma`` and ``simt``, which no main
+path takes now, under ``attn_baselines``).
 The model families of the seventh slice follow the serving phase, each
 first held card against CPU on its float32 smoke config (the same
 tokens, logits within 1e-4): ``[ssm]`` serves RWKV-6-7B at full width
@@ -2496,7 +2501,7 @@ ATTN_F32_TOL = {"out": 1e-5, "grad": 1e-4}
 #: the main paths' shapes, bf16: B, H, Tq, Tk, d, causal, backward too
 #: (Kimi-K2 and StableLM-12B train at head widths 112 and 160, on the tile
 #: routes since their widths are padded to whole chunks; Jamba's smoke
-#: config in bf16, [train-ssm]'s second run, at d 16 on the mma route)
+#: config in bf16, [train-ssm]'s second run, at d 16 on the head route)
 ATTN_PATHS = {
     "whisper-encoder": (8, 16, 1500, 1500, 64, False, False),
     "whisper-cross-prefill": (8, 16, 512, 1500, 64, False, False),
@@ -2516,16 +2521,32 @@ ATTN_THRESHOLD_SHAPES = ((8, 16, 1500, 64), (8, 64, 1024, 128))
 #: the float32 entries' shape: [train-small]'s smoke configs (2 x 16
 #: tokens, 4 heads of 16, causal)
 ATTN_SMOKE = (2, 4, 16, 16, 16, True, True)
+#: the head route's edge sweep through the entry: every Tq against every
+#: Tk (one, either side of a 16-row tile, the smoke encoder's 24, the
+#: limit of 64 and one under it), float32 and bf16, ATTN_MASKS
+ATTN_HEAD_T = (1, 2, 15, 16, 17, 24, 63, 64)
+#: the lengths at which [attn] times the head route against the routes it
+#: replaced, up to its limit (chunked_attention.HEAD_MAX_T)
+ATTN_HEAD_LIMIT_T = (16, 32, 48, 64)
 #: kernel-name fragments of the chunked-attention kernels (the mma and
-#: simt routes', then the tile and split routes')
+#: simt routes', the tile and split routes', the head route's)
 ATTN_KERNELS = ("attn_fwd_kernel", "attn_delta_kernel", "attn_bwd_kv_kernel",
                 "attn_bwd_q_kernel", "attn_tile_fwd_kernel",
                 "attn_split_kernel", "attn_combine_kernel",
                 "attn_stats_kernel", "attn_kv_tile_kernel",
-                "attn_q_tile_kernel")
+                "attn_q_tile_kernel", "attn_head_fwd_kernel",
+                "attn_head_bwd_kernel")
+#: routes no main path takes since the head route: their records are
+#: timed on the main paths' inputs beside it and listed as baselines
+ATTN_BASELINES = ("mma", "simt")
 #: the kernels line's records of the routes: (way, route) -> the record's
 #: name, its source, its main path's shape and the other shapes it takes
+#: (a baseline route's: the shape it is timed at beside the head route)
 ATTN_RECORDS = {
+    ("fwd", "head"): ("chunked_attention_fwd_head", "head", "smoke",
+                      ["jamba-smoke-train"]),
+    ("bwd", "head"): ("chunked_attention_bwd_head", "head", "smoke",
+                      ["jamba-smoke-train"]),
     ("fwd", "tile"): ("chunked_attention_fwd_tile_bf16", "sm90",
                       "whisper-encoder", ["whisper-cross-prefill",
                                           "llama-cross-prefill",
@@ -2726,8 +2747,8 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
     loop, and ``scaled_dot_product_attention`` on the same inputs (the
     library column only); with ``bwd`` the same for the backward (the
     plain backward ``ref.chunked_attention_bwd``, SDPA's backward as the
-    profiler's device time of its forward and backward kernels less its
-    forward's)."""
+    profiler's device time of the kernels its forward and backward call
+    launches and its forward call does not)."""
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_attention as ca
     from repro_torch.kernels import ref
@@ -2764,12 +2785,16 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
         o = F.scaled_dot_product_attention(*xs, is_causal=is_causal)
         torch.autograd.grad(o, xs, dout)
 
-    # SDPA's backward: the device time of its kernels in a forward and
-    # backward call, less those of a forward call (the profiler's mean a
-    # launch of each kernel, summed)
-    r["bwd_library_ms"] = sum(_kernel_ms(sdpa_both).values()) - sum(
-        _kernel_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=is_causal)).values())
+    # SDPA's backward: the device time of the kernels a forward and
+    # backward call launches that a forward call (on the same inputs,
+    # recording for autograd) does not (the profiler's mean a launch of
+    # each, summed).  Subtracting the forward's sum went negative at the
+    # smoke shapes, where a trace that lost a kernel outweighed the
+    # backward
+    fwd_names = set(_kernel_ms(
+        lambda: F.scaled_dot_product_attention(*xs, is_causal=is_causal)))
+    r["bwd_library_ms"] = sum(ms for name, ms in _kernel_ms(
+        sdpa_both).items() if name not in fwd_names)
 
     def loop_both():
         o = ref.chunked_attention(*xs, causal=causal)
@@ -2831,6 +2856,7 @@ def phase_attn() -> list:
           + f" ({time.perf_counter() - t0:.1f} s)")
     if not all(swept[0].values()) or not all(swept[1].values()):
         fail(f"attn: the sweep left a route unlaunched: {swept}")
+    _attn_head_sweep(gen)
     paths = {}
     for path, (b, h, tq, tk, d, causal, bwd) in ATTN_PATHS.items():
         args = _attn_inputs(b, h, tq, tk, d, torch.bfloat16, gen)
@@ -2883,21 +2909,66 @@ def phase_attn() -> list:
         print(f"[attn] threshold ({b} x {h} x Tq x {tk}, d={d}), us a "
               f"launch: " + "; ".join(cells) + f" (the plan takes split up "
               f"to Tq {ca.SPLIT_MAX_TQ})")
-    # the float32 entries at [train-small]'s shape
+    # the float32 entries at [train-small]'s shape: the head route and
+    # the simt route on the same inputs
     b, h, tq, tk, d, causal, _ = ATTN_SMOKE
     args = _attn_inputs(b, h, tq, tk, d, torch.float32, gen)
     err = _attn_check("attn smoke float32", *args, causal, 0)
+    err_simt = _attn_held("attn smoke float32 simt route",
+                          _attn_mma(*args, causal, 0), *args, causal, 0, True)
     small = {"shape": [b, h, tq, tk, d], "causal": causal, "err": err,
-             **_attn_times(*args, causal, True),
+             "err_mma": err_simt, **_attn_times(*args, causal, True),
              "fwd_bound": _attn_bound(b, h, tq, tk, d, causal, False,
                                       torch.float32, clock),
              "bwd_bound": _attn_bound(b, h, tq, tk, d, causal, True,
                                       torch.float32, clock)}
     print(f"[attn] float32 at the smoke configs' shape ({b} x {h} x {tq} x "
-          f"{tk}, d={d}, causal): forward {small['fwd_ms'] * 1e3:.2f} us, "
-          f"backward {small['bwd_ms'] * 1e3:.2f} us a launch (CUDA cores); "
-          f"plain {small['fwd_plain_ms'] * 1e3:.2f} / "
+          f"{tk}, d={d}, causal): routes {small['fwd_route']} / "
+          f"{small['bwd_route']}, forward {small['fwd_ms'] * 1e3:.2f} us, "
+          f"backward {small['bwd_ms'] * 1e3:.2f} us a launch; plain "
+          f"{small['fwd_plain_ms'] * 1e3:.2f} / "
           f"{small['bwd_plain_ms'] * 1e3:.2f} us")
+    # the head route beside the routes it replaced, on the same inputs, and
+    # the launch floor: a one-element zero_ timed the same way
+    z = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(lambda: z.zero_(), reps=50, replays=3)
+    for name, r, old in (("smoke", small, "simt"),
+                         ("jamba-smoke-train", paths["jamba-smoke-train"],
+                          "mma")):
+        r["floor_ms"] = floor_ms
+        if (r["fwd_route"], r["bwd_route"]) != ("head", "head"):
+            fail(f"attn: {name} took routes {r['fwd_route']} / "
+                 f"{r['bwd_route']}, not head")
+        for way in ("fwd", "bwd"):
+            bd = r[f"{way}_bound"]
+            print(f"[attn] head route at {name} {tuple(r['shape'])} {way}: "
+                  f"{r[f'{way}_ms'] * 1e3:.3f} us a launch, {old} "
+                  f"{r[f'{way}_mma_ms'] * 1e3:.3f} us "
+                  f"({r[f'{way}_mma_ms'] / r[f'{way}_ms']:.2f}x); launch "
+                  f"floor {floor_ms * 1e3:.3f} us (head "
+                  f"{r[f'{way}_ms'] / floor_ms:.2f}x, {old} "
+                  f"{r[f'{way}_mma_ms'] / floor_ms:.2f}x); plain "
+                  f"{r[f'{way}_plain_ms'] * 1e3:.2f} us; SDPA "
+                  f"{r[f'{way}_library_ms'] * 1e3:.2f} us; bound "
+                  f"{bd['bound_ms'] * 1e3:.4f} us by {bd['bound_kind']} "
+                  f"({smi()})")
+    # the head route's limit: head against the route it replaced at T up
+    # to HEAD_MAX_T, the smoke configs' 2 x 4 heads, causal
+    for dtype, old in ((torch.float32, "simt"), (torch.bfloat16, "mma")):
+        cells = []
+        for t in ATTN_HEAD_LIMIT_T:
+            q, k, v, dout = _attn_inputs(2, 4, t, t, 16, dtype, gen)
+            out, lse = ca.head_fwd(q, k, v, True, 0)
+            us = [device_ms(fn, reps=50, replays=3) * 1e3 for fn in (
+                lambda: ca.head_fwd(q, k, v, True, 0),
+                lambda: ca.mma_fwd(q, k, v, True, 0),
+                lambda: ca.head_bwd(q, k, v, out, dout, lse, True, 0),
+                lambda: ca.mma_bwd(q, k, v, out, dout, lse, True, 0))]
+            cells.append(f"T {t}: forward {us[0]:.2f} / {us[1]:.2f}, "
+                         f"backward {us[2]:.2f} / {us[3]:.2f}")
+        print(f"[attn] head limit ({dtype}, 2 x 4 x T x T, d=16, causal), "
+              f"us a launch head / {old}: " + "; ".join(cells)
+              + f" (HEAD_MAX_T {ca.HEAD_MAX_T})")
     (ca.chunked_attention.launches,
      ca.chunked_attention.bwd_launches) = saved[0]
     ca.chunked_attention.route_launches.update(saved[1][0])
@@ -2916,33 +2987,75 @@ def phase_attn() -> list:
         r = shapes[main]
         bd = r[f"{way}_bound"]
         keys = ("out",) if way == "fwd" else ("dq", "dk", "dv")
-        if r.get(f"{way}_route", route) != route and main != "smoke":
+        # a baseline route: chunked_attention.cu's, timed beside the
+        # planned one
+        base = route in ATTN_BASELINES
+        if not base and r[f"{way}_route"] != route:
             fail(f"attn: {main} took the {r[f'{way}_route']} route, not "
                  f"{route}")
+        ms = r[f"{way}_mma_ms" if base else f"{way}_ms"]
+        err = r["err_mma" if base else "err"]
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/chunked_attention"
                           f"{'_' + src if src else ''}.cu",
                 "replaces": "src/repro/models/layers.py:110",
                 "attn_route": route,
                 "launches": None, "main_path": None,
-                "max_abs_err": max(r["err"][x]["err"] for x in keys),
+                "max_abs_err": max(err[x]["err"] for x in keys),
                 "err_against": "the plain loop in float32 on the same "
                                "values",
-                "ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
+                "ms": ms, "plain_ms": r[f"{way}_plain_ms"],
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "library_ms": r[f"{way}_library_ms"],
                 "library": "torch.nn.functional.scaled_dot_product_attention"
                            + (" (its backward kernels' device time)"
                               if way == "bwd" else ""),
                 "mma_route_ms": r.get(f"{way}_mma_ms"),
+                "launch_floor_ms": r.get("floor_ms"),
                 "shape": r["shape"], "at": main,
-                "bound_share": bd["bound_ms"] / r[f"{way}_ms"],
+                "bound_share": bd["bound_ms"] / ms,
                 "attn": (way, route),
                 "paths": {p: {k: v for k, v in paths[p].items()
-                              if k.startswith(way) or k in ("shape",)}
+                              if k.startswith(way) or k in ("shape",
+                                                            "floor_ms")}
                           for p in others}}
 
     return [record(way, route) for way, route in ATTN_RECORDS]
+
+
+def _attn_head_sweep(gen) -> None:
+    """The head route's edges through the entry (:func:`_attn_check`):
+    every Tq against every Tk of :data:`ATTN_HEAD_T`, d 16, B = 2, H = 2,
+    float32 and bf16, each mask of :data:`ATTN_MASKS`; fails unless every
+    launch, forward and backward, went by the head route."""
+    t0 = time.perf_counter()
+    before = _attn_routes()
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, off in ATTN_MASKS:
+            for tq in ATTN_HEAD_T:
+                for tk in ATTN_HEAD_T:
+                    args = _attn_inputs(2, 2, tq, tk, 16, dtype, gen)
+                    res = _attn_check(
+                        f"attn head {dtype} causal={causal} q_offset={off} "
+                        f"Tq={tq} Tk={tk}", *args, causal, off)
+                    n += 1
+                    for name, e in res.items():
+                        key = (str(dtype).removeprefix("torch."), name)
+                        share = e["err"] / max(e["allow"], 1e-30)
+                        worst[key] = max(worst.get(key, 0.0), share)
+    moved = [{r: a[r] - b[r] for r in a}
+             for a, b in zip(_attn_routes(), before)]
+    if any(m != {r: 2 * n * (r == "head") for r in m} for m in moved):
+        fail(f"attn head sweep: launches by route {moved}, want all "
+             f"{2 * n} forward and backward by head")
+    print(f"[attn] head route sweep: {n} calls, each twice (float32 and "
+          f"bf16, d 16, Tq and Tk each in {ATTN_HEAD_T}, causal and not, "
+          f"q_offset 0 and 37), every launch by head, output and gradients "
+          f"agree with the plain loop, two runs bitwise equal; largest "
+          f"share of the allowance: " + ", ".join(
+              f"{t} {nm} {s:.3f}" for (t, nm), s in sorted(worst.items()))
+          + f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def _split_rows(path):
@@ -4543,6 +4656,7 @@ def phase_train_small() -> dict:
     worst = 0.0
     scan_bwd, scan_fwd = {}, {}
     attn = (0, 0)
+    attn_routes = ({}, {})  # launches by route, forward and backward
     for arch in cbase.ASSIGNED:
         cfg = cbase.smoke(cbase.get(arch))
         init, step_fn, name = make_train_step(
@@ -4576,7 +4690,17 @@ def phase_train_small() -> dict:
             fail(f"train-small {arch}: chunked attention launched {fwd} "
                  f"forward, {bwd} backward; the CPU run called the loop "
                  f"{loop_calls} times")
+        # every float32 attention of a smoke config (d 16, at most 24
+        # queries and keys) by the head route, forward and backward
+        routes = _attn_routes()
+        if routes != ({**dict.fromkeys(routes[0], 0), "head": fwd},
+                      {**dict.fromkeys(routes[1], 0), "head": bwd}):
+            fail(f"train-small {arch}: chunked attention launched by route "
+                 f"{routes}, want every launch by head")
         attn = (attn[0] + fwd, attn[1] + bwd)
+        for total, counts in zip(attn_routes, routes):
+            for r, c in counts.items():
+                total[r] = total.get(r, 0) + c
         # on the card each scan layer runs forward twice a step (the
         # group's checkpoint recomputes it) and backward once, all by the
         # chunked routes (float32, T = 16)
@@ -4661,11 +4785,12 @@ def phase_train_small() -> dict:
           f"{scan_bwd}, their forward ones {scan_fwd} (float32, T = 16: all "
           f"by the chunked / chunk routes, forward and backward); chunked "
           f"attention "
-          f"launched {attn[0]} forward, {attn[1]} backward (float32), no "
-          f"plain loop reached on the card")
+          f"launched {attn[0]} forward, {attn[1]} backward (float32), all "
+          f"by the head route, no plain loop reached on the card")
     if not all(attn):
         fail(f"train-small: chunked attention launched {attn}")
-    return {"bwd": scan_bwd, "fwd": scan_fwd, "attn": attn}
+    return {"bwd": scan_bwd, "fwd": scan_fwd, "attn": attn,
+            "attn_routes": attn_routes}
 
 
 def _multiply_params(cfg, params) -> float:
@@ -5018,6 +5143,12 @@ def phase_train_ssm() -> dict:
     if out_attn != (2 * 3 * n_attn, 3 * n_attn):
         fail(f"train-ssm jamba smoke: chunked attention launched {out_attn}"
              f", want {(2 * 3 * n_attn, 3 * n_attn)}")
+    # d 16 with 64 queries and keys: every launch by the head route
+    routes = _attn_routes()
+    if routes != ({**dict.fromkeys(routes[0], 0), "head": out_attn[0]},
+                  {**dict.fromkeys(routes[1], 0), "head": out_attn[1]}):
+        fail(f"train-ssm jamba smoke: chunked attention launched by route "
+             f"{routes}, want every launch by head")
     _check_scans("train-ssm jamba smoke", {
         "mamba_scan": (2 * 3 * n_mamba, 3 * n_mamba)},
         {"mamba_scan": {"chunk": 2 * 3 * n_mamba}},
@@ -5030,7 +5161,8 @@ def phase_train_ssm() -> dict:
           f"(log vocab {lv:.4f}); the Mamba scan launched "
           f"{2 * 3 * n_mamba} forward by the chunk route and "
           f"{3 * n_mamba} backward by the chunk route; chunked attention "
-          f"(bf16, d=16) {out_attn[0]} forward, {out_attn[1]} backward")
+          f"(bf16, d=16) {out_attn[0]} forward, {out_attn[1]} backward, "
+          f"all by the head route")
     out["mamba_scan"] = dict(_scan_bwd_routes()["mamba_scan"])
     out["attn"] = _attn_routes()
     _reset_scans()
@@ -5228,7 +5360,9 @@ def main() -> None:
     # chunked attention's launches by route and path: bf16 in [cross]
     # (prefill by tile, decode by split) and the full-width training
     # phases (tile, d 128 and 160), Jamba's bf16 smoke run in [train-ssm]
-    # (d 16: mma), float32 in [train-small] (simt)
+    # and float32 in [train-small] (d 16: head).  The routes no main path
+    # takes now (mma, simt: ATTN_BASELINES) are listed apart, under
+    # "attn_baselines", timed beside head on its main paths' inputs
     whisper = "[cross] Whisper-medium wave (encoder, cross)"
     llama = "[cross] Llama-3.2-Vision wave (cross)"
     jamba = "[train-ssm] Jamba smoke config, bf16"
@@ -5242,22 +5376,41 @@ def main() -> None:
         ("fwd", "split"): {
             whisper: cross["whisper_medium"]["split"],
             llama: cross["llama_3_2_vision_90b"]["split"]},
+        ("fwd", "head"): {small: train["attn_routes"][0]["head"],
+                          jamba: ssm_train["attn"][0]["head"]},
         ("fwd", "mma"): {jamba: ssm_train["attn"][0]["mma"]},
-        ("fwd", "simt"): {small: train["attn"][0]},
+        ("fwd", "simt"): {small: train["attn_routes"][0]["simt"]},
         ("bwd", "tile"): {
             "[train-dense] Phi-4-mini": dense[1]["tile"],
             "[train-moe] Grok-1 group": moe[1]["tile"],
             "[train-stablelm] StableLM-12B, 8 layers": stablelm[1]["tile"]},
+        ("bwd", "head"): {small: train["attn_routes"][1]["head"],
+                          jamba: ssm_train["attn"][1]["head"]},
         ("bwd", "mma"): {jamba: ssm_train["attn"][1]["mma"]},
-        ("bwd", "simt"): {small: train["attn"][1]},
+        ("bwd", "simt"): {small: train["attn_routes"][1]["simt"]},
     }
+    attn_baselines = []
     for rec in attn:
         paths = by_path[rec.pop("attn")]
         rec["main_path"] = next(iter(paths))
         rec["launches"] = sum(paths.values())
         rec["launches_by_path"] = paths
-        if not all(paths.values()):
+        if rec["attn_route"] in ATTN_BASELINES:
+            if rec["launches"]:
+                fail(f"{rec['name']}: launched on a main path: {paths}")
+            rec["main_path"] = None
+            rec["baseline"] = (
+                "chunked_attention.cu's route, timed beside the head route "
+                "on the same inputs; no main path takes it (the smoke "
+                "configs' float32 attention and Jamba's bf16 smoke config go "
+                "by head; float32 past d 16 or 64 queries or keys, and bf16 "
+                "at d 16 past 64 or unaligned, still go by it)")
+            attn_baselines.append(rec)
+        elif not all(paths.values()):
             fail(f"{rec['name']}: no launch on a main path: {paths}")
+    line["kernels"] = [r for r in line["kernels"]
+                       if not any(r is x for x in attn_baselines)]
+    line["attn_baselines"] = attn_baselines
     phase_train_ckpt()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line))

@@ -135,6 +135,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "chunked_attention_tile_bwd_bf16": (_PTR,) * 10 + (_I64,) * 6 + (
             _PTR,),
     },
+    "chunked_attention_head": {
+        # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream
+        **{f"chunked_attention_head_fwd_{t}": (_PTR,) * 5 + (_I64,) * 6 + (
+            _PTR,) for t in ("f32", "bf16")},
+        # q, k, v, out, dout, lse, dq, dk, dv; B*H, tq, tk, d, causal,
+        # q_offset; stream
+        **{f"chunked_attention_head_bwd_{t}": (_PTR,) * 9 + (_I64,) * 6 + (
+            _PTR,) for t in ("f32", "bf16")},
+    },
     "chunked_attention": {
         # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream
         **{f"chunked_attention_fwd_{t}": (_PTR,) * 5 + (_I64,) * 6 + (_PTR,)

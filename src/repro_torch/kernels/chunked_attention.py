@@ -16,6 +16,17 @@ equal).
 Routes, picked by :func:`attn_plan` and :func:`attn_bwd_plan` from the
 dtype, the shapes and the alignment alone:
 
+* ``"head"`` — float32 or bfloat16 at d :data:`HEAD_D` with at most
+  :data:`HEAD_MAX_T` queries and keys (one query included), the tensors
+  16-byte aligned and the backward's shared memory
+  (:func:`head_smem_bytes`) within :data:`HEAD_SMEM_LIMIT`: every
+  attention of the smoke configs (float32) and of Jamba's smoke config in
+  bfloat16.  ``csrc/chunked_attention_head.cu``, one block a head and one
+  launch a way: the head's operands in shared memory by bulk copies on one
+  mbarrier, the forward's softmax whole, the backward's D, dK, dV and dQ
+  in the same block; bfloat16 on ``mma.sync``, float32 in exact float32
+  FMAs.  It takes precedence over every other route, forward and
+  backward.
 * ``"tile"`` — bfloat16, d in :data:`TILE_HEAD_DIMS`, more than
   :data:`SPLIT_MAX_TQ` queries: ``csrc/chunked_attention_sm90.cu``, a
   TMA ring and ``wgmma`` (the next tile's ``Q Kᵀ`` and the last tile's
@@ -30,12 +41,13 @@ dtype, the shapes and the alignment alone:
   decode step's cross attention has one): the same file; each head's
   keys cut into splits (:func:`split_plan`), float32 partials in a
   workspace, combined in split order by a second kernel.
-* ``"mma"`` — bfloat16 at d 16 (Jamba's smoke config), and bfloat16
-  tensors that are not 16-byte aligned (the entry copies such views, so
-  only a direct call of a plan sees them): ``csrc/chunked_attention.cu``
-  on ``mma.sync``, forward and backward, built for every width of
-  :data:`HEAD_DIMS`.
-* ``"simt"`` — float32: the same file's CUDA-core bodies.
+* ``"mma"`` — bfloat16 at d 16 past the head route's limits, and
+  bfloat16 tensors that are not 16-byte aligned (the entry copies such
+  views, so only a direct call of a plan sees them):
+  ``csrc/chunked_attention.cu`` on ``mma.sync``, forward and backward,
+  built for every width of :data:`HEAD_DIMS`.
+* ``"simt"`` — float32 past the head route's limits (every width but
+  16): the same file's CUDA-core bodies.
 
 The result does not depend on the reference's chunk of 512: a masked key
 adds exactly zero to a row that has a live key, and every row has one
@@ -54,7 +66,8 @@ route), :func:`repro_torch.kernels.ref.chunked_attention_split` (the
 split route's partials and combine).  ``chunked_attention.launches``
 counts forward launches (by route in ``.route_launches``),
 ``chunked_attention.bwd_launches`` backward ones (by route in
-``.bwd_route_launches``; one entry: three kernels).
+``.bwd_route_launches``; one entry: one kernel on the ``head`` route,
+three on ``mma`` and ``simt``).
 """
 from __future__ import annotations
 
@@ -87,8 +100,16 @@ SPLIT_TARGET_BLOCKS = 2 * 132
 SPLIT_MIN_KEYS = 64
 #: the backward tile route pads its row statistics to this many rows
 STAT_ROWS = 64
-ROUTES = ("tile", "split", "mma", "simt")
-BWD_ROUTES = ("tile", "mma", "simt")
+#: the ``head`` route's head width and its most queries and keys (the
+#: kernel's ``kD`` and ``kMaxT``: every attention shape of the smoke
+#: configs and of Jamba's bf16 smoke config is within them)
+HEAD_D = 16
+HEAD_MAX_T = 64
+#: the shared memory a block takes without an opt-in, which a launch
+#: inside a graph capture could not make
+HEAD_SMEM_LIMIT = 48 * 1024
+ROUTES = ("head", "tile", "split", "mma", "simt")
+BWD_ROUTES = ("head", "tile", "mma", "simt")
 
 
 def _check(q, k, v, q_offset: int, chunk: int) -> None:
@@ -124,13 +145,41 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if aligned16(t) else t.clone()
 
 
+def head_smem_bytes(tq: int, tk: int, d: int, dtype: torch.dtype) -> int:
+    """Shared memory of a ``head`` backward block (the forward's is
+    less), as ``csrc/chunked_attention_head.cu``'s ``layout`` lays it
+    out: a 16-byte mbarrier slot; q, o and dO of ``tq`` rows and k and v
+    of ``tk`` rows of ``d`` elements, each rounded up to whole 16-row
+    tiles (rq, rk rows); lse and D of every row in float32; for float32
+    also dS, ``tq x (rk + 1)`` float32."""
+    bf16 = dtype == torch.bfloat16
+    rq, rk = -(-tq // 16) * 16, -(-tk // 16) * 16
+    n = 16 + (3 * rq + 2 * rk) * d * (2 if bf16 else 4) + 2 * rq * 4
+    return n if bf16 else n + tq * (rk + 1) * 4
+
+
+def _head_fits(tensors, q, k) -> bool:
+    """True when the ``head`` route takes a call on ``tensors`` (q, k and
+    v, and for the backward out and dO): d :data:`HEAD_D`, at most
+    :data:`HEAD_MAX_T` queries and keys, its shared memory within
+    :data:`HEAD_SMEM_LIMIT`, every tensor 16-byte aligned (its bulk
+    copies address each head's rows from there)."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    return (d == HEAD_D and tq <= HEAD_MAX_T and tk <= HEAD_MAX_T
+            and head_smem_bytes(tq, tk, d, q.dtype) <= HEAD_SMEM_LIMIT
+            and all(aligned16(t) for t in tensors))
+
+
 def attn_plan(q, k, v, causal: bool, q_offset: int = 0) -> str:
     """The forward route of a checked call (see the module's docstring):
-    ``"simt"`` for float32; for bfloat16 with q, k and v 16-byte aligned
-    (the operands the entry passes always are), ``"split"`` up to
-    :data:`SPLIT_MAX_TQ` queries, ``"tile"`` beyond that at d in
-    :data:`TILE_HEAD_DIMS`, else ``"mma"``.  The mask (``causal``,
-    ``q_offset``) does not change the route."""
+    ``"head"`` where it fits (:func:`_head_fits`), else ``"simt"`` for
+    float32; for bfloat16 with q, k and v 16-byte aligned (the operands
+    the entry passes always are), ``"split"`` up to :data:`SPLIT_MAX_TQ`
+    queries, ``"tile"`` beyond that at d in :data:`TILE_HEAD_DIMS`, else
+    ``"mma"``.  The mask (``causal``, ``q_offset``) does not change the
+    route."""
+    if _head_fits((q, k, v), q, k):
+        return "head"
     if q.dtype != torch.bfloat16:
         return "simt"
     aligned = all(aligned16(t) for t in (q, k, v))
@@ -143,9 +192,12 @@ def attn_plan(q, k, v, causal: bool, q_offset: int = 0) -> str:
 
 def attn_bwd_plan(q, k, v, out, dout, causal: bool, q_offset: int = 0) -> str:
     """The backward route of a checked call, whatever route ran the
-    forward: ``"tile"`` for bfloat16 at d in :data:`TILE_HEAD_DIMS` with
-    the five tensors 16-byte aligned (TMA addresses them), ``"mma"`` for
-    other bfloat16 calls, ``"simt"`` for float32."""
+    forward: ``"head"`` where it fits (:func:`_head_fits` of the five
+    tensors), else ``"tile"`` for bfloat16 at d in :data:`TILE_HEAD_DIMS`
+    with the five tensors 16-byte aligned (TMA addresses them), ``"mma"``
+    for other bfloat16 calls, ``"simt"`` for float32."""
+    if _head_fits((q, k, v, out, dout), q, k):
+        return "head"
     if q.dtype != torch.bfloat16:
         return "simt"
     if q.shape[3] in TILE_HEAD_DIMS and all(
@@ -178,21 +230,39 @@ def _count(route: str) -> None:
     chunked_attention.route_launches[route] += 1
 
 
-def tile_fwd(q, k, v, causal: bool, q_offset: int = 0):
-    """One launch of the ``tile`` forward on checked bfloat16 CUDA tensors
-    (d in :data:`TILE_HEAD_DIMS`): ``(out, lse)``, lse the per-row
-    log-sum-exp (B, H, Tq) float32."""
+def _fwd(lib: str, entry: str, route: str, q, k, v, causal: bool,
+         q_offset: int):
+    """One launch of C entry ``entry`` of ``csrc/<lib>.cu`` (q, k, v, out,
+    lse; B*H, tq, tk, d, causal, q_offset; stream) on checked CUDA
+    tensors, counted to ``route``: ``(out, lse)``."""
     q, k, v = (_operand(t) for t in (q, k, v))
     b, h, tq, d = q.shape
     out, lse = _outputs(q)
-    fn = load("chunked_attention_sm90").chunked_attention_tile_fwd_bf16
+    fn = getattr(load(lib), entry)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b * h, tq, k.shape[2], d, int(causal),
                  q_offset, stream_of(q))
-    check(err, "chunked_attention tile forward")
-    _count("tile")
+    check(err, f"chunked_attention {route} forward")
+    _count(route)
     return out, lse
+
+
+def head_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """One launch of the ``head`` forward on checked CUDA tensors (d
+    :data:`HEAD_D`, at most :data:`HEAD_MAX_T` queries and keys; the
+    kernel refuses other shapes, and this raises): ``(out, lse)``."""
+    return _fwd("chunked_attention_head",
+                f"chunked_attention_head_fwd_{suffix(q.dtype)}", "head", q,
+                k, v, causal, q_offset)
+
+
+def tile_fwd(q, k, v, causal: bool, q_offset: int = 0):
+    """One launch of the ``tile`` forward on checked bfloat16 CUDA tensors
+    (d in :data:`TILE_HEAD_DIMS`): ``(out, lse)``, lse the per-row
+    log-sum-exp (B, H, Tq) float32."""
+    return _fwd("chunked_attention_sm90", "chunked_attention_tile_fwd_bf16",
+                "tile", q, k, v, causal, q_offset)
 
 
 def split_fwd(q, k, v, causal: bool, q_offset: int = 0):
@@ -219,22 +289,14 @@ def mma_fwd(q, k, v, causal: bool, q_offset: int = 0):
     """One launch of ``csrc/chunked_attention.cu``'s forward on checked
     CUDA tensors: the ``mma`` route for bfloat16, ``simt`` for float32.
     ``(out, lse)``."""
-    q, k, v = (_operand(t) for t in (q, k, v))
-    b, h, tq, d = q.shape
-    out, lse = _outputs(q)
-    fn = getattr(load("chunked_attention"),
-                 f"chunked_attention_fwd_{suffix(q.dtype)}")
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b * h, tq, k.shape[2], d, int(causal),
-                 q_offset, stream_of(q))
-    check(err, "chunked_attention forward")
-    _count("mma" if q.dtype == torch.bfloat16 else "simt")
-    return out, lse
+    return _fwd("chunked_attention",
+                f"chunked_attention_fwd_{suffix(q.dtype)}",
+                "mma" if q.dtype == torch.bfloat16 else "simt", q, k, v,
+                causal, q_offset)
 
 
-_FWD = {"tile": tile_fwd, "split": split_fwd, "mma": mma_fwd,
-        "simt": mma_fwd}
+_FWD = {"head": head_fwd, "tile": tile_fwd, "split": split_fwd,
+        "mma": mma_fwd, "simt": mma_fwd}
 
 
 def chunked_attention_fwd(q, k, v, causal: bool, q_offset: int = 0):
@@ -253,6 +315,26 @@ def _bwd_operands(q, k, v, out, dout):
 def _count_bwd(route: str) -> None:
     chunked_attention.bwd_launches += 1
     chunked_attention.bwd_route_launches[route] += 1
+
+
+def head_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
+    """One launch of the ``head`` backward on checked CUDA tensors (D,
+    dK, dV and dQ in one kernel, no workspace; the shapes of
+    :func:`head_fwd`): ``(dq, dk, dv)``."""
+    q, k, v, out, dout = _bwd_operands(q, k, v, out, dout)
+    b, h, tq, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = lse.float().contiguous()
+    fn = getattr(load("chunked_attention_head"),
+                 f"chunked_attention_head_bwd_{suffix(q.dtype)}")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b * h, tq, k.shape[2], d,
+                 int(causal), q_offset, stream_of(q))
+    check(err, "chunked_attention head backward")
+    _count_bwd("head")
+    return dq, dk, dv
 
 
 def tile_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
@@ -300,7 +382,8 @@ def mma_bwd(q, k, v, out, dout, lse, causal: bool, q_offset: int = 0):
     return dq, dk, dv
 
 
-_BWD = {"tile": tile_bwd, "mma": mma_bwd, "simt": mma_bwd}
+_BWD = {"head": head_bwd, "tile": tile_bwd, "mma": mma_bwd,
+        "simt": mma_bwd}
 
 
 def chunked_attention_bwd(q, k, v, out, dout, lse, causal: bool,

@@ -23,14 +23,11 @@ Run on one H100 (it needs ``nvcc``; it writes under ``build/``):
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
-import shutil
 import statistics
-import subprocess
 
 from repro_torch.kernels import build
+from repro_torch.launch import variants
 
 LIB = "rwkv6_chunk_sm90"
 #: each layout as replacements of the shipped source's text (the source
@@ -67,53 +64,12 @@ SHAPE = (8, 512, 64, 64)
 
 
 def _source(subs) -> str:
-    text = (build.SRC_DIR / f"{LIB}.cu").read_text()
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{LIB}.cu: {old!r} found "
-                               f"{text.count(old)} times, want once")
-        text = text.replace(old, new)
-    return text
+    return variants.source(LIB, subs)
 
 
 def _build_all() -> dict:
-    """Each variant's library, built in parallel beside the kernels'."""
-    out_dir = build.BUILD_DIR.parent / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, subs in VARIANTS.items():
-        text = _source(subs)
-        key = hashlib.sha256(text.encode() + b"".join(
-            h.read_bytes() for h in sorted(build.SRC_DIR.glob("*.cuh")))
-            + " ".join(build.FLAGS).encode()).hexdigest()[:16]
-        src_dir = out_dir / f"src-{key}"
-        src_dir.mkdir(exist_ok=True)
-        for h in build.SRC_DIR.glob("*.cuh"):
-            shutil.copy(h, src_dir / h.name)
-        (src_dir / f"{LIB}.cu").write_text(text)
-        lib = out_dir / f"lib{LIB}-{key}.so"
-        proc = None
-        if not lib.exists():
-            proc = subprocess.Popen(
-                [build._nvcc(), *build.FLAGS, "-o", str(lib),
-                 str(src_dir / f"{LIB}.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, lib)
-    libs = {}
-    for name, (proc, lib) in jobs.items():
-        if proc is not None:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-            print(f"[build] {name}: " + " ".join(
-                ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln))
-        cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in build.SIGNATURES[LIB].items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        libs[name] = cdll
-    return libs
+    """Each layout's library, built in parallel beside the kernels'."""
+    return variants.build_all(LIB, VARIANTS)
 
 
 def _inputs(dtype, gen):
@@ -139,10 +95,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("rwkv6_staging: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = variants.card()
     libs = _build_all()
     gen = torch.Generator(device="cuda").manual_seed(27)
     b, t, h, hd = SHAPE

@@ -12,7 +12,14 @@ CPU).
 * ``attn_plan`` / ``attn_bwd_plan`` give the expected route at the main
   paths' shapes (those of ``chip_smoke.py``'s ``ATTN_PATHS``) and at
   every edge (float32, the split threshold, each head width, an
-  unaligned base), on meta tensors, so no kernel is needed;
+  unaligned base, the head route's limits), on meta tensors, so no kernel
+  is needed;
+* every attention a smoke config's model runs in a training step (self
+  attention at the training length, the encoder, cross attention), and
+  its one-query decode, plans to the ``head`` route forward and backward,
+  in float32 and for Jamba's smoke config in bfloat16; past the route's
+  limits the plans are the other routes'; its shared memory stays within
+  48 KB up to the limit, and the limits are the kernel source's;
 * every config with attention under ``src/repro_torch/configs/`` (and
   its smoke config) has a head width the kernels are built for and a
   route forward and backward;
@@ -197,6 +204,7 @@ PATH_ROUTES = {
     "grok-train": ((8, 48, 256, 256, 128, True), "tile", "tile"),
     "kimi-train": ((8, 64, 256, 256, 112, True), "tile", "tile"),
     "stablelm-train": ((8, 32, 256, 256, 160, True), "tile", "tile"),
+    "jamba-smoke-train": ((2, 4, 64, 64, 16, True), "head", "head"),
 }
 
 
@@ -222,13 +230,18 @@ def test_plan_at_the_main_paths(path):
 EDGES = [
     (1, 64, torch.float32, "simt", "simt"),
     (300, 160, torch.float32, "simt", "simt"),
-    (1, 16, torch.bfloat16, "split", "mma"),
+    (1, 16, torch.bfloat16, "head", "head"),
+    (1, 16, torch.float32, "head", "head"),
+    (ca.HEAD_MAX_T, 16, torch.float32, "head", "head"),
+    (ca.HEAD_MAX_T, 16, torch.bfloat16, "head", "head"),
+    (ca.HEAD_MAX_T + 1, 16, torch.float32, "simt", "simt"),
+    (ca.HEAD_MAX_T + 1, 16, torch.bfloat16, "mma", "mma"),
     (1, 112, torch.bfloat16, "split", "tile"),
     (1, 160, torch.bfloat16, "split", "tile"),
     (ca.SPLIT_MAX_TQ, 64, torch.bfloat16, "split", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 64, torch.bfloat16, "tile", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 128, torch.bfloat16, "tile", "tile"),
-    (ca.SPLIT_MAX_TQ + 1, 16, torch.bfloat16, "mma", "mma"),
+    (ca.SPLIT_MAX_TQ + 1, 16, torch.bfloat16, "head", "head"),
     (ca.SPLIT_MAX_TQ + 1, 112, torch.bfloat16, "tile", "tile"),
     (ca.SPLIT_MAX_TQ + 1, 160, torch.bfloat16, "tile", "tile"),
     (1500, 112, torch.bfloat16, "tile", "tile"),
@@ -320,9 +333,171 @@ def test_every_config_has_a_route(name, smoke):
         q, k, v, out = _meta(1, cfg.n_heads, tq, 256, d, cfg.torch_dtype)
         fwd, bwd = _plans(q, k, v, out, True)
         assert fwd in ca.ROUTES and bwd in ca.BWD_ROUTES
+        assert "head" not in (fwd, bwd)  # 256 keys: past its limit
         if cfg.torch_dtype == torch.bfloat16:
             assert fwd == ("split" if tq <= ca.SPLIT_MAX_TQ else
                            "tile" if d in ca.TILE_HEAD_DIMS else "mma")
+        else:
+            assert (fwd, bwd) == ("simt", "simt")
+
+
+# ---------------------------------------------------------------------------
+# the head route: every attention of the smoke configs, and its limits
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's [train-small] batch and training length (every float32
+#: smoke config), and its [train-ssm] Jamba run's (the smoke config in
+#: bfloat16)
+SMOKE_TRAIN = dict(batch=2, seq_len=16)
+JAMBA_BF16_TRAIN = dict(batch=2, seq_len=64)
+
+
+def _attention_shapes(cfg, batch, seq_len):
+    """The (q shape, k shape, dtype) of every chunked attention a training
+    step of ``cfg``'s model runs, recorded at the entry (forward, and the
+    checkpoint's recompute, through autograd on the CPU; stub memory for
+    the vlm and encdec families), and the one-query decode of each (Tq =
+    1 against the same keys)."""
+    import types
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import value_and_grad
+    seen = set()
+
+    def record(q, k, v, **kw):
+        seen.add((tuple(q.shape), tuple(k.shape), q.dtype))
+        return ca.chunked_attention(q, k, v, **kw)
+
+    model = build_model(cfg, "spec")
+    params = model.init(torch.Generator().manual_seed(3), "cpu")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                  global_batch=batch))
+    b = {n: torch.from_numpy(a) for n, a in data.batch_at(0).items()}
+    if cfg.family in ("vlm", "encdec"):
+        n = cfg.enc_len if cfg.family == "encdec" else cfg.n_patches
+        b["frames" if cfg.family == "encdec" else "patches"] = torch.randn(
+            (batch, n, cfg.d_model),
+            generator=torch.Generator().manual_seed(4)).to(cfg.torch_dtype)
+    saved = layers.attention
+    layers.attention = types.SimpleNamespace(chunked_attention=record)
+    try:
+        value_and_grad(model, params, b)
+    finally:
+        layers.attention = saved
+    decode = {((qs[0], qs[1], 1, qs[3]), ks, dt) for qs, ks, dt in seen}
+    return sorted(seen | decode, key=str)
+
+
+def _smoke_cases():
+    """Every smoke config with attention in float32 at [train-small]'s
+    length, and Jamba's in bfloat16 at [train-ssm]'s."""
+    cases = [(n, "float32", SMOKE_TRAIN) for n in _config_names()
+             if not configs.get(n).attention_free]
+    return cases + [("jamba_1_5_large_398b", "bfloat16", JAMBA_BF16_TRAIN)]
+
+
+@pytest.mark.parametrize("name,dtype,train", _smoke_cases())
+def test_smoke_attention_plans_to_head(name, dtype, train):
+    """Self attention at the training length, the encoder, cross attention
+    and each one-query decode of a smoke config: every shape its model
+    gives the entry plans to ``head``, forward and backward."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.smoke(configs.get(name)), dtype=dtype)
+    shapes = _attention_shapes(cfg, **train)
+    assert shapes and {dt for _, _, dt in shapes} == {cfg.torch_dtype}
+    tq = {qs[2] for qs, _, _ in shapes}
+    assert {1, train["seq_len"]} <= tq, tq
+    if cfg.family == "encdec":
+        assert any(ks[2] == cfg.enc_len for _, ks, _ in shapes)
+    if cfg.family == "vlm":
+        assert any(ks[2] == cfg.n_patches for _, ks, _ in shapes)
+    for qs, ks, dt in shapes:
+        assert qs[3] == ca.HEAD_D
+        q, k, v = (torch.empty(s, dtype=dt, device="meta")
+                   for s in (qs, ks, ks))
+        for causal in (False, True):
+            assert _plans(q, k, v, q, causal) == ("head", "head"), (qs, ks)
+
+
+#: (Tq, Tk, d, dtype) past the head route's limits -> forward and
+#: backward routes, as without it
+PAST_HEAD = [
+    (ca.HEAD_MAX_T + 1, 16, 16, torch.float32, "simt", "simt"),
+    (16, ca.HEAD_MAX_T + 1, 16, torch.float32, "simt", "simt"),
+    (ca.HEAD_MAX_T + 1, ca.HEAD_MAX_T + 1, 16, torch.float32, "simt",
+     "simt"),
+    (ca.HEAD_MAX_T + 1, 16, 16, torch.bfloat16, "mma", "mma"),
+    (16, ca.HEAD_MAX_T + 1, 16, torch.bfloat16, "mma", "mma"),
+    (1, ca.HEAD_MAX_T + 1, 16, torch.bfloat16, "split", "mma"),
+    (16, 16, 64, torch.float32, "simt", "simt"),
+    (16, 16, 64, torch.bfloat16, "tile", "tile"),
+    (1, 16, 64, torch.bfloat16, "split", "tile"),
+    (16, 16, 112, torch.bfloat16, "tile", "tile"),
+    (16, 16, 128, torch.float32, "simt", "simt"),
+    (1, 16, 160, torch.bfloat16, "split", "tile"),
+]
+
+
+@pytest.mark.parametrize("tq,tk,d,dtype,fwd,bwd", PAST_HEAD)
+def test_plan_past_the_head_limits(tq, tk, d, dtype, fwd, bwd):
+    """One query or key past :data:`HEAD_MAX_T`, or a width other than
+    :data:`HEAD_D`, takes the route it took before the head route."""
+    q, k, v, out = _meta(2, 4, tq, tk, d, dtype)
+    for causal, q_offset in ((False, 0), (True, 37)):
+        assert _plans(q, k, v, out, causal, q_offset) == (fwd, bwd)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out"])
+def test_plan_sends_an_unaligned_head_call_elsewhere(which):
+    """The head route's bulk copies need 16-byte aligned bases: an
+    unaligned q, k or v sends the forward to mma, any unaligned tensor
+    the backward."""
+    shapes = dict(q=(1, 2, 16, 16), k=(1, 2, 9, 16), v=(1, 2, 9, 16),
+                  out=(1, 2, 16, 16))
+    ts = {n: (_unaligned(s) if n == which else
+              torch.zeros(s, dtype=torch.bfloat16))
+          for n, s in shapes.items()}
+    assert _plans(ts["q"], ts["k"], ts["v"], ts["out"], True) == (
+        "head" if which == "out" else "mma", "mma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_smem_within_the_limit(dtype):
+    """Every head up to :data:`HEAD_MAX_T` queries and keys fits the 48 KB
+    a block takes without an opt-in, so the limit on shared memory never
+    narrows the route's shapes; it grows with both lengths."""
+    worst = 0
+    for tq in range(ca.HEAD_MAX_T + 1):
+        for tk in range(1, ca.HEAD_MAX_T + 1):
+            n = ca.head_smem_bytes(tq, tk, ca.HEAD_D, dtype)
+            assert n <= ca.HEAD_SMEM_LIMIT, (tq, tk, n)
+            assert n >= ca.head_smem_bytes(max(tq - 1, 0), tk, ca.HEAD_D,
+                                           dtype)
+            worst = max(worst, n)
+    assert worst == ca.head_smem_bytes(ca.HEAD_MAX_T, ca.HEAD_MAX_T,
+                                       ca.HEAD_D, dtype)
+    assert ca.head_smem_bytes(ca.HEAD_MAX_T, ca.HEAD_MAX_T, ca.HEAD_D,
+                              torch.float32) == 37648
+
+
+def test_head_limits_are_the_kernel_source():
+    """The module's head width, limit on queries and keys, and limit on
+    shared memory are ``csrc/chunked_attention_head.cu``'s, which refuses
+    what is past them."""
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.SRC_DIR / "chunked_attention_head.cu").read_text()
+
+    def const(name):
+        return eval(re.search(rf"constexpr int {name} = ([^;]+);",
+                              src).group(1))
+
+    assert const("kD") == ca.HEAD_D
+    assert const("kMaxT") == ca.HEAD_MAX_T
+    assert const("kSmemLimit") == ca.HEAD_SMEM_LIMIT
 
 
 def test_split_plan_covers_the_keys():

@@ -65,7 +65,13 @@ and a route launched at a width it is not built for raises.  The tile
 route at d 112 and 160 (whole 64-column chunks in shared memory) is
 held forward and backward at two queries and at
 Tq and Tk off every tile, and writes no column past d (outputs in
-buffers poisoned past their end).
+buffers poisoned past their end).  The ``head`` route (d 16, at most 64
+queries and keys, one block a head) is held the same way through the
+entry over Tq and Tk in {1, 2, 15, 16, 17, 24, 63, 64} in both dtypes,
+its backward also from the ``mma`` / ``simt`` forward's log-sum-exp;
+each way is one launch of one kernel (the profiler sees one kernel a
+backward), and a call past its limits raises without launching any
+route.
 
 Every test needs a CUDA device and skips without one (``cuda`` marker).
 The file imports neither jax nor ``repro``, so it runs where only the
@@ -1741,7 +1747,8 @@ def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
     """Through the layer, each call takes its planned routes (the counts
     by route move by one), and the plain loop (made to raise) is never
     reached: decode by split, prefill and training by tile at d 64, 112,
-    128 and 160, mma at d 16, simt in float32."""
+    128 and 160, mma at d 16 past 64 keys, simt in float32 at other
+    widths, head at d 16 up to 64 queries and keys in both dtypes."""
     from repro_torch.kernels import chunked_attention as ca
     from repro_torch.models import layers
 
@@ -1749,7 +1756,10 @@ def test_cuda_chunked_attention_routes_follow_the_plan(cuda, monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain loop")
 
     monkeypatch.setattr(ref, "chunked_attention", refuse)
-    cases = [(torch.bfloat16, 1, 300, 64, "split", "tile"),
+    cases = [(torch.float32, 16, 24, 16, "head", "head"),
+             (torch.bfloat16, 64, 64, 16, "head", "head"),
+             (torch.bfloat16, 1, 24, 16, "head", "head"),
+             (torch.bfloat16, 1, 300, 64, "split", "tile"),
              (torch.bfloat16, 1, 300, 160, "split", "tile"),
              (torch.bfloat16, 200, 300, 128, "tile", "tile"),
              (torch.bfloat16, 200, 300, 112, "tile", "tile"),
@@ -1854,3 +1864,135 @@ def test_cuda_chunked_attention_tile_stores_only_true_columns(cuda, d):
     _attn_allow([out], want, loop, torch.bfloat16, False)
     want, loop = _want(q, k, v, dout, True, 5, True)
     _attn_allow([dq, dk, dv], want, loop, torch.bfloat16, True)
+
+
+# ---------------------------------------------------------------------------
+# the head route: d 16, at most 64 queries and keys, one block a head
+# ---------------------------------------------------------------------------
+
+#: Tq and Tk of the head route's sweep: one, a 16-row tile and either side
+#: of it, the smoke configs' encoder length, the limit and one under it
+HEAD_T = (1, 2, 15, 16, 17, 24, 63, 64)
+
+
+@pytest.mark.parametrize("causal,q_offset", ATTN_MASKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chunked_attention_head_matches_plain(cuda, dtype, causal,
+                                                   q_offset):
+    """Through the entry, every Tq of ``HEAD_T`` against every Tk takes the
+    ``head`` route, forward and backward (one launch each, counted to it),
+    and holds the plain loop: the output, the log-sum-exp within 1e-4 of
+    the float32 loop's and the gradients within the allowance
+    (``_attn_allow``); two runs bitwise equal.  Its backward from the
+    ``mma`` / ``simt`` forward's output and log-sum-exp holds the same."""
+    from repro_torch.kernels import chunked_attention as ca
+    for tq in HEAD_T:
+        for tk in HEAD_T:
+            q, k, v, dout = _attn_case(cuda, dtype, tq, tk, 16,
+                                       seed=7 * tq + tk)
+            fwd = dict(ca.chunked_attention.route_launches)
+            bwd = dict(ca.chunked_attention.bwd_route_launches)
+            got = _attn_through(ca.chunked_attention, q, k, v, dout, causal,
+                                q_offset)
+            again = _attn_through(ca.chunked_attention, q, k, v, dout,
+                                  causal, q_offset)
+            for counts, was in ((ca.chunked_attention.route_launches, fwd),
+                                (ca.chunked_attention.bwd_route_launches,
+                                 bwd)):
+                assert {r: counts[r] - was[r] for r in counts} == {
+                    r: 2 * (r == "head") for r in counts}, (tq, tk)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            want, loop = _want(q, k, v, dout, causal, q_offset, False)
+            _attn_allow(got[:1], want, loop, dtype, False)
+            want, loop = _want(q, k, v, dout, causal, q_offset, True)
+            _attn_allow(got[1:], want, loop, dtype, True)
+            out, lse = ca.head_fwd(q, k, v, causal, q_offset)
+            _, wl = ref.chunked_attention(q.float(), k.float(), v.float(),
+                                          causal=causal, q_offset=q_offset,
+                                          return_lse=True)
+            assert (lse - wl).abs().max().item() <= 1e-4 * max(
+                1.0, wl.abs().max().item()), (tq, tk)
+            o2, l2 = ca.mma_fwd(q, k, v, causal, q_offset)
+            _attn_allow(ca.head_bwd(q, k, v, o2, dout, l2, causal, q_offset),
+                        want, loop, dtype, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chunked_attention_head_is_one_launch(cuda, dtype):
+    """Through the layer at a smoke shape, a forward and a backward are
+    one launch each, both counted to ``head``, and no other route moves;
+    the backward needs no workspace: it allocates only dq, dk and dv."""
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.models import layers
+    q, k, v, dout = _attn_case(cuda, dtype, 16, 24, 16)
+    before = (ca.chunked_attention.launches,
+              ca.chunked_attention.bwd_launches,
+              dict(ca.chunked_attention.route_launches),
+              dict(ca.chunked_attention.bwd_route_launches))
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    layers.chunked_attention(*xs, causal=True, q_offset=3).backward(dout)
+    assert (ca.chunked_attention.launches - before[0],
+            ca.chunked_attention.bwd_launches - before[1]) == (1, 1)
+    for counts, was in zip((ca.chunked_attention.route_launches,
+                            ca.chunked_attention.bwd_route_launches),
+                           before[2:]):
+        assert {r: counts[r] - was[r] for r in counts} == {
+            r: int(r == "head") for r in counts}
+    out, lse = ca.head_fwd(q, k, v, True, 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = ca.head_bwd(q, k, v, out, dout, lse, True, 3)
+    torch.cuda.synchronize()
+    kept = sum(g.numel() * g.element_size() for g in grads)
+    assert torch.cuda.max_memory_allocated() - base == kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chunked_attention_head_backward_is_one_kernel(cuda, dtype):
+    """The profiler sees only the route's own kernel on the device over
+    five ``head`` backward calls (and five forward ones), at most one a
+    call: D, dK, dV and dQ in one block, no delta kernel, no copy.  (A
+    trace of such calls can miss a kernel now and then, so the count is
+    held from above.)"""
+    from repro_torch.kernels import chunked_attention as ca
+    from torch.autograd import DeviceType
+    q, k, v, dout = _attn_case(cuda, dtype, 64, 64, 16)
+    out, lse = ca.head_fwd(q, k, v, True, 0)
+    ca.head_bwd(q, k, v, out, dout, lse, True, 0)
+    torch.cuda.synchronize()
+    for call, name in ((lambda: ca.head_bwd(q, k, v, out, dout, lse, True,
+                                            0), "attn_head_bwd_kernel"),
+                       (lambda: ca.head_fwd(q, k, v, True, 0),
+                        "attn_head_fwd_kernel")):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        assert 1 <= len(kernels) <= 5, kernels
+        assert all(name in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("tq,tk,d", [(65, 16, 16), (16, 65, 16),
+                                     (16, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_chunked_attention_head_refuses_past_its_limits(cuda, dtype,
+                                                             tq, tk, d):
+    """A CUDA call sent to ``head`` past 64 queries or keys, or at another
+    width, raises, forward and backward, and no route launches: nothing
+    falls back to another route or to the loop."""
+    from repro_torch.kernels import chunked_attention as ca
+    q, k, v, dout = _attn_case(cuda, dtype, tq, tk, d)
+    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=cuda)
+    before = (dict(ca.chunked_attention.route_launches),
+              dict(ca.chunked_attention.bwd_route_launches))
+    with pytest.raises(RuntimeError):
+        ca.head_fwd(q, k, v, True, 0)
+    with pytest.raises(RuntimeError):
+        ca.head_bwd(q, k, v, q, dout, lse, True, 0)
+    assert (ca.chunked_attention.route_launches,
+            ca.chunked_attention.bwd_route_launches) == before
