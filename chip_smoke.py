@@ -87,7 +87,11 @@ decay regimes, with and without a cotangent of the last state: all six gradients
 through the bf16 loop and ``SCAN_GRAD_F32_TOL`` of the loop in float32;
 then at B = 2, T = 2048 the new route and the step pair on the same
 inputs, each timed beside the loop, its bound and the step-serial bound,
-with the workspace it allocates.  ``[attn]`` (the fourteenth slice)
+with the workspace it allocates.  The step pairs (the nineteenth slice:
+unit boundaries kept, each unit walked back alone, fixed-order sums) are
+also swept through autograd on what the chunked routes refuse (T = 1,
+unaligned tensors, Mamba's widths off the vector) and run twice on the
+same inputs, bitwise.  ``[attn]`` (the fourteenth slice)
 holds the chunked-attention kernels (``csrc/chunked_attention.cu``, the
 reference's ``lax.scan`` over key chunks) to their plain loop: an edge
 sweep of float32 and bf16, head widths 16, 64 and 128, causal and not,
@@ -1589,10 +1593,19 @@ SCAN_SWEEP_T_F32 = (2, 17, 65, 2048)
 #: batch and tokens of ``[train-small]``'s steps (every config's float32
 #: smoke variant)
 TRAIN_SMALL = dict(batch=2, seq_len=16)
-#: the speed-up over the step routes below which [scan] prints a note:
-#: forward (RWKV-6, Mamba) and backward, by dtype
+#: the speed-up of the forward chunked routes over the step kernels below
+#: which [scan] prints a note (RWKV-6, Mamba)
 SCAN_FWD_GAIN = {"rwkv": 3.0, "mamba": 1.8}
-SCAN_BWD_GAIN = {torch.bfloat16: 5.0, torch.float32: 4.0}
+#: the share of a workspace of every step's float32 state above which
+#: [scan] prints a note on a backward, by route: the chunked routes, the
+#: step pairs
+SCAN_BWD_WS_SHARE = {"chunked": 1 / 16, "chunk": 1 / 16, "step": 1 / 8}
+#: the step pairs' edge sweep: (B, T, width, unaligned) of each kind, at
+#: full width (Mamba's also off the 16-byte vector in both dtypes)
+STEP_BWD_EDGES = {"rwkv": [(2, 1, 4096, False), (2, 17, 4096, True),
+                           (2, 65, 4096, True)],
+                  "mamba": [(2, 1, 8192, False), (2, 17, 8190, False),
+                            (2, 65, 8192, True), (2, 65, 8190, False)]}
 
 
 def _scan_counters():
@@ -1795,12 +1808,14 @@ def _scan_cots(s, y, seed):
     return w_s, torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
 
 
-def _scan_outs_grads(fn, args, seed):
+def _scan_outs_grads(fn, args, seed, unaligned=False):
     """``fn``'s (last state, y) and the gradients of all six inputs of its
     scan from the same forward, given seeded cotangents of y: with a
     seeded cotangent of the last state, then without one (an input
-    nothing reaches gets zeros)."""
-    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    nothing reaches gets zeros).  ``unaligned``: the inputs one element
+    off the 16-byte boundary."""
+    xs = [(_unaligned(a.detach()) if unaligned else a.detach().clone()
+           ).requires_grad_(True) for a in args]
     s, y = fn(*xs)
     w_s, w_y = _scan_cots(s, y, seed)
     out = []
@@ -2061,8 +2076,6 @@ def _scan_backward(kind, k, gen, clock, dtype=torch.bfloat16) -> dict:
                           sweep_worst_share=worst)
     out["step"].update(max_abs_err=max(errs_step),
                        grad_max_abs_err=errs_step)
-    del ds, dy, args
-    _free()
     new, step = out[route], out["step"]
     print(f"[scan] {name} backward {label} B=2 T=2048 width={width}: route "
           f"{route} max abs err vs autograd through the {label} loop "
@@ -2090,19 +2103,113 @@ def _scan_backward(kind, k, gen, clock, dtype=torch.bfloat16) -> dict:
               + f" ({smi()})")
     gain = step["ms"] / new["ms"]
     share = new["workspace_bytes"] / step["workspace_bytes"]
-    new.update(step_ratio=gain, workspace_share_of_step=share)
+    # every step's float32 state: the workspace of a pair that kept them
+    every = 2 * 2048 * width * (SCAN_HD if kind == "rwkv" else SCAN_N) * 4
+    new.update(step_ratio=gain, workspace_share_of_step=share,
+               workspace_share_of_every_state=new["workspace_bytes"] / every)
+    step.update(workspace_share_of_every_state=step["workspace_bytes"]
+                / every, every_state_bytes=every,
+                bitwise_repeat=_bitwise_repeat(k["bwd_step"], *args, ds, dy))
     print(f"[scan] {name} backward {label} B=2 T=2048: route {route} "
           f"{new['ms'] * 1e3:.2f} us, step pair {step['ms'] * 1e3:.2f} us on "
-          f"the same inputs, {gain:.2f}x; workspace "
+          f"the same inputs ({gain:.2f}x the route's time); workspace "
           f"{new['workspace_bytes'] / 1e9:.4f} GB against "
-          f"{step['workspace_bytes'] / 1e9:.4f} GB ({share:.4f}); the two "
-          f"routes' gradients agree within {max(pair):.3g}; "
+          f"{step['workspace_bytes'] / 1e9:.4f} GB, shares of every step's "
+          f"state ({every / 1e9:.4f} GB) "
+          f"{new['workspace_share_of_every_state']:.4f} and "
+          f"{step['workspace_share_of_every_state']:.4f}; the two routes' "
+          f"gradients agree within {max(pair):.3g}; the step pair twice "
+          f"on the same inputs bitwise {step['bitwise_repeat']}; "
           f"{time.perf_counter() - t1:.1f} s")
-    if gain < SCAN_BWD_GAIN[dtype] or 16 * share > 1:
-        print(f"[scan] {name} backward {label}: route {route} short of "
-              f"{SCAN_BWD_GAIN[dtype]:g}x the step pair's speed "
-              f"({gain:.2f}x) or a sixteenth of its workspace ({share:.4f})")
+    if not step["bitwise_repeat"]:
+        fail(f"scan {kind} {label} backward step pair: two runs differ")
+    for r, rec in ((route, new), ("step", step)):
+        if rec["workspace_share_of_every_state"] > SCAN_BWD_WS_SHARE[r]:
+            print(f"[scan] {name} backward {label}: route {r}'s workspace "
+                  f"past {SCAN_BWD_WS_SHARE[r]:.4g} of every step's state")
+    del ds, dy, args
+    _free()
     return out
+
+
+def _bitwise_repeat(fn, *args) -> bool:
+    """``fn(*args)`` twice: every output the same bit for bit."""
+    first = fn(*args)
+    return all(torch.equal(a, b) for a, b in zip(first, fn(*args)))
+
+
+def _step_bwd_sweep(kind, k, gen) -> dict:
+    """The step pair through autograd on what the chunked routes refuse
+    (:data:`STEP_BWD_EDGES`: T = 1, tensors one element off the 16-byte
+    boundary, Mamba's widths off the vector), in both dtypes, every decay
+    regime, with and without a cotangent of the last state: the plan
+    takes ``step``, each backward launches it once, all six gradients
+    finite and within ``SCAN_GRAD_TOL`` of autograd through the loop in
+    the same dtype (bf16 also within ``SCAN_GRAD_F32_TOL`` of the loop in
+    float32 on the same values, plus the bf16 loop's own distance from
+    it: the pair keeps the bf16 loop's roundings), and the entry twice on
+    the same inputs bitwise.  Returns the worst shares of the largest by
+    dtype and the cases run."""
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).removeprefix("torch.")
+        w_loop = w_f32 = 0.0
+        for regime in SCAN_REGIMES:
+            for b, t, width, unal in STEP_BWD_EDGES[kind]:
+                args = _scan_args(kind, b, t, width, dtype, gen, regime)
+                if unal:
+                    args = [_unaligned(a) for a in args]
+                tag = (f"scan {kind} step backward {label} {regime} B={b} "
+                       f"T={t} width={width}{' unaligned' if unal else ''}")
+                with torch.no_grad():
+                    s, y = k["fn"](*args)
+                dy = torch.zeros_like(y)
+                dy = _unaligned(dy) if unal else dy
+                for ds in (s, None):
+                    if k["bwd_plan"](*args, ds, dy) != "step":
+                        fail(f"{tag}: plan {k['bwd_plan'](*args, ds, dy)}")
+                w_s, w_y = _scan_cots(s, y, 7 + t)
+                if unal:
+                    w_s, w_y = _unaligned(w_s), _unaligned(w_y)
+                if not _bitwise_repeat(k["bwd_step"], *args, w_s, w_y):
+                    fail(f"{tag}: two runs differ")
+                del s, y, dy, w_s, w_y
+                n0 = k["fn"].bwd_route_launches["step"]
+                got = _scan_outs_grads(k["fn"], args, 7 + t, unal)[1]
+                if k["fn"].bwd_route_launches["step"] != n0 + 2:
+                    fail(f"{tag}: the step pair launched "
+                         f"{k['fn'].bwd_route_launches['step'] - n0} times, "
+                         f"want 2")
+                loop = _scan_outs_grads(k["plain"], args, 7 + t)[1]
+                f32 = (_scan_outs_grads(k["plain"],
+                                        [a.float() for a in args], 7 + t)[1]
+                       if dtype == torch.bfloat16 else None)
+                for j, (last, gs) in enumerate(zip(("with", "without"),
+                                                   got)):
+                    for i, (g, w) in enumerate(zip(gs, loop[j])):
+                        err = _scan_err(f"{tag} {last} ds, gradient {i}",
+                                        g.float(), w.float(),
+                                        SCAN_GRAD_TOL[dtype])
+                        w_loop = max(w_loop, err / max(
+                            w.float().abs().max().item(), 1e-30))
+                        if f32 is None:
+                            continue
+                        c = f32[j][i]
+                        own = (w.float() - c).abs().max().item()
+                        err = (g.float() - c).abs().max().item()
+                        big = max(c.abs().max().item(), 1e-30)
+                        if not torch.isfinite(g.float()).all() or \
+                                err > SCAN_GRAD_F32_TOL * big + own:
+                            fail(f"{tag} {last} ds, gradient {i}: {err} from "
+                                 f"the float32 loop, past "
+                                 f"{SCAN_GRAD_F32_TOL} of {big} and the bf16 "
+                                 f"loop's own {own}")
+                        w_f32 = max(w_f32, (err - own) / big)
+                n += 1
+                del got, loop, f32, args
+            _free()
+        worst[label] = (w_loop, w_f32)
+    return {"worst_share": worst, "cases": n}
 
 
 def _f32_main_shapes(kind) -> list:
@@ -2457,6 +2564,21 @@ def phase_scan() -> list:
         back_f[k["bwd_route"]].update(
             main_path_sweep=f32_main[kind],
             main_path_max_abs_err=max(w["route_abs"][2] for w in main_w))
+        t1 = time.perf_counter()
+        edges = _step_bwd_sweep(kind, k, gen)
+        back["step"]["edge_sweep"] = back_f["step"]["edge_sweep"] = edges
+        print(f"[scan] {name} step pair, edge sweep ({edges['cases']} cases: "
+              f"(B, T, width, unaligned) in {STEP_BWD_EDGES[kind]}, both "
+              f"dtypes, three decay regimes, with and without a cotangent of "
+              f"the last state): the plan takes it, one launch a backward, "
+              f"two runs bitwise, all six gradients finite and within "
+              f"{SCAN_GRAD_TOL[f32]} (float32) / {SCAN_GRAD_TOL[bf16]} (bf16) "
+              f"of autograd through the loop; worst shares of the largest "
+              f"(against the same dtype's loop / bf16 past the bf16 loop's "
+              f"own distance from the float32 loop): " + "; ".join(
+                  f"{d} {a:.3g} / {b:.3g}"
+                  for d, (a, b) in edges["worst_share"].items())
+              + f" ({time.perf_counter() - t1:.1f} s)")
         src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
         bwd_route = k["bwd_route"]
         records += [

@@ -112,14 +112,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # the same at T = 1: batch, D, N
         **{f"mamba_scan_decode_{t}": (_PTR,) * 8 + (_I64,) * 3 + (_PTR,)
            for t in ("f32", "bf16")},
-        # u, delta, B, C, a, s0, dy, ds, ws, du, ddelta, dB, dC, da, ds0;
-        # batch, T, D, N; stream
-        **{f"mamba_scan_bwd_{t}": (_PTR,) * 15 + (_I64,) * 4 + (_PTR,)
-           for t in ("f32", "bf16")},
-        # u, delta, B, C, a, s0, dy, ds, ws, du, sums (dB, dC, ddelta), da,
-        # ds0; batch, T, D, N; stream
-        **{f"mamba_scan_bwd_chunk_{t}": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,)
-           for t in ("f32", "bf16")},
+        # the step pair and the chunk route's backward: u, delta, B, C, a,
+        # s0, dy, ds, ws, du, sums (dB, dC, ddelta), da, ds0; batch, T, D,
+        # N; stream
+        **{f"mamba_scan_bwd_{route}{t}": (_PTR,) * 13 + (_I64,) * 4 + (_PTR,)
+           for route in ("", "chunk_") for t in ("f32", "bf16")},
     },
     "chunked_attention_sm90": {
         # q, k, v, out, lse; B*H, tq, tk, d, causal, q_offset; stream

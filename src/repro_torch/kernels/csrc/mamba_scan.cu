@@ -23,10 +23,20 @@
 // __fadd_rn keep the plain version's separate roundings, so the state is
 // bitwise the plain version's on the card.
 //
-// Backward: the forward runs again and writes s_t of every step into a
-// float32 workspace (B * T * D * N * 4 bytes: 2.1 GB at Jamba's width,
-// B = 2, T = 2048); then a second kernel walks time backward with the
-// state's cotangent h in registers (s_{t-1} is loaded a step ahead):
+// Backward (the `step` pair, for what the chunk route refuses: T = 1,
+// widths off the 16-byte vector, unaligned tensors), parallel in T, with
+// no workspace of every step's state: the chunk backward route's passes
+// (below) with this forward's arithmetic.  The state's walk forward needs
+// no cotangent and the cotangent's walk back, h <- exp(delta_t a) (h +
+// dy_t C_t), needs no state, and every (channel, n) walks alone, so
+// `mamba_step_bound_kernel` walks both side by side (a thread per
+// channel and quarter of the state) and keeps the state entering and the
+// cotangent leaving every unit of 32 steps (with the partial sums 0.219
+// GB at Jamba's width, B = 2, T = 2048, where every step's state would
+// be 2.1 GB); then `mamba_step_grad_kernel`, a block per
+// (256 channels, unit, batch row), rebuilds each unit's states from the
+// one entering it, bit for bit the loop's, and walks them back from the
+// cotangent leaving it:
 //
 //   h     += dy_t C_t                dC_t[n] += dy_t round(s_t[n])
 //   dx     = sum_n h[n] B_t[n]       dB_t[n] += h[n] x_t
@@ -34,18 +44,22 @@
 //   da[n] += g[n] delta_t            ddelta_t += sum_n g[n] a[n] + dx u_t
 //   du_t   = dx delta_t              h[n]    = h[n] exp(delta_t a[n])
 //
-// dB, dC and ddelta sum over channels: a warp's 2N = 32 values go through a
-// butterfly reduce-scatter of 31 shuffles (ddelta's one value 5 more), the
-// warps meet in shared memory and each block adds its sums into float32
-// accumulators with 33 atomic adds a step; da sums over time in registers
-// and over the batch by atomic adds.  Gradients are float32 throughout
-// and round once to the inputs' dtypes.
+// dB, dC and ddelta sum over channels through shuffles into a warp's slot
+// of shared memory, then per block; da over the unit in registers; the
+// partial sums meet in colsum_kernel in a fixed order.  Nothing is added
+// atomically, so two runs give the same gradients bit for bit.
+// Gradients are float32 throughout and round once to the inputs' dtypes.
 //
 // Bound: 7 float32 operations a state value a step (an exp counted as
 // one) on the CUDA cores (67 TFLOP/s): at Jamba prefill (B = 8, T = 512,
 // D = 8192, N = 16) 3.8 GFLOP, 56 us, against 143 MB of inputs and
 // outputs (43 us at 3.35 TB/s).  B * D / 128 blocks run (512 at Jamba
-// prefill), each serial in T, so a step's latency sets the time.
+// prefill), each serial in T, so a step's latency sets the time.  The
+// backward: 22 operations a state value a step (the reverse step's and
+// the recomputed state's), at B = 2, T = 2048, D = 8192 11.8 GFLOP,
+// 176 us; the step pair's passes walk the state three times more (the
+// boundary pass, the checkpoints, the stretches) and the cotangent once,
+// each walk an expf a state value a step.
 //
 // Two more forward routes (repro_torch.kernels.scan.mamba_plan picks one):
 //
@@ -87,10 +101,9 @@
 // route's 56 us counted an exp as one float32 operation.
 //
 // The `chunk` backward route (the chunk forward route's inputs;
-// `mamba_scan_bwd_chunk_f32` / `_bf16`, picked by scan.mamba_bwd_plan)
-// replaces the
-// step pair's workspace of every step's state (2.1 GB at Jamba's width,
-// B = 2, T = 2048) and its walk over all T steps in B * D / 128 blocks:
+// `mamba_scan_bwd_chunk_f32` / `_bf16`, picked by scan.mamba_bwd_plan),
+// parallel in T in three launches (the step pair runs the same passes
+// with the step forward's arithmetic and scalar loads):
 //   1. `mamba_bound_kernel`, a thread per (batch, channel, quarter of the
 //      state), walks the state forward and the cotangent back and keeps
 //      both every 64 steps (67 MB at that shape);
@@ -116,7 +129,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;
 
 // Stage steps [t0, t0 + len) of delta, B and C (shared by the row) and
@@ -145,15 +157,13 @@ __device__ __forceinline__ void stage(const T* __restrict__ delta,
       sx[c][tid] = to_f(per_channel[(b * n_t + t0 + c) * n_d + d]);
 }
 
-// OUT: write y and the last state; SAVE: write s_t of every step into
-// ws (B, T, D, N)
-template <typename T, int N, bool OUT, bool SAVE>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 mamba_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                  const T* __restrict__ bm, const T* __restrict__ cm,
                  const float* __restrict__ a, const float* __restrict__ s0,
-                 T* __restrict__ y, float* __restrict__ s_out,
-                 float* __restrict__ ws, int64_t n_t, int64_t n_d) {
+                 T* __restrict__ y, float* __restrict__ s_out, int64_t n_t,
+                 int64_t n_d) {
   __shared__ float sdt[kChunk], sb[kChunk][N], sc[kChunk][N];
   __shared__ float su[kChunk][kThreads];
   const int tid = threadIdx.x;
@@ -179,122 +189,14 @@ mamba_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
       for (int n = 0; n < N; ++n) {
         const float e = expf(__fmul_rn(dt, an[n]));
         s[n] = __fadd_rn(__fmul_rn(e, s[n]), __fmul_rn(x, sb[c][n]));
-        if (OUT) acc = fmaf(rnd<T>(s[n]), sc[c][n], acc);
+        acc = fmaf(rnd<T>(s[n]), sc[c][n], acc);
       }
-      const int64_t row = (b * n_t + t0 + c) * n_d + d;
-      if (SAVE) {
-#pragma unroll
-        for (int n = 0; n < N; ++n) ws[row * N + n] = s[n];
-      }
-      if (OUT) y[row] = from_f<T>(acc);
-    }
-  }
-  if (OUT && live) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) s_out[(b * n_d + d) * N + n] = s[n];
-  }
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-mamba_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
-                 const T* __restrict__ bm, const T* __restrict__ cm,
-                 const float* __restrict__ a, const float* __restrict__ s0,
-                 const float* __restrict__ ws, const T* __restrict__ dy,
-                 const float* __restrict__ ds, T* __restrict__ du,
-                 float* __restrict__ ddelta, float* __restrict__ dbm,
-                 float* __restrict__ dcm, float* __restrict__ da,
-                 float* __restrict__ ds0, int64_t n_t, int64_t n_d) {
-  static_assert(2 * N == 32, "the reduce-scatter takes dB and dC as 32 values");
-  __shared__ float sdt[kChunk], sb[kChunk][N], sc[kChunk][N];
-  __shared__ float su[kChunk][kThreads], sdy[kChunk][kThreads];
-  // by step parity: each warp's dC, dB (2N values) and ddelta
-  __shared__ float red[2][kWarps][2 * N + 1];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t b = blockIdx.y, d = blockIdx.x * int64_t{kThreads} + tid;
-  const bool live = d < n_d;
-  float h[N], an[N], gacc[N], st[N], sp[N];
-  const auto state = [&](int64_t t, int n) {  // s_t; s_{-1} is s0
-    return t >= 0 ? ws[((b * n_t + t) * n_d + d) * N + n]
-                  : s0[(b * n_d + d) * N + n];
-  };
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    h[n] = live && ds ? ds[(b * n_d + d) * N + n] : 0.f;
-    an[n] = live ? a[d * N + n] : 0.f;
-    gacc[n] = 0.f;
-    st[n] = live ? state(n_t - 1, n) : 0.f;
-    sp[n] = live ? state(n_t - 2, n) : 0.f;
-  }
-  for (int64_t t0 = ((n_t - 1) / kChunk) * kChunk; t0 >= 0; t0 -= kChunk) {
-    const int len = static_cast<int>(n_t - t0 < kChunk ? n_t - t0 : kChunk);
-    __syncthreads();
-    stage<T, N>(delta, bm, cm, u, sdt, sb, sc, su, b, t0, len, n_t, n_d, d);
-    if (live)
-      for (int c = 0; c < len; ++c)
-        sdy[c][tid] = to_f(dy[(b * n_t + t0 + c) * n_d + d]);
-    __syncthreads();
-    for (int c = len - 1; c >= 0; --c) {
-      const int64_t t = t0 + c;
-      const int par = t & 1;
-      float p[2 * N], pdt = 0.f;
-      if (live) {
-        float nxt[N];  // s_{t-2}, for the next step
-#pragma unroll
-        for (int n = 0; n < N; ++n) nxt[n] = t >= 1 ? state(t - 2, n) : 0.f;
-        const float dt = sdt[c], uv = su[c][tid], dyv = sdy[c][tid];
-        const float x = rnd<T>(__fmul_rn(dt, uv));
-        float dx = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = fmaf(dyv, sc[c][n], h[n]);
-          p[n] = dyv * rnd<T>(st[n]);
-          dx = fmaf(h[n], sb[c][n], dx);
-          p[N + n] = h[n] * x;
-          const float e = expf(__fmul_rn(dt, an[n]));
-          const float g = h[n] * sp[n] * e;
-          gacc[n] = fmaf(g, dt, gacc[n]);
-          pdt = fmaf(g, an[n], pdt);
-          h[n] *= e;
-        }
-        pdt = fmaf(dx, uv, pdt);
-        du[(b * n_t + t) * n_d + d] = from_f<T>(dx * dt);
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          st[n] = sp[n];
-          sp[n] = nxt[n];
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < 2 * N; ++n) p[n] = 0.f;
-      }
-      const float mine = reduce_scatter<2 * N>(p, lane);
-#pragma unroll
-      for (int m = 16; m >= 1; m /= 2)
-        pdt += __shfl_xor_sync(0xffffffffu, pdt, m);
-      red[par][warp][lane] = mine;
-      if (lane == 0) red[par][warp][2 * N] = pdt;
-      __syncthreads();
-      if (tid <= 2 * N) {
-        float sum = 0.f;
-#pragma unroll
-        for (int wp = 0; wp < kWarps; ++wp) sum += red[par][wp][tid];
-        const int64_t bt = b * n_t + t;
-        if (tid < N)
-          atomicAdd(dcm + bt * N + tid, sum);
-        else if (tid < 2 * N)
-          atomicAdd(dbm + bt * N + tid - N, sum);
-        else
-          atomicAdd(ddelta + bt, sum);
-      }
+      y[(b * n_t + t0 + c) * n_d + d] = from_f<T>(acc);
     }
   }
   if (live) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      ds0[(b * n_d + d) * N + n] = h[n];
-      atomicAdd(da + d * N + n, gacc[n]);
-    }
+    for (int n = 0; n < N; ++n) s_out[(b * n_d + d) * N + n] = s[n];
   }
 }
 
@@ -904,6 +806,357 @@ mamba_grad_kernel(const T* __restrict__ u, const T* __restrict__ delta,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the step backward pair
+// ---------------------------------------------------------------------------
+//
+// The inputs the chunk route refuses (T = 1, widths off the 16-byte
+// vector, unaligned tensors): the chunk backward route's passes and
+// shapes (a thread per (channel, quarter of the state), kSub-step
+// stretches in registers) in units of kStepUnitM steps, with the step
+// forward's arithmetic and roundings (expf, x = delta u rounded to T,
+// separate products and sums; dC takes the state rounded to C's dtype, as
+// the read-out does), so that every state rebuilt is the loop's bit for
+// bit, and with scalar loads through shared memory at any width and
+// alignment.  Units of 32 steps, not the chunk route's 64: pass 2 then
+// holds half the checkpoints and runs twice the blocks (`python -m
+// repro_torch.launch.step_bwd_units` times both).
+constexpr int kStepUnitM = 32;  // steps a unit of the step pair
+
+// Pass 1, as mamba_bound_kernel (capped at two blocks an SM: uncapped,
+// ptxas takes over 170 registers and leaves one): blockIdx.z = 0 walks
+// the state forward from s0 and writes the state entering every unit into
+// ws_s;
+// blockIdx.z = 1 walks the cotangent back, h <- exp(delta_t a) (h + dy_t
+// C_t), writes the cotangent leaving every unit into ws_g and the first
+// state's gradient into ds0.  A unit's u (or dy), B (or C) and delta are
+// staged as float32, two buffers, the next unit loading into registers
+// while this one is walked.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBndThreads, 2)
+mamba_step_bound_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                        const T* __restrict__ bm, const T* __restrict__ cm,
+                        const float* __restrict__ a,
+                        const float* __restrict__ s0,
+                        const T* __restrict__ dy,
+                        const float* __restrict__ ds,
+                        float* __restrict__ ws_s, float* __restrict__ ws_g,
+                        float* __restrict__ ds0, int64_t n_t, int64_t n_d) {
+  static_assert(N == 4 * kQ, "four threads a channel");
+  constexpr int kCh = kBndThreads / (N / kQ);        // channels a block
+  constexpr int kLv = kStepUnitM * kCh / kBndThreads;  // u (dy) a thread
+  constexpr int kLw = kStepUnitM * N / kBndThreads;    // B (C) a thread
+  static_assert(kStepUnitM <= kBndThreads, "a thread a step of delta");
+  __shared__ float sdt[2][kStepUnitM];
+  __shared__ __align__(16) float sv[2][kStepUnitM][kCh];
+  __shared__ __align__(16) float sw[2][kStepUnitM][N];
+  const int tid = threadIdx.x, q = tid % (N / kQ), dl = tid / (N / kQ);
+  const int64_t b = blockIdx.y, d0 = blockIdx.x * int64_t{kCh}, d = d0 + dl;
+  const bool live = d < n_d, fwd = blockIdx.z == 0;
+  const int64_t n_u = (n_t + kStepUnitM - 1) / kStepUnitM;
+  const T* vsrc = fwd ? u : dy;
+  const T* wsrc = fwd ? bm : cm;
+  const int64_t at = (b * n_d + d) * N + q * kQ;  // (b, d, quarter)
+  float pv[kLv], pw[kLw], pdt;  // the next unit; past T and D zeros
+  const auto fetch = [&](int64_t k) {
+#pragma unroll
+    for (int i = 0; i < kLv; ++i) {
+      const int e = tid + i * kBndThreads, c = e / kCh, x = e % kCh;
+      const int64_t t = k * kStepUnitM + c;
+      pv[i] = t < n_t && d0 + x < n_d
+                  ? to_f(vsrc[(b * n_t + t) * n_d + d0 + x]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLw; ++i) {
+      const int e = tid + i * kBndThreads, c = e / N;
+      const int64_t t = k * kStepUnitM + c;
+      pw[i] = t < n_t ? to_f(wsrc[(b * n_t + t) * N + e % N]) : 0.f;
+    }
+    const int64_t t = k * kStepUnitM + tid;
+    pdt = tid < kStepUnitM && t < n_t ? to_f(delta[b * n_t + t]) : 0.f;
+  };
+  const auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kLv; ++i)
+      (&sv[buf][0][0])[tid + i * kBndThreads] = pv[i];
+#pragma unroll
+    for (int i = 0; i < kLw; ++i)
+      (&sw[buf][0][0])[tid + i * kBndThreads] = pw[i];
+    if (tid < kStepUnitM) sdt[buf][tid] = pdt;
+  };
+  float an[kQ], m[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    an[j] = live ? a[d * N + q * kQ + j] : 0.f;
+    m[j] = !live ? 0.f : fwd ? s0[at + j] : ds ? ds[at + j] : 0.f;
+  }
+  fetch(fwd ? 0 : n_u - 1);
+  put(0);
+  __syncthreads();
+  for (int64_t it = 0; it < n_u; ++it) {
+    const int64_t k = fwd ? it : n_u - 1 - it;
+    const int buf = it & 1;
+    const int len = static_cast<int>(
+        n_t - k * kStepUnitM < kStepUnitM ? n_t - k * kStepUnitM : kStepUnitM);
+    if (it + 1 < n_u) fetch(fwd ? k + 1 : k - 1);
+    if (live) {
+      float* out = (fwd ? ws_s : ws_g) + ((b * n_u + k) * n_d + d) * N +
+                   q * kQ;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) out[j] = m[j];
+      if (fwd) {
+        for (int c = 0; c < len; ++c) {
+          const float dt = sdt[buf][c];
+          const float x = rnd<T>(__fmul_rn(dt, sv[buf][c][dl]));
+          float w4[kQ];
+          lds4(w4, &sw[buf][c][q * kQ]);
+#pragma unroll
+          for (int j = 0; j < kQ; ++j)
+            m[j] = __fadd_rn(__fmul_rn(expf(__fmul_rn(dt, an[j])), m[j]),
+                             __fmul_rn(x, w4[j]));
+        }
+      } else {
+        for (int c = len - 1; c >= 0; --c) {
+          const float dt = sdt[buf][c], v = sv[buf][c][dl];
+          float w4[kQ];
+          lds4(w4, &sw[buf][c][q * kQ]);
+#pragma unroll
+          for (int j = 0; j < kQ; ++j)
+            m[j] = expf(__fmul_rn(dt, an[j])) * fmaf(v, w4[j], m[j]);
+        }
+      }
+    }
+    if (it + 1 < n_u) put(buf ^ 1);
+    __syncthreads();
+  }
+  if (!fwd && live) {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) ds0[at + j] = m[j];
+  }
+}
+
+// pass 2's shared memory (33.4 KB)
+template <int N>
+struct StepGradSm {
+  float sdt[kStepUnitM];
+  float sb[kStepUnitM][N], sc[kStepUnitM][N];  // B and C of the unit
+  // u, dy and du of a group
+  float su[kStepUnitM][kGradCh], sdy[kStepUnitM][kGradCh];
+  float sdu[kStepUnitM][kGradCh];
+  float acc[kGradThreads / 32][kStepUnitM][2 * N + 1];  // a slot a warp
+};
+
+// Pass 2, as mamba_grad_kernel (a block per (channel block of kBlkCh,
+// unit, batch), a thread per (channel of a group of 32, quarter of the
+// state), stretches of kSub steps recomputed from checkpoints, the sums
+// over channels through one reduce-scatter a step into a warp's slot of
+// shared memory, partial sums out for colsum_kernel), with the step
+// forward's arithmetic.  expf costs about eight instructions, so a
+// stretch keeps its exponentials and states in registers for the walk
+// back: two expf a state value a step here, not three (`python -m
+// repro_torch.launch.step_bwd_units` times it against recomputing them).
+// The cap of four blocks an SM holds ptxas to 128 registers (a few
+// spilled); at three it takes 168, uncapped 231 and leaves two (the
+// script times three against four).
+template <typename T, int N>
+__global__ void __launch_bounds__(kGradThreads, 4)
+mamba_step_grad_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                       const T* __restrict__ bm, const T* __restrict__ cm,
+                       const float* __restrict__ a, const T* __restrict__ dy,
+                       const float* __restrict__ ws_s,
+                       const float* __restrict__ ws_g, T* __restrict__ du,
+                       float* __restrict__ part, float* __restrict__ da_ws,
+                       int64_t n_t, int64_t n_d) {
+  static_assert(N == 4 * kQ, "four lanes a channel, eight channels a warp");
+  constexpr int kWarpsG = kGradThreads / 32;
+  constexpr int kS = 2 * N + 1;  // dB, dC (N each) and ddelta a step
+  constexpr int kCh = kGradCh;
+  constexpr int kNSub = kStepUnitM / kSub;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StepGradSm<N>& sm = *reinterpret_cast<StepGradSm<N>*>(smem_raw);
+  auto& sdt = sm.sdt;
+  auto& sb = sm.sb;
+  auto& sc = sm.sc;
+  auto& su = sm.su;
+  auto& sdy = sm.sdy;
+  auto& sdu = sm.sdu;
+  auto& acc = sm.acc;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = tid % (N / kQ), dl = tid / (N / kQ);
+  // the (dB or dC, state value) whose sum over the warp's channels this
+  // lane ends with
+  const int slot = (lane >> 4) * N + q * kQ + ((lane >> 2) & 3);
+  const int64_t b = blockIdx.z, unit = blockIdx.y;
+  const int64_t n_u = (n_t + kStepUnitM - 1) / kStepUnitM;
+  const int64_t t0 = unit * kStepUnitM;
+  const int len =
+      static_cast<int>(n_t - t0 < kStepUnitM ? n_t - t0 : kStepUnitM);
+  for (int e = tid; e < kWarpsG * kStepUnitM * kS; e += kGradThreads)
+    (&acc[0][0][0])[e] = 0.f;
+  for (int c = tid; c < kStepUnitM; c += kGradThreads)
+    sdt[c] = c < len ? to_f(delta[b * n_t + t0 + c]) : 0.f;
+  for (int e = tid; e < 2 * kStepUnitM * N; e += kGradThreads) {
+    const int which = e / (kStepUnitM * N), c = e / N % kStepUnitM;
+    const int n = e % N;
+    (which ? sc : sb)[c][n] =
+        c < len ? to_f((which ? cm : bm)[(b * n_t + t0 + c) * N + n]) : 0.f;
+  }
+  for (int64_t d0 = blockIdx.x * int64_t{kBlkCh};
+       d0 < n_d && d0 < (blockIdx.x + 1) * int64_t{kBlkCh}; d0 += kCh) {
+    const int64_t d = d0 + dl;
+    const bool live = d < n_d;
+    __syncthreads();  // the last group's readers are done
+    for (int e = tid; e < 2 * kStepUnitM * kCh; e += kGradThreads) {
+      const int which = e / (kStepUnitM * kCh), c = e / kCh % kStepUnitM;
+      const int x = e % kCh;
+      (which ? sdy : su)[c][x] =
+          c < len && d0 + x < n_d
+              ? to_f((which ? dy : u)[(b * n_t + t0 + c) * n_d + d0 + x])
+              : 0.f;
+    }
+    __syncthreads();
+    const int64_t at = ((b * n_u + unit) * n_d + d) * N + q * kQ;
+    float an[kQ], s[kQ], h[kQ], da[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      an[j] = live ? a[d * N + q * kQ + j] : 0.f;
+      s[j] = live ? ws_s[at + j] : 0.f;
+      h[j] = live ? ws_g[at + j] : 0.f;
+      da[j] = 0.f;
+    }
+    // one step forward, the step forward's roundings: s_{t-1} -> s_t,
+    // and its exp(delta_t a) into e
+    const auto step = [&](float (&v)[kQ], float (&e)[kQ], int c) {
+      const float dt = sdt[c];
+      const float x = rnd<T>(__fmul_rn(dt, su[c][dl]));
+      float bv[kQ];
+      lds4(bv, &sb[c][q * kQ]);
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        e[j] = expf(__fmul_rn(dt, an[j]));
+        v[j] = __fadd_rn(__fmul_rn(e[j], v[j]), __fmul_rn(x, bv[j]));
+      }
+    };
+    const auto walk = [&](auto whole) {
+      constexpr bool kWhole = decltype(whole)::value;
+      float ck[kNSub][kQ];  // the state entering every kSub steps
+#pragma unroll
+      for (int k = 0; k < kNSub; ++k) {
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) ck[k][j] = s[j];
+#pragma unroll
+        for (int c = k * kSub; c < (k + 1) * kSub; ++c) {
+          float e[kQ];
+          if (kWhole || c < len) step(s, e, c);
+        }
+      }
+#pragma unroll
+      for (int k = kNSub - 1; k >= 0; --k) {
+        if (!kWhole && k * kSub >= len) continue;
+        // the stretch's states: sp[c] = s_{t-1} and sp[c + 1] = s_t of its
+        // step c, and ep[c] its exp(delta_t a), so that the walk back
+        // recomputes neither
+        float sp[kSub + 1][kQ], ep[kSub][kQ];
+#pragma unroll
+        for (int c = 0; c <= kSub; ++c) {
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) sp[c][j] = c ? sp[c - 1][j] : ck[k][j];
+          if (c && (kWhole || k * kSub + c - 1 < len))
+            step(sp[c], ep[c - 1], k * kSub + c - 1);
+        }
+#pragma unroll
+        for (int c8 = kSub - 1; c8 >= 0; --c8) {
+          const int c = k * kSub + c8;
+          if (!kWhole && c >= len) continue;
+          const float dt = sdt[c], uv = su[c][dl], dyv = sdy[c][dl];
+          const float x = rnd<T>(__fmul_rn(dt, uv));
+          float bv[kQ], cv[kQ], p[2 * kQ];
+          lds4(bv, &sb[c][q * kQ]);
+          lds4(cv, &sc[c][q * kQ]);
+          float dx = 0.f, ga = 0.f;
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) {
+            const float e = ep[c8][j];
+            h[j] = fmaf(dyv, cv[j], h[j]);            // dL/ds_t
+            p[kQ + j] = dyv * rnd<T>(sp[c8 + 1][j]);  // dC
+            p[j] = h[j] * x;                          // dB
+            dx = fmaf(h[j], bv[j], dx);
+            const float g = h[j] * sp[c8][j] * e;
+            da[j] = fmaf(g, dt, da[j]);
+            ga = fmaf(g, an[j], ga);
+            h[j] *= e;
+          }
+          // dx (lanes q < 2) and sum_n g a (q >= 2) over the channel's
+          // four lanes
+          const bool hi2 = lane & 2;
+          float v = sel(hi2, ga, dx) +
+                    __shfl_xor_sync(0xffffffffu, sel(hi2, dx, ga), 2);
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          const float other = __shfl_xor_sync(0xffffffffu, v, 2);
+          // on lane q = 0: dx = v, du = dx dt, ddelta's share other + dx u
+          if (q == 0) sdu[c][dl] = v * dt;
+          float dd = sel(q == 0, fmaf(v, uv, other), 0.f);
+          dd += __shfl_xor_sync(0xffffffffu, dd, 4);
+          dd += __shfl_xor_sync(0xffffffffu, dd, 8);
+          dd += __shfl_xor_sync(0xffffffffu, dd, 16);
+          // dB and dC over the warp's eight channels (lane bits 2-4): a
+          // reduce-scatter, one of the 32 sums a lane
+          {
+            const bool hi = lane & 16;
+#pragma unroll
+            for (int x4 = 0; x4 < 4; ++x4) {
+              const float send = sel(hi, p[x4], p[x4 + 4]);
+              const float keep = sel(hi, p[x4 + 4], p[x4]);
+              p[x4] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+            }
+          }
+          {
+            const bool hi = lane & 8;
+#pragma unroll
+            for (int x2 = 0; x2 < 2; ++x2) {
+              const float send = sel(hi, p[x2], p[x2 + 2]);
+              const float keep = sel(hi, p[x2 + 2], p[x2]);
+              p[x2] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+            }
+          }
+          {
+            const bool hi = lane & 4;
+            const float send = sel(hi, p[0], p[1]);
+            const float keep = sel(hi, p[1], p[0]);
+            p[0] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+          }
+          acc[warp][c][slot] += p[0];
+          if (lane == 0) acc[warp][c][2 * N] += dd;
+        }
+      }
+    };
+    if (len == kStepUnitM) {
+      walk(std::true_type{});
+    } else {
+      walk(std::false_type{});
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) da_ws[at + j] = da[j];
+    }
+    __syncthreads();  // sdu written
+    for (int e = tid; e < len * kCh; e += kGradThreads) {
+      const int c = e / kCh, x = e % kCh;
+      if (d0 + x < n_d)
+        du[(b * n_t + t0 + c) * n_d + d0 + x] = from_f<T>(sdu[c][x]);
+    }
+  }
+  __syncthreads();
+  const int64_t n_bt = gridDim.z * n_t;
+  for (int e = tid; e < len * kS; e += kGradThreads) {
+    const int c = e / kS, x = e % kS;
+    float sum = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kWarpsG; ++wp) sum += acc[wp][c][x];
+    part[(blockIdx.x * n_bt + b * n_t + t0 + c) * kS + x] = sum;
+  }
+}
+
 template <typename T>
 int fwd(const void* u, const void* delta, const void* bm, const void* cm,
         const void* a, const void* s0, void* y, void* s_out, int64_t n_b,
@@ -911,41 +1164,76 @@ int fwd(const void* u, const void* delta, const void* bm, const void* cm,
   if (n_b * n_d == 0) return 0;
   if (n_t < 1 || n_s != 16) return cudaErrorInvalidValue;
   const dim3 grid((n_d + kThreads - 1) / kThreads, n_b);
-  mamba_fwd_kernel<T, 16, true, false>
+  mamba_fwd_kernel<T, 16>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(u), static_cast<const T*>(delta),
           static_cast<const T*>(bm), static_cast<const T*>(cm),
           static_cast<const float*>(a), static_cast<const float*>(s0),
-          static_cast<T*>(y), static_cast<float*>(s_out), nullptr, n_t, n_d);
+          static_cast<T*>(y), static_cast<float*>(s_out), n_t, n_d);
+  return cudaGetLastError();
+}
+
+// The pair's passes, and the sums of their partials in a fixed order.
+// BoundK, GradK: the passes' kernels, in units of kUnit steps; the chunk
+// route's (16-byte vectors, D a multiple of kVecOf<T>) or the step pair's
+// (any width and alignment)
+template <typename T, int kUnit, typename BoundK, typename GradK>
+int bwd_passes(BoundK bound, GradK grad, int smem, const void* u,
+               const void* delta, const void* bm, const void* cm,
+               const void* a, const void* s0, const void* dy, const void* ds,
+               void* ws, void* du, void* sums, void* da, void* ds0,
+               int64_t n_b, int64_t n_t, int64_t n_d, int64_t n_s,
+               void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto up = static_cast<const T*>(u);
+  const auto dp = static_cast<const T*>(delta);
+  const auto bp = static_cast<const T*>(bm);
+  const auto cp = static_cast<const T*>(cm);
+  const auto ap = static_cast<const float*>(a);
+  const auto dyp = static_cast<const T*>(dy);
+  const int64_t n_u = (n_t + kUnit - 1) / kUnit;
+  const int64_t n_blk = (n_d + kBlkCh - 1) / kBlkCh;
+  const int64_t m = n_b * n_u * n_d * n_s;
+  float* ws_s = static_cast<float*>(ws);
+  float* ws_g = ws_s + m;
+  float* da_ws = ws_g + m;
+  float* part = da_ws + m;
+  constexpr int kCh = kBndThreads / (16 / kQ);
+  bound<<<dim3((n_d + kCh - 1) / kCh, n_b, 2), kBndThreads, 0, st>>>(
+      up, dp, bp, cp, ap, static_cast<const float*>(s0), dyp,
+      static_cast<const float*>(ds), ws_s, ws_g, static_cast<float*>(ds0),
+      n_t, n_d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(grad, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  grad<<<dim3(n_blk, n_u, n_b), kGradThreads, smem, st>>>(
+      up, dp, bp, cp, ap, dyp, ws_s, ws_g, static_cast<T*>(du), part, da_ws,
+      n_t, n_d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t cols = n_b * n_t * (2 * 16 + 1);
+  colsum_kernel<<<(cols + 255) / 256, 256, 0, st>>>(
+      part, static_cast<float*>(sums), n_blk, cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_kernel<<<(n_d * n_s + 255) / 256, 256, 0, st>>>(
+      da_ws, static_cast<float*>(da), n_b * n_u, n_d * n_s);
   return cudaGetLastError();
 }
 
 template <typename T>
 int bwd(const void* u, const void* delta, const void* bm, const void* cm,
         const void* a, const void* s0, const void* dy, const void* ds,
-        void* ws, void* du, void* ddelta, void* dbm, void* dcm, void* da,
-        void* ds0, int64_t n_b, int64_t n_t, int64_t n_d, int64_t n_s,
-        void* stream) {
+        void* ws, void* du, void* sums, void* da, void* ds0, int64_t n_b,
+        int64_t n_t, int64_t n_d, int64_t n_s, void* stream) {
   if (n_b * n_d == 0) return 0;
   if (n_t < 1 || n_s != 16) return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_d + kThreads - 1) / kThreads, n_b);
-  const T *up = static_cast<const T*>(u), *dp = static_cast<const T*>(delta),
-          *bp = static_cast<const T*>(bm), *cp = static_cast<const T*>(cm);
-  const auto ap = static_cast<const float*>(a);
-  const auto s0p = static_cast<const float*>(s0);
-  const auto wsp = static_cast<float*>(ws);
-  mamba_fwd_kernel<T, 16, false, true><<<grid, kThreads, 0, st>>>(
-      up, dp, bp, cp, ap, s0p, nullptr, nullptr, wsp, n_t, n_d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mamba_bwd_kernel<T, 16><<<grid, kThreads, 0, st>>>(
-      up, dp, bp, cp, ap, s0p, wsp, static_cast<const T*>(dy),
-      static_cast<const float*>(ds), static_cast<T*>(du),
-      static_cast<float*>(ddelta), static_cast<float*>(dbm),
-      static_cast<float*>(dcm), static_cast<float*>(da),
-      static_cast<float*>(ds0), n_t, n_d);
-  return cudaGetLastError();
+  return bwd_passes<T, kStepUnitM>(
+      mamba_step_bound_kernel<T, 16>, mamba_step_grad_kernel<T, 16>,
+      static_cast<int>(sizeof(StepGradSm<16>)), u, delta, bm, cm, a, s0, dy,
+      ds, ws, du, sums, da, ds0, n_b, n_t, n_d, n_s, stream);
 }
 
 template <typename T>
@@ -995,46 +1283,10 @@ int chunk_bwd(const void* u, const void* delta, const void* bm, const void* cm,
               void* stream) {
   if (n_b * n_d == 0) return 0;
   if (n_t < 1 || n_s != 16 || n_d % kVecOf<T>) return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto up = static_cast<const T*>(u);
-  const auto dp = static_cast<const T*>(delta);
-  const auto bp = static_cast<const T*>(bm);
-  const auto cp = static_cast<const T*>(cm);
-  const auto ap = static_cast<const float*>(a);
-  const auto dyp = static_cast<const T*>(dy);
-  const int64_t n_u = (n_t + kUnitM - 1) / kUnitM;
-  const int64_t n_blk = (n_d + kBlkCh - 1) / kBlkCh;
-  const int64_t m = n_b * n_u * n_d * n_s;
-  float* ws_s = static_cast<float*>(ws);
-  float* ws_g = ws_s + m;
-  float* da_ws = ws_g + m;
-  float* part = da_ws + m;
-  constexpr int kCh = kBndThreads / (16 / kQ);
-  mamba_bound_kernel<T, 16>
-      <<<dim3((n_d + kCh - 1) / kCh, n_b, 2), kBndThreads, 0, st>>>(
-          up, dp, bp, cp, ap, static_cast<const float*>(s0), dyp,
-          static_cast<const float*>(ds), ws_s, ws_g, static_cast<float*>(ds0),
-          n_t, n_d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(GradSm<T, 16>));
-  err = cudaFuncSetAttribute(mamba_grad_kernel<T, 16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  mamba_grad_kernel<T, 16><<<dim3(n_blk, n_u, n_b), kGradThreads, smem, st>>>(
-      up, dp, bp, cp, ap, dyp, ws_s, ws_g, static_cast<T*>(du), part,
-      da_ws, n_t, n_d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t cols = n_b * n_t * (2 * 16 + 1);
-  colsum_kernel<<<(cols + 255) / 256, 256, 0, st>>>(
-      part, static_cast<float*>(sums), n_blk, cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  colsum_kernel<<<(n_d * n_s + 255) / 256, 256, 0, st>>>(
-      da_ws, static_cast<float*>(da), n_b * n_u, n_d * n_s);
-  return cudaGetLastError();
+  return bwd_passes<T, kUnitM>(
+      mamba_bound_kernel<T, 16>, mamba_grad_kernel<T, 16>,
+      static_cast<int>(sizeof(GradSm<T, 16>)), u, delta, bm, cm, a, s0, dy,
+      ds, ws, du, sums, da, ds0, n_b, n_t, n_d, n_s, stream);
 }
 
 }  // namespace
@@ -1052,18 +1304,19 @@ int chunk_bwd(const void* u, const void* delta, const void* bm, const void* cm,
 MAMBA_FWD(mamba_scan_fwd_f32, float)
 MAMBA_FWD(mamba_scan_fwd_bf16, bf16)
 
-// u, delta, B, C, a, s0, dy, ds (float32 or null), ws (float32 workspace of
-// batch*T*D*N); du, then float32 accumulators, zeroed: ddelta (batch, T),
-// dB, dC (batch, T, N), da (D, N); ds0; batch, T, D, N; stream
+// the step pair: u, delta, B, C, a (float32), s0 (float32), dy, ds (float32
+// or null), ws (float32: 3 * batch * ceil(T / 32) * D * N + ceil(D / 256) *
+// batch * T * (2N + 1)); du, sums
+// (float32 (batch, T, 2N + 1): dB, dC, ddelta), da (float32 (D, N)), ds0
+// (float32); batch, T, D, N; stream.  Any width and alignment, T >= 1.
 #define MAMBA_BWD(name, T)                                                    \
   extern "C" int name(const void* u, const void* delta, const void* bm,       \
                       const void* cm, const void* a, const void* s0,          \
                       const void* dy, const void* ds, void* ws, void* du,     \
-                      void* ddelta, void* dbm, void* dcm, void* da,           \
-                      void* ds0, int64_t n_b, int64_t n_t, int64_t n_d,       \
-                      int64_t n_s, void* stream) {                            \
-    return bwd<T>(u, delta, bm, cm, a, s0, dy, ds, ws, du, ddelta, dbm, dcm,  \
-                  da, ds0, n_b, n_t, n_d, n_s, stream);                       \
+                      void* sums, void* da, void* ds0, int64_t n_b,           \
+                      int64_t n_t, int64_t n_d, int64_t n_s, void* stream) {  \
+    return bwd<T>(u, delta, bm, cm, a, s0, dy, ds, ws, du, sums, da, ds0,     \
+                  n_b, n_t, n_d, n_s, stream);                                \
   }
 MAMBA_BWD(mamba_scan_bwd_f32, float)
 MAMBA_BWD(mamba_scan_bwd_bf16, bf16)

@@ -4,11 +4,9 @@
 // (`rwkv6_scan_bwd_chunked_f32` / `_bf16`), the inputs the forward's
 // `chunked` kernel (rwkv6_chunk_sm90.cu) takes.
 //
-// Replaces, in either dtype, the step pair of rwkv6_scan.cu (a forward into a
-// float32 workspace of every step's state, B * H * T * hd^2 * 4 bytes,
-// then a walk back over all T steps in B * H blocks), itself the port of
-// the gradient of the `jax.lax.scan` of `rwkv6_block` in
-// src/repro/models/ssm.py.  The plain version is
+// The rest go by the step pair of rwkv6_scan.cu (the same two passes with
+// the step's roundings); both port the gradient of the `jax.lax.scan` of
+// `rwkv6_block` in src/repro/models/ssm.py.  The plain version is
 // `ref.rwkv6_scan_bwd_chunked` (the same passes in float32); the route is
 // held to autograd through `ref.rwkv6_scan`: bf16 inputs against the loop
 // in bf16 and in float32 on the same values, float32 inputs against the
@@ -25,8 +23,9 @@
 //    (P the chunk's decay, Q_s = prod_{tau > s} w_tau, P'_s =
 //    prod_{tau < s} w_tau), writing the state entering and the cotangent
 //    leaving every unit: 2 * B * H * (T / U) * hd^2 * 4 bytes, 134 MB at
-//    RWKV-6-7B's width, B = 2, T = 2048, where the step pair's workspace
-//    is 4.3 GB.  The last cotangent is the first state's gradient.
+//    RWKV-6-7B's width, B = 2, T = 2048, where a workspace of every
+//    step's state is 4.3 GB.  The last cotangent is the first state's
+//    gradient.
 // 2. `rwkv6_grad_kernel`, a block per (batch, head, unit): the unit's
 //    chunks from the last, each with the state entering it (recomputed
 //    from the unit's through the chunks before it) and the cotangent

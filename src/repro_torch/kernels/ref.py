@@ -140,6 +140,12 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _rwkv6_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``k_tᵀ v_t`` of one token (B, H, hd) pair as the loop forms it: the
+    outer product in the activations' dtype, then float32."""
+    return _wide(k[..., :, None] * v[..., None, :])
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, s: torch.Tensor):
     """The RWKV-6 recurrence over time, one step a token.  r, k, v, w:
@@ -155,8 +161,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for i in range(r.shape[1]):
         rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
-        # the outer product in the activations' dtype, then float32
-        kv = _wide(kt[..., :, None] * vt[..., None, :])
+        kv = _rwkv6_kv(kt, vt)
         outs.append((rt[..., None, :] @ (s + ub * kv).to(rt.dtype))[..., 0, :])
         s = _wide(wt[..., None]) * s + kv
     return s, torch.stack(outs, dim=1)
@@ -429,6 +434,150 @@ def mamba_scan_bwd_chunked(u, delta, bmat, cmat, a, s, ds, dy,
         for i in reversed(range(t0, t1)):
             sp = prev[i - t0]
             s_t = e[:, i] * sp + x[:, i, :, None] * bm[:, i, None, :]
+            hc = hc + dyf[:, i, :, None] * cm[:, i, None, :]
+            dcm[:, i] = (dyf[:, i, :, None] * s_t).sum(1)
+            dx = (hc * bm[:, i, None, :]).sum(-1)                # (B, D)
+            dbm[:, i] = (hc * x[:, i, :, None]).sum(1)
+            gg = hc * sp * e[:, i]
+            da += (gg * dl[:, i, :, None]).sum(0)
+            ddelta[:, i, 0] = ((gg * a[None]).sum((1, 2))
+                               + (dx * uf[:, i]).sum(1))
+            du[:, i] = dx * dl[:, i]
+            hc = hc * e[:, i]
+    return (du.to(u.dtype), ddelta.to(delta.dtype), dbm.to(bmat.dtype),
+            dcm.to(cmat.dtype), da, ds0)
+
+
+def rwkv6_scan_bwd_step(r, k, v, w, u, s, ds, dy, unit: int = 32,
+                        keep: list | None = None):
+    """The gradients of :func:`rwkv6_scan` by the step backward's passes,
+    with the step's roundings: the algorithm of the ``step`` backward
+    pair in ``csrc/rwkv6_scan.cu`` (``unit = 32``), for tests; the
+    kernels' wrappers never call it.  Arguments and results as
+    :func:`rwkv6_scan_bwd_chunked`'s.  Every state it rebuilds is the
+    loop's bit for bit (kv in the activations' dtype, the update in
+    float32); ``keep``, if given, receives S_{t-1} of every step in
+    order.  Gradients sum in float32 and round once.
+
+    1. The state entering every ``unit`` tokens, step by step forward.
+    2. The state's cotangent leaving every unit, step by step backward:
+       ``G_{t-1} = diag(w_t) G_t + r_tᵀ dy_t``, no state needed; the
+       last one is the first state's gradient.
+    3. Each unit alone: its states rebuilt from the one entering it, then
+       walked back from the cotangent leaving it, with M = S_{t-1} +
+       diag(u) kv rounded to r's dtype as the read-out rounds it:
+
+       dr_t = M dy_t        dw_t = Σ_j G_t ∘ S_{t-1}     dM = r_tᵀ dy_t
+       dk_t = (G_t + u dM) v_t        dv_t = k_t (G_t + u dM)
+       du  += Σ_j dM ∘ kv             G_{t-1} = diag(w_t) G_t + dM
+    """
+    dtype, udtype = r.dtype, u.dtype
+    b, t, h, hd = r.shape
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    ucol = u.float()[None, :, :, None]                   # (1, H, hd, 1)
+    n_u = -(-t // unit)
+    # 1. the state entering each unit
+    enter, st = [], s.float()
+    for i in range(t):
+        if i % unit == 0:
+            enter.append(st)
+        st = wf[:, i][..., None] * st + _rwkv6_kv(k[:, i], v[:, i])
+    # 2. the cotangent leaving each unit
+    leave = [None] * n_u
+    g = torch.zeros_like(s, dtype=torch.float32) if ds is None else \
+        ds.float()
+    for i in reversed(range(t)):
+        if i == t - 1 or i % unit == unit - 1:
+            leave[i // unit] = g
+        g = wf[:, i][..., None] * g + rf[:, i][..., None] * \
+            dyf[:, i][..., None, :]
+    ds0 = g
+    # 3. each unit alone
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros(h, hd, dtype=torch.float32, device=r.device)
+    for n in range(n_u):
+        t0, t1 = n * unit, min((n + 1) * unit, t)
+        prev, st = [], enter[n]
+        for i in range(t0, t1):
+            prev.append(st)
+            st = wf[:, i][..., None] * st + _rwkv6_kv(k[:, i], v[:, i])
+        if keep is not None:
+            keep.extend(prev)
+        g = leave[n]
+        for i in reversed(range(t0, t1)):
+            sp = prev[i - t0]
+            kv = _rwkv6_kv(k[:, i], v[:, i])
+            m = (sp + ucol * kv).to(dtype).float()
+            dyt = dyf[:, i][..., None, :]
+            dm = rf[:, i][..., None] * dyt
+            dkv = g + ucol * dm
+            dr[:, i] = (m * dyt).sum(-1)
+            dw[:, i] = (g * sp).sum(-1)
+            dk[:, i] = (dkv * vf[:, i][..., None, :]).sum(-1)
+            dv[:, i] = (dkv * kf[:, i][..., None]).sum(-2)
+            du += (dm * kv).sum((0, -1))
+            g = wf[:, i][..., None] * g + dm
+    return (*(x.to(dtype) for x in (dr, dk, dv, dw)), du.to(udtype), ds0)
+
+
+def mamba_scan_bwd_step(u, delta, bmat, cmat, a, s, ds, dy,
+                        unit: int = 32, keep: list | None = None):
+    """The gradients of :func:`mamba_scan` by the step backward's passes,
+    with the step's roundings: the algorithm of the ``step`` backward
+    pair in ``csrc/mamba_scan.cu`` (``unit = 32``), for tests; the
+    kernels' wrappers never call it.  Arguments and results as
+    :func:`mamba_scan_bwd_chunked`'s.  Every state it rebuilds is the
+    loop's bit for bit (Δ·u rounded to the activations' dtype, exp(Δ·a)
+    and the update in float32); ``keep``, if given, receives s_{t-1} of
+    every step in order.  dC takes the state rounded to C's dtype, as
+    the read-out does; the other roundings count as the identity.
+
+    1. The state entering every ``unit`` steps, step by step forward.
+    2. The state's cotangent leaving every unit, step by step backward
+       (``h <- exp(Δ_t a) (h + dy_t C_t)``, no state needed); the last
+       one is the first state's gradient.
+    3. Each unit alone: its states rebuilt from the one entering it, then
+       walked back from the cotangent leaving it (the sums over channels
+       of dB, dC and ddelta, and da's over time and the batch).
+    """
+    b, t, d = u.shape
+    uf, dl, bm, cm, dyf = (x.float() for x in (u, delta, bmat, cmat, dy))
+    x = _wide(delta * u)                                 # (B, T, D)
+    e = torch.exp(dl[..., None] * a[None, None])         # (B, T, D, N)
+
+    def step(st, i):
+        return e[:, i] * st + x[:, i, :, None] * bm[:, i, None, :]
+
+    n_u = -(-t // unit)
+    enter, st = [], s.float()
+    for i in range(t):
+        if i % unit == 0:
+            enter.append(st)
+        st = step(st, i)
+    leave = [None] * n_u
+    g = torch.zeros_like(s, dtype=torch.float32) if ds is None else \
+        ds.float()
+    for i in reversed(range(t)):
+        if i == t - 1 or i % unit == unit - 1:
+            leave[i // unit] = g
+        g = e[:, i] * (g + dyf[:, i, :, None] * cm[:, i, None, :])
+    ds0 = g
+    du = torch.zeros_like(uf)
+    ddelta = torch.zeros_like(dl)
+    dbm, dcm = torch.zeros_like(bm), torch.zeros_like(cm)
+    da = torch.zeros_like(a, dtype=torch.float32)
+    for n in range(n_u):
+        t0, t1 = n * unit, min((n + 1) * unit, t)
+        prev, st = [], enter[n]
+        for i in range(t0, t1):
+            prev.append(st)
+            st = step(st, i)
+        if keep is not None:
+            keep.extend(prev)
+        hc = leave[n]
+        for i in reversed(range(t0, t1)):
+            sp = prev[i - t0]
+            s_t = step(sp, i).to(cmat.dtype).float()
             hc = hc + dyf[:, i, :, None] * cm[:, i, None, :]
             dcm[:, i] = (dyf[:, i, :, None] * s_t).sum(1)
             dx = (hc * bm[:, i, None, :]).sum(-1)                # (B, D)

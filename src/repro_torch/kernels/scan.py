@@ -46,11 +46,17 @@ cotangent leaving every :data:`BWD_UNIT` tokens, then every (batch, head
 or channel block, unit) recomputes its states and emits its gradients
 (plain versions: ``ref.rwkv6_scan_bwd_chunked``,
 ``ref.mamba_scan_bwd_chunked``).  The rest (T = 1, unaligned tensors,
-Mamba's ragged widths) go by the ``step`` pair (the forward's states
-recomputed step by step into a workspace, then the walk back), whose
-gradient is the loop's.  Every entry of each pair stays callable alone,
-for timing: the step entries are the baseline the chunked routes are
-timed against.
+Mamba's ragged widths) go by the ``step`` pair, parallel in T too and
+with the step forward's roundings (``csrc/rwkv6_scan.cu``,
+``csrc/mamba_scan.cu``): the same two passes, the state entering and the
+cotangent leaving every :data:`RWKV6_STEP_UNIT` (RWKV-6) or
+:data:`MAMBA_STEP_UNIT` (Mamba) tokens, then each unit's states rebuilt
+bit for bit as the loop's and walked back (plain versions:
+``ref.rwkv6_scan_bwd_step``, ``ref.mamba_scan_bwd_step``).  Every sum of
+every backward is reduced in a fixed order, so two runs give the same
+gradients.  Every entry of each pair stays callable alone, for timing:
+the step entries are the baseline the chunked routes are timed
+against.
 
 CUDA tensors launch the kernels (or raise); CPU tensors run the plain
 loops of :mod:`repro_torch.kernels.ref`, and autograd differentiates
@@ -82,8 +88,14 @@ CHUNKED_MIN_T = 2
 #: routes keep: ``kUnit`` of ``csrc/rwkv6_chunk_bwd_sm90.cu`` and
 #: ``kUnitM`` of ``csrc/mamba_scan.cu``
 BWD_UNIT = 64
-#: channels a block of the Mamba chunk backward sums over (``kBlkCh``)
+#: channels a block of the Mamba chunk backward and step pair sums over
+#: (``kBlkCh``)
 MAMBA_BWD_BLOCK = 256
+#: tokens between the states (and cotangents) that the step pairs keep:
+#: ``kStepUnit`` of ``csrc/rwkv6_scan.cu`` and ``kStepUnitM`` of
+#: ``csrc/mamba_scan.cu``
+RWKV6_STEP_UNIT = 32
+MAMBA_STEP_UNIT = 32
 
 
 def _check(name: str, acts, f32s, shapes) -> None:
@@ -248,26 +260,14 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, ds, dy):
 
 
 def rwkv6_step_bwd(r, k, v, w, u, s0, ds, dy):
-    """One launch of the step route's backward entry (either dtype, any
-    T): its workspace holds every step's state before its update,
-    float32: B * H * T * hd * hd * 4 bytes."""
-    b, t, h, hd = r.shape
-    dy = _grad(dy, r)
-    ds = None if ds is None else _grad(ds, s0)
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
-    ds0 = torch.empty_like(s0)
-    ws = torch.empty((b, h, t, hd, hd), dtype=torch.float32, device=r.device)
-    fn = getattr(load("rwkv6_scan"), f"rwkv6_scan_bwd_{suffix(r.dtype)}")
-    with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _ptr(ds),
-                 ws.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), b, t, h, hd,
-                 stream_of(r))
-    check(err, "rwkv6_scan backward (step)")
-    _count_bwd(rwkv6_scan, "step")
-    return dr, dk, dv, dw, du.to(u.dtype), ds0
+    """One launch of the step pair's backward entry (either dtype, any T
+    and alignment): the state entering and the cotangent leaving every
+    :data:`RWKV6_STEP_UNIT` tokens, float32, and du's partial sums are its
+    workspace: (2 * B * H * hd * hd + B * H * hd) * ceil(T / 32) * 4
+    bytes."""
+    return _rwkv6_bwd_launch("step", "rwkv6_scan",
+                             f"rwkv6_scan_bwd_{suffix(r.dtype)}",
+                             RWKV6_STEP_UNIT, r, k, v, w, u, s0, ds, dy)
 
 
 def rwkv6_chunked_bwd(r, k, v, w, u, s0, ds, dy):
@@ -277,25 +277,30 @@ def rwkv6_chunked_bwd(r, k, v, w, u, s0, ds, dy):
     every :data:`BWD_UNIT` tokens, float32, and du's partial sums are its
     workspace: (2 * B * H * hd * hd + B * H * hd) * ceil(T / 64) * 4
     bytes."""
+    return _rwkv6_bwd_launch("chunked", "rwkv6_chunk_bwd_sm90",
+                             f"rwkv6_scan_bwd_chunked_{suffix(r.dtype)}",
+                             BWD_UNIT, r, k, v, w, u, s0, ds, dy)
+
+
+def _rwkv6_bwd_launch(route, lib, entry, unit, r, k, v, w, u, s0, ds, dy):
     b, t, h, hd = r.shape
     dy = _grad(dy, r)
     ds = None if ds is None else _grad(ds, s0)
-    n_u = -(-t // BWD_UNIT)
+    n_u = -(-t // unit)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty(u.shape, dtype=torch.float32, device=u.device)
     ds0 = torch.empty_like(s0)
     ws = torch.empty(n_u * b * h * hd * (2 * hd + 1), dtype=torch.float32,
                      device=r.device)
-    fn = getattr(load("rwkv6_chunk_bwd_sm90"),
-                 f"rwkv6_scan_bwd_chunked_{suffix(r.dtype)}")
+    fn = getattr(load(lib), entry)
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), dy.data_ptr(), _ptr(ds),
                  ws.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), b, t, h, hd,
                  stream_of(r))
-    check(err, "rwkv6_scan backward (chunked)")
-    _count_bwd(rwkv6_scan, "chunked")
+    check(err, f"rwkv6_scan backward ({route})")
+    _count_bwd(rwkv6_scan, route)
     return dr, dk, dv, dw, du.to(u.dtype), ds0
 
 
@@ -429,33 +434,13 @@ def mamba_scan_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
 
 
 def mamba_step_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
-    """One launch of the step route's backward entry (either dtype, any
-    T): its workspace holds every step's state after its update,
-    float32: B * T * D * N * 4 bytes."""
-    b, t, d = u.shape
-    n = bmat.shape[2]
-    dy = _grad(dy, u)
-    ds = None if ds is None else _grad(ds, s0)
-    du = torch.empty_like(u)
-    f32 = dict(dtype=torch.float32, device=u.device)
-    # the sums over channels and over the batch, by atomic adds
-    ddelta = torch.zeros((b, t, 1), **f32)
-    dbmat = torch.zeros((b, t, n), **f32)
-    dcmat = torch.zeros((b, t, n), **f32)
-    da = torch.zeros((d, n), **f32)
-    ds0 = torch.empty_like(s0)
-    ws = torch.empty((b, t, d, n), **f32)
-    fn = getattr(load("mamba_scan"), f"mamba_scan_bwd_{suffix(u.dtype)}")
-    with torch.cuda.device(u.device):
-        err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
-                 cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), dy.data_ptr(),
-                 _ptr(ds), ws.data_ptr(), du.data_ptr(), ddelta.data_ptr(),
-                 dbmat.data_ptr(), dcmat.data_ptr(), da.data_ptr(),
-                 ds0.data_ptr(), b, t, d, n, stream_of(u))
-    check(err, "mamba_scan backward (step)")
-    _count_bwd(mamba_scan, "step")
-    return (du, ddelta.to(delta.dtype), dbmat.to(bmat.dtype),
-            dcmat.to(cmat.dtype), da, ds0)
+    """One launch of the step pair's backward entry (either dtype, any T,
+    width and alignment): its workspace is laid out as the chunk route's
+    (see :func:`mamba_chunk_bwd`) with units of :data:`MAMBA_STEP_UNIT`
+    steps, every sum reduced in a fixed order."""
+    return _mamba_bwd_launch("step", f"mamba_scan_bwd_{suffix(u.dtype)}",
+                             MAMBA_STEP_UNIT, u, delta, bmat, cmat, a, s0, ds,
+                             dy)
 
 
 def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
@@ -468,11 +453,18 @@ def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
     dB, dC and ddelta over each block of :data:`MAMBA_BWD_BLOCK` channels
     (ceil(D / 256) * B * T * (2N + 1)); every sum is reduced in a fixed
     order."""
+    return _mamba_bwd_launch("chunk",
+                             f"mamba_scan_bwd_chunk_{suffix(u.dtype)}",
+                             BWD_UNIT, u, delta, bmat, cmat, a, s0, ds, dy)
+
+
+def _mamba_bwd_launch(route, entry, unit, u, delta, bmat, cmat, a, s0, ds,
+                      dy):
     b, t, d = u.shape
     n = bmat.shape[2]
     dy = _grad(dy, u)
     ds = None if ds is None else _grad(ds, s0)
-    n_u = -(-t // BWD_UNIT)
+    n_u = -(-t // unit)
     n_blk = -(-d // MAMBA_BWD_BLOCK)
     f32 = dict(dtype=torch.float32, device=u.device)
     du = torch.empty_like(u)
@@ -480,15 +472,14 @@ def mamba_chunk_bwd(u, delta, bmat, cmat, a, s0, ds, dy):
     da = torch.empty((d, n), **f32)
     ds0 = torch.empty_like(s0)
     ws = torch.empty(3 * b * n_u * d * n + n_blk * b * t * (2 * n + 1), **f32)
-    fn = getattr(load("mamba_scan"),
-                 f"mamba_scan_bwd_chunk_{suffix(u.dtype)}")
+    fn = getattr(load("mamba_scan"), entry)
     with torch.cuda.device(u.device):
         err = fn(u.data_ptr(), delta.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), a.data_ptr(), s0.data_ptr(), dy.data_ptr(),
                  _ptr(ds), ws.data_ptr(), du.data_ptr(), sums.data_ptr(),
                  da.data_ptr(), ds0.data_ptr(), b, t, d, n, stream_of(u))
-    check(err, "mamba_scan backward (chunk)")
-    _count_bwd(mamba_scan, "chunk")
+    check(err, f"mamba_scan backward ({route})")
+    _count_bwd(mamba_scan, route)
     return (du, sums[..., 2 * n:].to(delta.dtype),
             sums[..., :n].to(bmat.dtype), sums[..., n:2 * n].to(cmat.dtype),
             da, ds0)

@@ -44,7 +44,13 @@ and in float32, at T across the chunk of 16 and the unit of 64, one to
 64 heads, every head width, three decay regimes, with and without a
 cotangent of the last state; backward launches are counted by route, no
 plain version is reached, and a chunked backward allocates at most a
-sixteenth of the step pair's workspace beyond its outputs.
+sixteenth of the workspace of every step's state beyond its outputs.
+The step backward pairs (T = 1, unaligned tensors, Mamba's ragged
+widths) are held through their entries to autograd through the loop and
+to their plain versions (``ref.rwkv6_scan_bwd_step``,
+``ref.mamba_scan_bwd_step``) at T on and off their units and 2048, one
+element off the 16-byte boundary, ragged Mamba widths, both dtypes, and
+two runs of each are bitwise equal.
 
 The chunked-attention kernels (the reference's loop over key chunks,
 forward and backward) are held through autograd to the plain loop in
@@ -1374,8 +1380,8 @@ def test_cuda_scan_bwd_never_reaches_the_loop(cuda, monkeypatch):
 @pytest.mark.parametrize("kind", ["rwkv", "mamba"])
 def test_cuda_scan_chunked_bwd_workspace_under_bound(cuda, kind):
     """What one chunked backward allocates beyond its outputs stays under
-    a sixteenth of the step pair's workspace (every step's float32
-    state) on the same inputs."""
+    a sixteenth of a workspace of every step's float32 state on the same
+    inputs."""
     from repro_torch.kernels import scan
     fn, _, entry, _, _ = _bwd_fns(kind)
     if kind == "rwkv":
@@ -1397,6 +1403,138 @@ def test_cuda_scan_chunked_bwd_workspace_under_bound(cuda, kind):
     peak = torch.cuda.max_memory_allocated() - base
     kept = sum(o.numel() * o.element_size() for o in out)
     assert peak - kept <= step_ws / 16, (peak, kept, step_ws)
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans' step backward pairs
+# ---------------------------------------------------------------------------
+
+#: T on and off the pairs' units of 32 tokens
+STEP_BWD_T = (1, 2, 15, 16, 17, 33, 64, 65)
+#: (kind, heads or channels, head width): every head width; Mamba at
+#: widths off the 16-byte vector in both dtypes (30), in bf16 only (36),
+#: and past one block of 256 channels (300)
+STEP_BWD_SHAPES = [("rwkv", 2, 16), ("rwkv", 3, 32), ("rwkv", 2, 64),
+                   ("mamba", 30, 16), ("mamba", 36, 16), ("mamba", 300, 16)]
+
+
+def _off(t):
+    """``t`` moved one element off the 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _step_bwd_fns(kind):
+    from repro_torch.kernels import scan
+    return ((scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_step_bwd,
+             ref.rwkv6_scan_bwd_step) if kind == "rwkv" else
+            (scan.mamba_scan, ref.mamba_scan, scan.mamba_step_bwd,
+             ref.mamba_scan_bwd_step))
+
+
+def _step_bwd_check(cuda, kind, n, hd, t, dtype, offset, last, seed=70):
+    """The step pair's entry on one case, twice: one launch each, bitwise
+    the same; every gradient finite and within SCAN_GRAD_TOL of autograd
+    through the loop in ``dtype`` (in bf16 also within SCAN_GRAD_F32_TOL
+    of the loop in float32 on the same values, plus the bf16 loop's own
+    distance from it: the pair keeps the bf16 loop's roundings), and
+    within SCAN_TOL (bf16) or 1e-4 (float32) of the largest of the plain
+    step backward's (the same algorithm, other orders of summation)."""
+    fn, plain, entry, plain_bwd = _step_bwd_fns(kind)
+    g = torch.Generator().manual_seed(seed + t + n)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, dtype, 2, t, hd, seed=seed + t,
+                          heads=n)
+    else:
+        args = _scan_case(kind, cuda, dtype, 2, t, n, seed=seed + t)
+    if offset:
+        args = [_off(a) for a in args]
+    with torch.no_grad():
+        s, y = plain(*args)
+    w_s = torch.randn(s.shape, generator=g).to(cuda) if last else None
+    w_y = torch.randn(y.shape, generator=g).to(cuda)
+    dy = w_y.to(dtype)
+    ds = w_s
+    if offset:
+        dy = _off(dy)
+        ds = None if ds is None else _off(ds)
+    n0 = fn.bwd_route_launches["step"]
+    got = entry(*args, ds, dy)
+    again = entry(*args, ds, dy)
+    torch.cuda.synchronize()
+    assert fn.bwd_route_launches["step"] == n0 + 2
+    for i, (a, b) in enumerate(zip(got, again)):
+        assert torch.equal(a, b), i
+    want = plain_bwd(*args, ds, dy)
+    loop = _grads_through(plain, args, w_s, w_y)
+    f32 = (_grads_through(plain, args, w_s, w_y, f32=True)
+           if dtype == torch.bfloat16 else None)
+    for i, a in enumerate(got):
+        b = torch.zeros_like(a) if loop[i] is None else loop[i]
+        assert a.dtype == b.dtype == want[i].dtype and a.shape == b.shape, i
+        assert torch.isfinite(a.float()).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= SCAN_GRAD_TOL[dtype] * b.float().abs().max().item() \
+            + 1e-30, (i, err)
+        tol = SCAN_TOL[torch.bfloat16] if a.dtype == torch.bfloat16 else 1e-4
+        err = (a.float() - want[i].float()).abs().max().item()
+        assert err <= tol * want[i].float().abs().max().item() + 1e-30, (
+            i, err)
+        if f32 is not None:
+            c = torch.zeros_like(a, dtype=torch.float32) if f32[i] is None \
+                else f32[i]
+            own = (b.float() - c).abs().max().item()
+            err = (a.float() - c).abs().max().item()
+            assert err <= SCAN_GRAD_F32_TOL * c.abs().max().item() + own \
+                + 1e-30, (i, err, own)
+
+
+@pytest.mark.parametrize("last", [True, False])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", STEP_BWD_T)
+@pytest.mark.parametrize("kind,n,hd", STEP_BWD_SHAPES)
+def test_cuda_scan_step_bwd_matches_autograd(cuda, kind, n, hd, t, dtype,
+                                             offset, last):
+    """The step pairs (the backward of T = 1, unaligned tensors, Mamba's
+    ragged widths) at T on and off their units, every head width, ragged
+    Mamba widths, aligned and one element off the 16-byte boundary, with
+    and without a cotangent of the last state: see ``_step_bwd_check``."""
+    _step_bwd_check(cuda, kind, n, hd, t, dtype, offset, last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,n,hd", [("rwkv", 2, 64), ("mamba", 300, 16)])
+def test_cuda_scan_step_bwd_long(cuda, kind, n, hd, dtype):
+    """The step pairs at T = 2048 (64 units), unaligned: see
+    ``_step_bwd_check``."""
+    _step_bwd_check(cuda, kind, n, hd, 2048, dtype, True, True)
+
+
+def test_cuda_scan_step_bwd_takes_unaligned_and_ragged_by_step(cuda):
+    """Through autograd, what the chunked routes refuse launches the step
+    pair: T = 1, an unaligned r or u, Mamba's D = 30 in float32 and D =
+    36 in bf16."""
+    for kind, dtype, t, width, which in (
+            ("rwkv", torch.bfloat16, 1, 64, None),
+            ("rwkv", torch.float32, 9, 64, 0),
+            ("mamba", torch.float32, 9, 30, None),
+            ("mamba", torch.bfloat16, 9, 36, None),
+            ("mamba", torch.bfloat16, 9, 64, 0)):
+        fn, _, _, _ = _step_bwd_fns(kind)
+        args = _scan_case(kind, cuda, dtype, 2, t, width)
+        if which is not None:
+            args[which] = _off(args[which])
+        xs = [a.requires_grad_(True) for a in args]
+        before = dict(fn.bwd_route_launches)
+        s, y = fn(*xs)
+        (y.float().sum() + s.sum()).backward()
+        torch.cuda.synchronize()
+        before["step"] += 1
+        assert dict(fn.bwd_route_launches) == before, (kind, dtype, t, width)
+        assert all(torch.isfinite(x.grad.float()).all() for x in xs)
 
 
 # ---------------------------------------------------------------------------

@@ -108,3 +108,14 @@ def test_every_source_is_built():
     """Every ``csrc/*.cu`` is a library the build compiles."""
     sources = sorted(p.stem for p in build.SRC_DIR.glob("*.cu"))
     assert sources == sorted(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("t", ["f32", "bf16"])
+def test_mamba_backward_entries_take_the_same_arguments(t):
+    """The Mamba step pair's backward entry takes what the chunk route's
+    takes (a workspace of unit boundaries and partial sums, then du, the
+    column sums of dB, dC and ddelta, da and ds0): the wrappers call both
+    through one launcher."""
+    kinds = _entries("mamba_scan")
+    assert kinds[f"mamba_scan_bwd_{t}"] == kinds[f"mamba_scan_bwd_chunk_{t}"]
+    assert len(build.SIGNATURES["mamba_scan"][f"mamba_scan_bwd_{t}"]) == 18
