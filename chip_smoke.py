@@ -91,7 +91,15 @@ with the workspace it allocates.  The step pairs (the nineteenth slice:
 unit boundaries kept, each unit walked back alone, fixed-order sums) are
 also swept through autograd on what the chunked routes refuse (T = 1,
 unaligned tensors, Mamba's widths off the vector) and run twice on the
-same inputs, bitwise.  ``[attn]`` (the fourteenth slice)
+same inputs, bitwise.  The step forwards (the twentieth slice: RWKV-6's
+kernel of T >= 2, a tile of the state a thread and the read-out's sums in
+a fixed tree of shuffles; Mamba's, runs of 16 steps staged while the last
+is walked) are swept through the entry at T from 1 to 2048 off the
+16-byte boundary and at Mamba's widths off the vector: the state bitwise
+the loop's, y bitwise the plain version that sums in the kernel's order,
+two runs bitwise; ``[build]`` counts their SASS instructions a state
+element a step, and ``[scan]`` times each beside that floor.  ``[attn]``
+(the fourteenth slice)
 holds the chunked-attention kernels (``csrc/chunked_attention.cu``, the
 reference's ``lax.scan`` over key chunks) to their plain loop: an edge
 sweep of float32 and bf16, head widths 16, 64 and 128, causal and not,
@@ -306,6 +314,30 @@ def _sass_counts(path) -> dict:
     return out
 
 
+#: the step forwards' SASS counts
+#: (``repro_torch.launch.step_fwd_variants.per_element_step``) by library,
+#: from ``[build]``
+STEP_FWD_COUNTS: dict = {}
+
+
+def _step_fwd_floor(kind, dtype, shape, clock) -> dict:
+    """The step forward's counted-instruction floor at ``shape`` (B, T,
+    width): its SASS instructions a state element a step (``[build]``)
+    over the card's thread-instruction rate, 128 lanes an SM a clock; {}
+    without the counts."""
+    from repro_torch.launch import step_fwd_variants as sv
+    lib = "rwkv6_scan" if kind == "rwkv" else "mamba_scan"
+    c = STEP_FWD_COUNTS.get(lib, {}).get(str(dtype).removeprefix("torch."))
+    if not c:
+        return {}
+    b, t, width = shape
+    elems = b * t * width * (SCAN_HD if kind == "rwkv" else SCAN_N)
+    return {"kernel": sv.KERNELS[lib][0],
+            "sass_per_element_step": c["per_element_step"],
+            "instruction_floor_ms": c["per_element_step"] * elems
+            / (N_SM * 128 * clock) * 1e3}
+
+
 def phase_build() -> None:
     """Build every kernel in parallel and report the compiler's view:
     registers and spills (``-Xptxas -v``) of each kernel, any compiler
@@ -333,6 +365,15 @@ def phase_build() -> None:
         if counts:
             print(f"[build] {name} SASS: " + ", ".join(
                 f"{op} {n}" for op, n in counts.items()))
+    from repro_torch.launch import step_fwd_variants as sv
+    for lib, (fragment, *_) in sv.KERNELS.items():
+        STEP_FWD_COUNTS[lib] = sv.per_element_step(build.library_path(lib),
+                                                   lib)
+        for dtype, c in STEP_FWD_COUNTS[lib].items():
+            print(f"[build] {fragment} {dtype} SASS: "
+                  f"{c['per_element_step']:.3f} instructions a state element "
+                  f"a step ({c['instructions']} in the hot loop's "
+                  f"{c['steps_an_iteration']:g} steps; {c['top_ops']})")
     print(f"[build] card: {smi()}")
 
 
@@ -1593,13 +1634,23 @@ SCAN_SWEEP_T_F32 = (2, 17, 65, 2048)
 #: batch and tokens of ``[train-small]``'s steps (every config's float32
 #: smoke variant)
 TRAIN_SMALL = dict(batch=2, seq_len=16)
-#: the speed-up of the forward chunked routes over the step kernels below
-#: which [scan] prints a note (RWKV-6, Mamba)
-SCAN_FWD_GAIN = {"rwkv": 3.0, "mamba": 1.8}
+#: the speed-up of the float32 forward chunked routes over the step
+#: kernels below which [scan] prints a note (RWKV-6, Mamba): a few percent
+#: under the ratios measured on one H100 once the step kernels were
+#: redesigned for T >= 2 (PERF.md, rows 6f and 7c)
+SCAN_FWD_GAIN = {"rwkv": 1.7, "mamba": 1.55}
 #: the share of a workspace of every step's float32 state above which
 #: [scan] prints a note on a backward, by route: the chunked routes, the
 #: step pairs
 SCAN_BWD_WS_SHARE = {"chunked": 1 / 16, "chunk": 1 / 16, "step": 1 / 8}
+#: the step forwards' edge sweep: T, and (width, unaligned) of each kind
+#: at each T (RWKV-6 at T >= 2 and Mamba at T = 1 take the step route only
+#: off the 16-byte boundary; Mamba's widths 8190 and 30 are off the
+#: vector), B = 2, in both dtypes and the three decay regimes
+STEP_FWD_T = (1, 2, 15, 16, 17, 33, 512, 2048)
+STEP_FWD_EDGES = {
+    "rwkv": lambda t: [(4096, True)] + ([(4096, False)] if t == 1 else []),
+    "mamba": lambda t: [(8192, True), (8190, t == 1), (30, t == 1)]}
 #: the step pairs' edge sweep: (B, T, width, unaligned) of each kind, at
 #: full width (Mamba's also off the 16-byte vector in both dtypes)
 STEP_BWD_EDGES = {"rwkv": [(2, 1, 4096, False), (2, 17, 4096, True),
@@ -1734,7 +1785,8 @@ def _scan_bound(kind, route, bwd, b, t, width, clock, elem) -> dict:
     product with v), 10 hd^2 + 6 C hd backward (the boundary passes' two
     updates, S dy, G v and (k q) G; v.dy, the scores and their product
     with dy).  Mamba chunk: one exp a state element a step on the
-    special-function units, forward and backward.  Also the step-serial
+    special-function units, forward and backward; Mamba's step forward:
+    the larger of that and the step-serial count.  Also the step-serial
     count's bound (``old``) beside every route's, for comparison.
     ``elem``: the activations' bytes."""
     nbytes = _scan_bytes(kind, bwd, b, t, width, elem)
@@ -1750,6 +1802,13 @@ def _scan_bound(kind, route, bwd, b, t, width, clock, elem) -> dict:
     elif route == "chunk":
         ops, kind_ops = elems, "sfu exp"
         t_ops = ops / (SFU_EXP_PER_CLOCK * N_SM * clock) * 1e3
+    elif kind == "mamba" and route == "step" and not bwd:
+        # the step route's forward: an exp a state element a step on the
+        # special-function units, or the step-serial count, the larger
+        t_sfu = elems / (SFU_EXP_PER_CLOCK * N_SM * clock) * 1e3
+        t_f32 = old_ops / F32_FLOP_PER_S * 1e3
+        ops, kind_ops, t_ops = ((elems, "sfu exp", t_sfu) if t_sfu >= t_f32
+                                else (old_ops, "float32", t_f32))
     else:
         ops, kind_ops = old_ops, "float32"
         t_ops = ops / F32_FLOP_PER_S * 1e3
@@ -2212,6 +2271,63 @@ def _step_bwd_sweep(kind, k, gen) -> dict:
     return {"worst_share": worst, "cases": n}
 
 
+def _step_fwd_sweep(kind, k, gen) -> dict:
+    """The step forward through the entry on what the chunked routes
+    refuse (:data:`STEP_FWD_T` x :data:`STEP_FWD_EDGES`: T = 1, tensors one
+    element off the 16-byte boundary, Mamba's widths off the vector), in
+    both dtypes and every decay regime: the plan takes ``step`` and the
+    call launches it once; the last state is the loop's bit for bit and y
+    within ``SCAN_TOL`` of it; y is bit for bit the plain version that sums
+    in the kernel's order (``ref.rwkv6_scan_step`` at T >= 2, the decode
+    kernel's at T = 1 being another; ``ref.mamba_scan_step``); and the
+    entry twice on the same inputs gives the same bits.  Returns the worst
+    share of the largest of y's error against the loop by dtype, and the
+    cases run."""
+    from repro_torch.kernels import ref
+    order = ref.rwkv6_scan_step if kind == "rwkv" else ref.mamba_scan_step
+    worst, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).removeprefix("torch.")
+        w_y = 0.0
+        for regime in SCAN_REGIMES:
+            for t in STEP_FWD_T:
+                for width, unal in STEP_FWD_EDGES[kind](t):
+                    args = _scan_args(kind, 2, t, width, dtype, gen, regime)
+                    if unal:
+                        args = [_unaligned(a) for a in args]
+                    tag = (f"scan {kind} step forward {label} {regime} T={t} "
+                           f"width={width}{' unaligned' if unal else ''}")
+                    if k["plan"](*args) != "step":
+                        fail(f"{tag}: plan {k['plan'](*args)}")
+                    n0 = k["fn"].route_launches["step"], k["fn"].launches
+                    with torch.no_grad():
+                        got = k["fn"](*args)
+                    n1 = k["fn"].route_launches["step"], k["fn"].launches
+                    if (n1[0] - n0[0], n1[1] - n0[1]) != (1, 1):
+                        fail(f"{tag}: {n1[1] - n0[1]} launches, "
+                             f"{n1[0] - n0[0]} by step, want 1")
+                    again = k["step"](*args)
+                    want = k["plain"](*args)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        fail(f"{tag}: two runs differ")
+                    if not torch.equal(got[0], want[0]):
+                        fail(f"{tag}: state not bitwise the loop's")
+                    err = _scan_err(f"{tag} y", got[1], want[1],
+                                    SCAN_TOL[dtype])
+                    w_y = max(w_y, err / max(
+                        want[1].float().abs().max().item(), 1e-30))
+                    if kind == "mamba" or t > 1:
+                        if not torch.equal(got[1], order(*args)[1]):
+                            fail(f"{tag}: y not bitwise the plain version "
+                                 f"in the kernel's order")
+                    n += 1
+                    del args, got, again, want
+            _free()
+        worst[label] = w_y
+    return {"worst_y_share": worst, "cases": n}
+
+
 def _f32_main_shapes(kind) -> list:
     """B, T, width and head width of the float32 routes on their main
     path, ``[train-small]``: the rwkv6_7b smoke config (d_model 64 in
@@ -2379,10 +2495,15 @@ def phase_scan() -> list:
     loop's; decode (T = 1, bf16) by RWKV-6's step route and Mamba's decode
     route, both bitwise, beside Mamba's step kernel at T = 1; the backward
     (B = 2, T = 2048) by the new route and by the step pair
-    (:func:`_scan_backward`).  Each timed beside its route's bound, the
+    (:func:`_scan_backward`); the step pairs' and the step forwards' edge
+    sweeps (:func:`_step_bwd_sweep`, :func:`_step_fwd_sweep`).  Each timed
+    beside its route's bound, the
     step-serial bound and its plain loop (no library call computes the
-    recurrence).  Returns the kernels line's records, one a route and
-    dtype (``launches`` filled from the main path's phases)."""
+    recurrence); the step forwards' beside their counted-instruction
+    floors (``[build]``'s SASS counts).  Returns the kernels line's
+    records, one a route and dtype (RWKV-6's step route two: decode, and
+    ``step_t2``, the kernel of T >= 2; ``launches`` filled from the main
+    path's phases)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(25)
     kinds = _scan_kinds()
@@ -2579,7 +2700,28 @@ def phase_scan() -> list:
                   f"{d} {a:.3g} / {b:.3g}"
                   for d, (a, b) in edges["worst_share"].items())
               + f" ({time.perf_counter() - t1:.1f} s)")
+        t1 = time.perf_counter()
+        # its own seeded inputs: the other sweeps draw theirs as before
+        fwd_edges = _step_fwd_sweep(
+            kind, k, torch.Generator(device="cuda").manual_seed(30))
+        print(f"[scan] {name} step forward, edge sweep ({fwd_edges['cases']} "
+              f"cases: T in {STEP_FWD_T}, B = 2, width {k['width']} one "
+              f"element off the 16-byte boundary"
+              + (", 8190 and 30" if kind == "mamba" else "")
+              + ", both dtypes, three decay regimes): the plan takes it, one "
+              f"launch a call, the state bitwise the loop's, y bitwise the "
+              f"plain version in the kernel's order"
+              + (" (T >= 2)" if kind == "rwkv" else "")
+              + f" and within {SCAN_TOL[f32]} (float32) / {SCAN_TOL[bf16]} "
+              f"(bf16) of the loop, two runs bitwise; worst share of the "
+              f"largest, y against the loop: " + "; ".join(
+                  f"{d} {w:.3g}" for d, w in fwd_edges["worst_y_share"].items())
+              + f" ({time.perf_counter() - t1:.1f} s)")
         src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
+        step.update(edge_sweep=fwd_edges, **_step_fwd_floor(
+            kind, bf16, step["shape"], clock))
+        step_f.update(edge_sweep=fwd_edges, **_step_fwd_floor(
+            kind, f32, step_f["shape"], clock))
         bwd_route = k["bwd_route"]
         records += [
             _scan_record(k, "fwd", k["route"], k["src"], new),
@@ -2587,10 +2729,20 @@ def phase_scan() -> list:
         if "decode" in decode:
             records.append(_scan_record(k, "fwd", "decode", src,
                                         decode["decode"]))
+        if kind == "rwkv":
+            # decode (the main path's step launches) and T >= 2 are two
+            # kernels behind the step entry
+            records += [
+                _scan_record(k, "fwd", "step", src,
+                             {**decode["step"], "kernel": "rwkv6_fwd_kernel"}),
+                _scan_record(k, "fwd", "step_t2", src, step),
+                _scan_record(k, "fwd", "step_t2", src, step_f, f32)]
+        else:
+            records += [
+                _scan_record(k, "fwd", "step", src,
+                             {**step, "decode": decode["step"]}),
+                _scan_record(k, "fwd", "step", src, step_f, f32)]
         records += [
-            _scan_record(k, "fwd", "step", src,
-                         {**step, "decode": decode["step"]}),
-            _scan_record(k, "fwd", "step", src, step_f, f32),
             _scan_record(k, "bwd", bwd_route, k["bwd_src"], back[bwd_route]),
             _scan_record(k, "bwd", bwd_route, k["bwd_src"], back_f[bwd_route],
                          f32),
@@ -5450,9 +5602,9 @@ def main() -> None:
     for rec in scans:
         name, route = rec["scan"], rec["scan_route"]
         wave, where = served[name]
-        if route.endswith("step") and (route == "bwd_step"
-                                       or rec["dtype"] == "float32"
-                                       or not wave["routes"].get(route)):
+        if route == "step_t2" or (route.endswith("step") and (
+                route == "bwd_step" or rec["dtype"] == "float32"
+                or not wave["routes"].get(route))):
             rec["launches"], rec["main_path"] = 0, None
             rec["baseline"] = (
                 "the step-serial route, timed beside the chunked route on "

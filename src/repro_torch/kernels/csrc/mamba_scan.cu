@@ -15,13 +15,17 @@
 // u is (B, T, D), delta (B, T, 1), B and C (B, T, N), all in float32 or
 // bfloat16; a (D, N) and the state (B, D, N) are float32.
 //
-// Forward: one thread per (batch, channel), holding the N = 16 state
-// values and its row of a in registers; a block takes 128 channels of one
-// batch row.  delta_t, B_t and C_t are the same for all of a row's
-// channels, so the block stages them in shared memory 32 steps at a time,
-// with the chunk's u.  exp is `expf` (not `__expf`), and __fmul_rn /
-// __fadd_rn keep the plain version's separate roundings, so the state is
-// bitwise the plain version's on the card.
+// Forward (the `step` route: T >= 2 off the vector width or unaligned, and
+// T = 1 unaligned): one thread per (batch, channel), holding the N = 16
+// state values and its row of a in registers; a block takes 128 channels
+// of one batch row.  delta_t, B_t and C_t are the same for all of a row's
+// channels, so the block stages them in shared memory 16 steps at a time,
+// with the run's u, the next run loading into registers while this one is
+// walked; the state and a arrive (and the last state leaves) through
+// shared memory in coalesced rows.  exp is `expf` (not `__expf`), and
+// __fmul_rn / __fadd_rn keep the plain version's separate roundings, so
+// the state is bitwise the plain version's on the card; the read-out is
+// one fused multiply-add chain over n (`ref.mamba_scan_step`).
 //
 // Backward (the `step` pair, for what the chunk route refuses: T = 1,
 // widths off the 16-byte vector, unaligned tensors), parallel in T, with
@@ -50,11 +54,15 @@
 // atomically, so two runs give the same gradients bit for bit.
 // Gradients are float32 throughout and round once to the inputs' dtypes.
 //
-// Bound: 7 float32 operations a state value a step (an exp counted as
-// one) on the CUDA cores (67 TFLOP/s): at Jamba prefill (B = 8, T = 512,
-// D = 8192, N = 16) 3.8 GFLOP, 56 us, against 143 MB of inputs and
-// outputs (43 us at 3.35 TB/s).  B * D / 128 blocks run (512 at Jamba
-// prefill), each serial in T, so a step's latency sets the time.  The
+// Bound: one exp a state value a step on the special-function units (16
+// a clock an SM): at Jamba prefill (B = 8, T = 512, D = 8192, N = 16)
+// 5.37e8 exps, 128 us at 1.98 GHz, above the 7 float32 operations a
+// state value a step counted as one each (3.8 GFLOP, 56 us) and the 143
+// MB of inputs and outputs (43 us at 3.35 TB/s).  The loop's roundings
+// allow no fused update and no `ex2.approx`: `expf` alone is eight
+// instructions, and the step's loop takes about 14.4 a state value a
+// step (16.2 in bf16; chip_smoke.py's [build] counts them), 231 us at
+// 132 SMs x 128 lanes x 1.98 GHz.  The
 // backward: 22 operations a state value a step (the reverse step's and
 // the recomputed state's), at B = 2, T = 2048, D = 8192 11.8 GFLOP,
 // 176 us; the step pair's passes walk the state three times more (the
@@ -131,75 +139,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kChunk = 32;
 
-// Stage steps [t0, t0 + len) of delta, B and C (shared by the row) and
-// the block's channels of `per_channel` into shared memory.
-template <typename T, int N>
-__device__ __forceinline__ void stage(const T* __restrict__ delta,
-                                      const T* __restrict__ bm,
-                                      const T* __restrict__ cm,
-                                      const T* __restrict__ per_channel,
-                                      float (&sdt)[kChunk],
-                                      float (&sb)[kChunk][N],
-                                      float (&sc)[kChunk][N],
-                                      float (&sx)[kChunk][kThreads],
-                                      int64_t b, int64_t t0, int len,
-                                      int64_t n_t, int64_t n_d, int64_t d) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < len * N; e += kThreads) {
-    const int c = e / N, n = e % N;
-    const int64_t o = (b * n_t + t0 + c) * N + n;
-    sb[c][n] = to_f(bm[o]);
-    sc[c][n] = to_f(cm[o]);
-  }
-  for (int c = tid; c < len; c += kThreads) sdt[c] = to_f(delta[b * n_t + t0 + c]);
-  if (d < n_d)
-    for (int c = 0; c < len; ++c)
-      sx[c][tid] = to_f(per_channel[(b * n_t + t0 + c) * n_d + d]);
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-mamba_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
-                 const T* __restrict__ bm, const T* __restrict__ cm,
-                 const float* __restrict__ a, const float* __restrict__ s0,
-                 T* __restrict__ y, float* __restrict__ s_out, int64_t n_t,
-                 int64_t n_d) {
-  __shared__ float sdt[kChunk], sb[kChunk][N], sc[kChunk][N];
-  __shared__ float su[kChunk][kThreads];
-  const int tid = threadIdx.x;
-  const int64_t b = blockIdx.y, d = blockIdx.x * int64_t{kThreads} + tid;
-  const bool live = d < n_d;
-  float s[N], an[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    s[n] = live ? s0[(b * n_d + d) * N + n] : 0.f;
-    an[n] = live ? a[d * N + n] : 0.f;
-  }
-  for (int64_t t0 = 0; t0 < n_t; t0 += kChunk) {
-    const int len = static_cast<int>(n_t - t0 < kChunk ? n_t - t0 : kChunk);
-    __syncthreads();  // the last chunk's readers are done
-    stage<T, N>(delta, bm, cm, u, sdt, sb, sc, su, b, t0, len, n_t, n_d, d);
-    __syncthreads();
-    if (!live) continue;
-    for (int c = 0; c < len; ++c) {
-      const float dt = sdt[c];
-      const float x = rnd<T>(__fmul_rn(dt, su[c][tid]));
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float e = expf(__fmul_rn(dt, an[n]));
-        s[n] = __fadd_rn(__fmul_rn(e, s[n]), __fmul_rn(x, sb[c][n]));
-        acc = fmaf(rnd<T>(s[n]), sc[c][n], acc);
-      }
-      y[(b * n_t + t0 + c) * n_d + d] = from_f<T>(acc);
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) s_out[(b * n_d + d) * N + n] = s[n];
-  }
-}
-
 // N values of a row of T into float32, 16-byte loads (the row 16-byte
 // aligned)
 template <typename T, int N>
@@ -236,6 +175,130 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   for (int n = 0; n < N; n += 4)
     *reinterpret_cast<float4*>(p + n) =
         make_float4(v[n], v[n + 1], v[n + 2], v[n + 3]);
+}
+
+constexpr int kStepRun = 16;  // steps the step forward stages at a time
+
+// The step forward's shared memory (static, 40.1 KB): a run's u, delta,
+// B and C (two buffers), and the block's rows of s0 and a (rows padded to
+// N + 4 floats: a quarter-warp's 16-byte loads of eight rows fall in
+// distinct banks), whose first buffer takes the last state on its way
+// out
+template <int N>
+struct StepSm {
+  float su[2][kStepRun][kThreads];
+  float sb[2][kStepRun][N], sc[2][kStepRun][N];
+  float sdt[2][kStepRun];
+  float rows[2][kThreads][N + 4];
+};
+
+// The step forward (T >= 1, any width and alignment), a thread a channel,
+// 128 channels of one batch row a block.  The state and a arrive through
+// shared memory from coalesced scalar loads (and the last state leaves so);
+// the steps' u, delta, B and C are staged kStepRun at a time, the next run
+// loading into registers by scalar loads while this one is walked, one
+// barrier a run; B and C are read as 16-byte broadcasts.  Two steps an
+// iteration, so that one step's read-out chain runs beside the next step's
+// exponentials.  The arithmetic is the loop's: `expf`, x = delta u rounded
+// to T, the update's separate roundings (the state bitwise the loop's),
+// and the read-out one fused multiply-add chain over n = 0 .. N - 1 from 0,
+// the order mamba_decode_kernel keeps (ref.mamba_scan_step sums so too).
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 4)
+mamba_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                 const T* __restrict__ bm, const T* __restrict__ cm,
+                 const float* __restrict__ a, const float* __restrict__ s0,
+                 T* __restrict__ y, float* __restrict__ s_out, int64_t n_t,
+                 int64_t n_d) {
+  constexpr int kLw = 2 * kStepRun * N / kThreads;  // B and C a thread
+  static_assert(kStepRun <= kThreads && N % 4 == 0, "a thread a step's delta");
+  __shared__ __align__(16) StepSm<N> sm;
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.y, d0 = blockIdx.x * int64_t{kThreads};
+  const int64_t d = d0 + tid;
+  const bool live = d < n_d;
+  const int n_live = static_cast<int>(n_d - d0 < kThreads ? n_d - d0
+                                                          : kThreads);
+  const int64_t n_c = (n_t + kStepRun - 1) / kStepRun;
+  float pu[kStepRun], pw[kLw], pdt;  // the next run; past T and D zeros
+  const auto fetch = [&](int64_t c) {
+#pragma unroll
+    for (int i = 0; i < kStepRun; ++i) {
+      const int64_t t = c * kStepRun + i;
+      pu[i] = t < n_t && live ? to_f(u[(b * n_t + t) * n_d + d]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLw; ++i) {
+      const int e = tid + i * kThreads, which = e / (kStepRun * N);
+      const int64_t t = c * kStepRun + e / N % kStepRun;
+      pw[i] = t < n_t ? to_f((which ? cm : bm)[(b * n_t + t) * N + e % N])
+                      : 0.f;
+    }
+    const int64_t t = c * kStepRun + tid;
+    pdt = tid < kStepRun && t < n_t ? to_f(delta[b * n_t + t]) : 0.f;
+  };
+  const auto put = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kStepRun; ++i) sm.su[buf][i][tid] = pu[i];
+#pragma unroll
+    for (int i = 0; i < kLw; ++i) {
+      const int e = tid + i * kThreads, which = e / (kStepRun * N);
+      (which ? sm.sc : sm.sb)[buf][e / N % kStepRun][e % N] = pw[i];
+    }
+    if (tid < kStepRun) sm.sdt[buf][tid] = pdt;
+  };
+  fetch(0);
+  // the block's rows of s0 and a, coalesced
+  for (int e = tid; e < n_live * N; e += kThreads) {
+    sm.rows[0][e / N][e % N] = s0[(b * n_d + d0) * N + e];
+    sm.rows[1][e / N][e % N] = a[d0 * N + e];
+  }
+  put(0);
+  __syncthreads();
+  float s[N], an[N];
+  load_row<float, N>(s, &sm.rows[0][tid][0]);
+  load_row<float, N>(an, &sm.rows[1][tid][0]);
+  T* yp = y + b * n_t * n_d + d;
+  // step c of buffer buf: the state forward, y out
+  const auto step = [&](int buf, int c) {
+    const float dt = sm.sdt[buf][c];
+    const float x = rnd<T>(__fmul_rn(dt, sm.su[buf][c][tid]));
+    float bv[N], cv[N];
+    load_row<float, N>(bv, &sm.sb[buf][c][0]);
+    load_row<float, N>(cv, &sm.sc[buf][c][0]);
+    float acc = 0.f;
+#pragma unroll
+    for (int n = 0; n < N; n += 2) {
+      const float e0 = expf(__fmul_rn(dt, an[n]));
+      const float e1 = expf(__fmul_rn(dt, an[n + 1]));
+      s[n] = __fadd_rn(__fmul_rn(e0, s[n]), __fmul_rn(x, bv[n]));
+      s[n + 1] = __fadd_rn(__fmul_rn(e1, s[n + 1]), __fmul_rn(x, bv[n + 1]));
+      float r0 = s[n], r1 = s[n + 1];
+      rnd2<T>(r0, r1);
+      acc = fmaf(r0, cv[n], acc);
+      acc = fmaf(r1, cv[n + 1], acc);
+    }
+    if (live) *yp = from_f<T>(acc);
+    yp += n_d;
+  };
+  for (int64_t c = 0; c < n_c; ++c) {
+    const int buf = static_cast<int>(c & 1);
+    if (c + 1 < n_c) fetch(c + 1);
+    if (c + 1 < n_c || n_t % kStepRun == 0) {
+#pragma unroll 2
+      for (int i = 0; i < kStepRun; ++i) step(buf, i);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < n_t % kStepRun; ++i) step(buf, i);
+    }
+    if (c + 1 < n_c) put(buf ^ 1);
+    __syncthreads();
+  }
+  // the last state out, coalesced (rows[0] was last read before the loop)
+  store_row<N>(&sm.rows[0][tid][0], s);
+  __syncthreads();
+  for (int e = tid; e < n_live * N; e += kThreads)
+    s_out[(b * n_d + d0) * N + e] = sm.rows[0][e / N][e % N];
 }
 
 // The `decode` route: one step (T = 1), the forward's arithmetic.  Two

@@ -15,17 +15,20 @@
 // dtype, the state (B, H, hd, hd) float32 with row i the key index and
 // column j the value index.
 //
-// Forward: one block per (batch, head), hd threads; thread j owns column j
-// of the state, hd float32 registers.  Each step stages r_t, k_t and w_t
-// (and u once) in shared memory, double-buffered: a thread loads its own
-// element of the next token's r, k, w, v into registers before it computes
-// this token and stores them into the other buffer after, so one
-// __syncthreads a step orders both.  y_t[j] is thread j's own sum over
-// rows: no cross-thread reduction.  Every rounding is the plain version's:
+// Forward (the `step` route: T = 1, and tensors off the 16-byte boundary
+// that the chunked route refuses), two kernels behind one entry.  At T = 1
+// (decode), `rwkv6_fwd_kernel`: one block per (batch, head), hd threads;
+// thread j owns column j of the state, hd float32 registers, and y_t[j]
+// is its own sum over rows.  At T >= 2, `rwkv6_step_fwd_kernel`: 2 hd
+// threads a (batch, head), a tile of hd / 8 rows and four columns a
+// thread, tokens staged eight at a time with the next eight loading into
+// registers, one barrier a run, y's sums over rows meeting in a fixed
+// tree of shuffles (below).  Every rounding is the plain version's:
 // __fmul_rn / __fadd_rn keep nvcc from contracting k·v, S + u·kv and the
 // state update into FMAs that the plain version's separate elementwise
 // ops do not make, so the state is bitwise the plain version's on the
-// card; y differs by the read-out's order of summation.
+// card; y differs by the read-out's order of summation
+// (`ref.rwkv6_scan_step` sums in the T >= 2 kernel's order).
 //
 // Backward (the `step` pair, for what the chunked routes refuse: T = 1,
 // tensors off the 16-byte boundary), parallel in T, with no workspace of
@@ -141,6 +144,195 @@ rwkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 #pragma unroll
   for (int i = 0; i < HD; ++i) s_out[(bh * HD + i) * HD + j] = s[i];
+}
+
+// ---------------------------------------------------------------------------
+// the step forward at T >= 2
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 8;  // tokens staged at a time by the T >= 2 forward
+
+// The T >= 2 forward's shape: 8 row lanes and hd / 4 column groups of four
+// threads a (batch, head); a thread holds rows TR of four columns.  Lane
+// bits 0-1 pick the column group within the warp, bits 2-4 the row lane,
+// so a quarter-warp reads two row addresses and the column sums run over
+// lane bits 2-4.
+template <int HD>
+struct StepFwd {
+  static constexpr int kThreads = 2 * HD;
+  static constexpr int TR = HD / 8, TC = 4;
+  // staged rows: at hd 64, rows 32-63 sit four floats further on, so that
+  // a warp's eight row lanes read eight 16-byte runs in distinct banks
+  static constexpr int kPad = HD > 32 ? HD + 4 : HD;
+};
+
+template <int HD>
+__device__ __forceinline__ int row_at(int i) {
+  return HD > 32 ? i + (i >> 5) * 4 : i;
+}
+
+// n consecutive floats of shared memory into registers, as 16-byte (or
+// 8-byte) loads: p is 4 * n bytes aligned
+template <int NV>
+__device__ __forceinline__ void lds_vec(float (&out)[NV], const float* p) {
+  if constexpr (NV % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NV; q += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + q);
+      out[q] = f.x;
+      out[q + 1] = f.y;
+      out[q + 2] = f.z;
+      out[q + 3] = f.w;
+    }
+  } else {
+    static_assert(NV == 2, "two or a multiple of four");
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+}
+
+template <typename T, int HD>
+struct StepFwdSm {
+  float in[2][4][kRun][StepFwd<HD>::kPad];  // r, k, v, w of a run, two buffers
+  T y[2][kRun][HD];                         // y of a run, two buffers
+  float u[StepFwd<HD>::kPad];
+};
+
+// The step forward at T >= 2, a block per (batch, head): the state a TR x 4
+// tile a thread, kRun tokens of r, k, v, w staged at a time (two buffers,
+// the next run loading into registers by scalar loads while this one is
+// walked), one barrier a run.  The state update and the read-out's operand
+// M = S + u kv round as rwkv6_fwd_kernel's do, so the state is bitwise the
+// loop's.  y_t[j] = sum_i r_i M[i][j]: each thread sums its TR rows in
+// order in one fused multiply-add chain a column, then the eight row lanes'
+// partial sums meet in a fixed tree, ((P0 + P4) + (P2 + P6)) + ((P1 + P5) +
+// (P3 + P7)) with Pl the sum over rows l TR .. l TR + TR - 1: a
+// reduce-scatter over lane bits 4 and 3, then one shuffle over bit 2
+// (ref.rwkv6_scan_step sums in this order).  y leaves through shared
+// memory, a run at a time, in rows.
+template <typename T, int HD>
+__global__ void __launch_bounds__(StepFwd<HD>::kThreads, 4)
+rwkv6_step_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ w,
+                      const T* __restrict__ u, const float* __restrict__ s0,
+                      T* __restrict__ y, float* __restrict__ s_out,
+                      int64_t n_t, int64_t n_h) {
+  using F = StepFwd<HD>;
+  constexpr int TR = F::TR, TC = F::TC, kThr = F::kThreads;
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ __align__(16) StepFwdSm<T, HD> sm;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int i0 = (lane >> 2) * TR;                    // the thread's rows
+  const int j0 = ((tid >> 5) * 4 + (lane & 3)) * TC;  // and columns
+  const int64_t bh = blockIdx.x, b = bh / n_h, h = bh % n_h;
+  const int64_t stride = n_h * HD, base = (b * n_t * n_h + h) * HD;
+  const int64_t n_c = (n_t + kRun - 1) / kRun;
+  // a thread stages column col of tokens row0, row0 + 2, .. of a run
+  constexpr int kPass = kThr / HD;       // tokens a pass of the block (2)
+  constexpr int kRows = kRun / kPass;    // passes a run
+  const int col = tid % HD, row0 = tid / HD;
+  const T* src[4] = {r + base + col, k + base + col, v + base + col,
+                     w + base + col};
+  const int64_t off0 = row0 * stride, step2 = kPass * stride;
+  float pre[4][kRows];  // the next run
+  const auto fetch = [&](int64_t c) {
+    const int64_t off = c * kRun * stride + off0;
+    const bool whole = (c + 1) * kRun <= n_t;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int q = 0; q < kRows; ++q)
+        pre[a][q] = whole || c * kRun + row0 + kPass * q < n_t
+                        ? to_f(src[a][off + q * step2]) : 0.f;
+  };
+  const auto put = [&](int buf) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int q = 0; q < kRows; ++q)
+        sm.in[buf][a][row0 + kPass * q][row_at<HD>(col)] = pre[a][q];
+  };
+  // y of the run at c from buffer buf, in rows
+  T* const yc = y + base + col;
+  const auto flush = [&](int64_t c, int buf) {
+    const int64_t off = c * kRun * stride + off0;
+    const bool whole = (c + 1) * kRun <= n_t;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (whole || c * kRun + row0 + kPass * q < n_t)
+        yc[off + q * step2] = sm.y[buf][row0 + kPass * q][col];
+  };
+  fetch(0);
+  for (int i = tid; i < HD; i += kThr) sm.u[row_at<HD>(i)] = to_f(u[h * HD + i]);
+  float s[TR][TC];
+#pragma unroll
+  for (int x = 0; x < TR; ++x)
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+      s[x][c] = s0[(bh * HD + i0 + x) * HD + j0 + c];
+  put(0);
+  __syncthreads();
+  float uu[TR];
+  lds_vec<TR>(uu, &sm.u[row_at<HD>(i0)]);
+  const bool hi4 = lane & 16, hi3 = lane & 8;
+  // the column this lane ends with, and whether it writes it
+  const int jy = j0 + 2 * hi4 + hi3;
+  const bool writer = !(lane & 4);
+  const auto token = [&](int buf, int t) {
+    float rr[TR], kk[TR], ww[TR], vv[TC];
+    lds_vec<TR>(rr, &sm.in[buf][0][t][row_at<HD>(i0)]);
+    lds_vec<TR>(kk, &sm.in[buf][1][t][row_at<HD>(i0)]);
+    lds_vec<TC>(vv, &sm.in[buf][2][t][row_at<HD>(j0)]);
+    lds_vec<TR>(ww, &sm.in[buf][3][t][row_at<HD>(i0)]);
+    float acc[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int x = 0; x < TR; ++x)
+#pragma unroll
+      for (int c = 0; c < TC; c += 2) {
+        // rwkv6_fwd_kernel's roundings: kv and M to T, the rest float32
+        float kv0 = __fmul_rn(kk[x], vv[c]), kv1 = __fmul_rn(kk[x], vv[c + 1]);
+        rnd2<T>(kv0, kv1);
+        float m0 = __fadd_rn(s[x][c], __fmul_rn(uu[x], kv0));
+        float m1 = __fadd_rn(s[x][c + 1], __fmul_rn(uu[x], kv1));
+        rnd2<T>(m0, m1);
+        acc[c] = fmaf(rr[x], m0, acc[c]);
+        acc[c + 1] = fmaf(rr[x], m1, acc[c + 1]);
+        s[x][c] = __fadd_rn(__fmul_rn(ww[x], s[x][c]), kv0);
+        s[x][c + 1] = __fadd_rn(__fmul_rn(ww[x], s[x][c + 1]), kv1);
+      }
+    // the sums over the eight row lanes: columns {0, 1} and {2, 3} trade
+    // over lane bit 4, then the pair over bit 3, then bit 2 adds
+    const float p0 = sel(hi4, acc[2], acc[0]) +
+                     __shfl_xor_sync(kFull, sel(hi4, acc[0], acc[2]), 16);
+    const float p1 = sel(hi4, acc[3], acc[1]) +
+                     __shfl_xor_sync(kFull, sel(hi4, acc[1], acc[3]), 16);
+    float q = sel(hi3, p1, p0) + __shfl_xor_sync(kFull, sel(hi3, p0, p1), 8);
+    q += __shfl_xor_sync(kFull, q, 4);
+    if (writer) sm.y[buf][t][jy] = from_f<T>(q);
+  };
+  for (int64_t c = 0; c < n_c; ++c) {
+    const int buf = static_cast<int>(c & 1);
+    if (c + 1 < n_c) fetch(c + 1);
+    if (c > 0) flush(c - 1, buf ^ 1);
+    if (c + 1 < n_c || n_t % kRun == 0) {
+#pragma unroll 2
+      for (int t = 0; t < kRun; ++t) token(buf, t);
+    } else {
+#pragma unroll 1
+      for (int t = 0; t < n_t % kRun; ++t) token(buf, t);
+    }
+    if (c + 1 < n_c) put(buf ^ 1);
+    __syncthreads();
+  }
+  flush(n_c - 1, static_cast<int>((n_c - 1) & 1));
+#pragma unroll
+  for (int x = 0; x < TR; ++x)
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+      s_out[(bh * HD + i0 + x) * HD + j0 + c] = s[x][c];
 }
 
 // ---------------------------------------------------------------------------
@@ -488,10 +680,17 @@ template <typename T, int HD>
 cudaError_t fwd(const void* r, const void* k, const void* v, const void* w,
                 const void* u, const float* s0, void* y, float* s_out,
                 int64_t n_b, int64_t n_t, int64_t n_h, cudaStream_t st) {
-  rwkv6_fwd_kernel<T, HD><<<n_b * n_h, HD, 0, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w),
-      static_cast<const T*>(u), s0, static_cast<T*>(y), s_out, n_t, n_h);
+  const auto rp = static_cast<const T*>(r), kp = static_cast<const T*>(k),
+             vp = static_cast<const T*>(v), wp = static_cast<const T*>(w),
+             up = static_cast<const T*>(u);
+  if (n_t == 1) {  // decode
+    rwkv6_fwd_kernel<T, HD><<<n_b * n_h, HD, 0, st>>>(
+        rp, kp, vp, wp, up, s0, static_cast<T*>(y), s_out, n_t, n_h);
+  } else {
+    rwkv6_step_fwd_kernel<T, HD>
+        <<<n_b * n_h, StepFwd<HD>::kThreads, 0, st>>>(
+            rp, kp, vp, wp, up, s0, static_cast<T*>(y), s_out, n_t, n_h);
+  }
   return cudaGetLastError();
 }
 

@@ -46,6 +46,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
+// a and b each rounded to T and widened again (rnd<T> of each): in bf16
+// one conversion packs both, and a mask and a shift widen them (the
+// library's unpacking takes four instructions where these take two)
+template <typename T>
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  if constexpr (sizeof(T) == 2) {
+    uint32_t p;  // a in the high half, b in the low
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(p) : "f"(a), "f"(b));
+    a = __uint_as_float(p & 0xffff0000u);
+    b = __uint_as_float(p << 16);
+  }
+}
+
 // activations a 16-byte vector (a cp.async or a vector load) holds: 8
 // bf16, 4 float32; the chunked routes need widths that are multiples of
 // it (scan.py's plans check the same rule)

@@ -187,6 +187,105 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
     return s, torch.stack(ys, dim=1)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as the card's fused
+    multiply-add (``fmaf``) rounds it.  The product is exact in float64;
+    the sum takes float64's nearest value, and where that was inexact and
+    its last bit is even it moves one float64 step towards the exact sum
+    (rounding to odd), so that the final rounding to float32 is the single
+    rounding of the exact value, never a double one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    # the error of s, exactly (Knuth's two-sum)
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+#: row lanes of the RWKV-6 step forward at T >= 2 (rwkv6_step_fwd_kernel),
+#: and the tree in which their partial sums of y meet
+RWKV6_STEP_LANES = 8
+RWKV6_STEP_TREE = ((0, 4, 2, 6), (1, 5, 3, 7))
+
+
+def rwkv6_scan_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, s: torch.Tensor,
+                    chunk: int = 32):
+    """:func:`rwkv6_scan` with y summed as the card's step forward at T >=
+    2 sums it (``rwkv6_step_fwd_kernel`` in ``csrc/rwkv6_scan.cu``), for
+    tests; the kernels' wrappers never call it.  The state and the
+    read-out's operand ``M = S + u·kv`` round as the loop's do, so the
+    state is the loop's bit for bit.  ``y_t[j] = Σ_i r_t[i] M[i, j]``:
+    row lane l of 8 sums rows ``l·hd/8 .. (l+1)·hd/8 - 1`` in order, in one
+    chain of :func:`fma32` from 0, and the lanes' partial sums P_l meet as
+    ``((P0 + P4) + (P2 + P6)) + ((P1 + P5) + (P3 + P7))`` in float32;
+    then y rounds once to r's dtype.  The read-outs of ``chunk`` tokens
+    run side by side.  float32 and bfloat16 only."""
+    ub = u[None, :, :, None]
+    tr = r.shape[-1] // RWKV6_STEP_LANES
+    outs, ms = [], []
+
+    def read_out(t1):
+        # (B, tokens, H, lane, row of the lane[, column]): the tokens'
+        # lanes side by side
+        m = torch.stack(ms, dim=1).unflatten(-2, (RWKV6_STEP_LANES, tr))
+        rf = r[:, t1 - len(ms):t1].float().unflatten(
+            -1, (RWKV6_STEP_LANES, tr))
+        acc = torch.zeros_like(m[..., 0, :])
+        for x in range(tr):
+            acc = fma32(rf[..., x, None], m[..., x, :], acc)
+        half = [(acc[..., a, :] + acc[..., b, :]) + (acc[..., c, :]
+                                                     + acc[..., d, :])
+                for a, b, c, d in RWKV6_STEP_TREE]
+        outs.append((half[0] + half[1]).to(r.dtype))
+        ms.clear()
+
+    for i in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
+        kv = _rwkv6_kv(kt, vt)
+        ms.append((s + ub * kv).to(rt.dtype).float())     # (B, H, hd, hd)
+        s = _wide(wt[..., None]) * s + kv
+        if len(ms) == chunk or i + 1 == r.shape[1]:
+            read_out(i + 1)
+    return s, torch.cat(outs, dim=1)
+
+
+def mamba_scan_step(u: torch.Tensor, delta: torch.Tensor, bmat: torch.Tensor,
+                    cmat: torch.Tensor, a: torch.Tensor, s: torch.Tensor,
+                    chunk: int = 64):
+    """:func:`mamba_scan` with y summed as the card's step and decode
+    kernels sum it (``mamba_fwd_kernel``, ``mamba_decode_kernel`` in
+    ``csrc/mamba_scan.cu``), for tests: ``y_t = Σ_n round(s_t[n]) C_t[n]``
+    in one chain of :func:`fma32` over n = 0 .. N - 1 from 0, rounded once
+    to cmat's dtype; the read-outs of ``chunk`` steps side by side.  The
+    state is the loop's (the same operations); float32 and bfloat16
+    only."""
+    ys, srs = [], []
+
+    def read_out(t1):
+        sr = torch.stack(srs, dim=1)                      # (B, steps, D, N)
+        cf = cmat[:, t1 - len(srs):t1].float()[:, :, None, :].expand_as(sr)
+        acc = torch.zeros_like(sr[..., 0])
+        for n in range(sr.shape[-1]):
+            acc = fma32(sr[..., n], cf[..., n], acc)
+        ys.append(acc.to(cmat.dtype))
+        srs.clear()
+
+    for i in range(u.shape[1]):
+        ut, dt, bt, ct = u[:, i], delta[:, i], bmat[:, i], cmat[:, i]
+        da = torch.exp(dt[..., None] * a[None])
+        s = da * s + _wide(dt * ut)[..., None] * _wide(bt)[:, None, :]
+        srs.append(s.to(ct.dtype).float())
+        if len(srs) == chunk or i + 1 == u.shape[1]:
+            read_out(i + 1)
+    return s, torch.cat(ys, dim=1)
+
+
 def _excl_cumprod(x: torch.Tensor) -> torch.Tensor:
     """Products of ``x`` over dim 1 before each position (1 at the first):
     taken directly, never as a quotient."""

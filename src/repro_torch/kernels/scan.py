@@ -21,14 +21,16 @@ alignment; each route has an entry for float32 and one for bfloat16:
   ``csrc/rwkv6_chunk_sm90.cu``, the recurrence in chunks of 16 tokens on
   the tensor cores (TF32 products of hi + lo operand pairs, about 2**-20
   of float32), the state carried in registers from chunk to chunk;
-  ``"step"`` — T = 1 and unaligned tensors: the step-serial kernel of
-  ``csrc/rwkv6_scan.cu``, bitwise the loop's state.
+  ``"step"`` — T = 1 and unaligned tensors: the step-serial kernels of
+  ``csrc/rwkv6_scan.cu`` (one for decode, one for T >= 2 whose read-out
+  sums as ``ref.rwkv6_scan_step`` does), bitwise the loop's state.
 * Mamba ``"decode"`` — T = 1: one step without staging, the step
   kernel's arithmetic, bitwise the loop's state; ``"chunk"`` — prefill
   with D a multiple of the 16-byte vector (8 in bfloat16, 4 in float32)
   and aligned tensors: ``ex2.approx`` exponentials, fused updates, Δ·u
   and the read-out's state in float32, 16-byte loads and stores of u and
-  y; ``"step"`` — the rest: the step-serial kernel.  All in
+  y; ``"step"`` — the rest: the step-serial kernel, bitwise the loop's
+  state, its read-out summed as ``ref.mamba_scan_step`` sums it.  All in
   ``csrc/mamba_scan.cu``.
 
 The ``chunked`` and ``chunk`` routes round otherwise than the loops (the

@@ -30,6 +30,18 @@ def source(lib: str, subs) -> str:
     return text
 
 
+def _key(text: str) -> str:
+    return hashlib.sha256(text.encode() + b"".join(
+        h.read_bytes() for h in sorted(build.SRC_DIR.glob("*.cuh")))
+        + " ".join(build.FLAGS).encode()).hexdigest()[:16]
+
+
+def library_path(lib: str, subs):
+    """Where :func:`build_all` puts the library of ``lib`` with ``subs``."""
+    return (build.BUILD_DIR.parent / "variants"
+            / f"lib{lib}-{_key(source(lib, subs))}.so")
+
+
 def build_all(lib: str, variants: dict) -> dict:
     """Each variant's library (``variants``: name -> replacements), built
     in parallel beside the kernels', loaded with ``lib``'s entries."""
@@ -38,9 +50,7 @@ def build_all(lib: str, variants: dict) -> dict:
     jobs = {}
     for name, subs in variants.items():
         text = source(lib, subs)
-        key = hashlib.sha256(text.encode() + b"".join(
-            h.read_bytes() for h in sorted(build.SRC_DIR.glob("*.cuh")))
-            + " ".join(build.FLAGS).encode()).hexdigest()[:16]
+        key = _key(text)
         src_dir = out_dir / f"src-{key}"
         src_dir.mkdir(exist_ok=True)
         for h in build.SRC_DIR.glob("*.cuh"):

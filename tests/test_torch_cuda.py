@@ -50,7 +50,13 @@ widths) are held through their entries to autograd through the loop and
 to their plain versions (``ref.rwkv6_scan_bwd_step``,
 ``ref.mamba_scan_bwd_step``) at T on and off their units and 2048, one
 element off the 16-byte boundary, ragged Mamba widths, both dtypes, and
-two runs of each are bitwise equal.
+two runs of each are bitwise equal.  The step forwards (``-k step_fwd``)
+are held through their entries the same way, aligned and one element off
+the 16-byte boundary, T on and off their runs and 2048, both dtypes: the
+last state the loop's bit for bit, y within ``SCAN_TOL`` of the loop's
+and bit for bit the plain version that sums in the kernel's order
+(``ref.rwkv6_scan_step`` at T >= 2, ``ref.mamba_scan_step``), and two runs
+bitwise equal.
 
 The chunked-attention kernels (the reference's loop over key chunks,
 forward and backward) are held through autograd to the plain loop in
@@ -1535,6 +1541,114 @@ def test_cuda_scan_step_bwd_takes_unaligned_and_ragged_by_step(cuda):
         before["step"] += 1
         assert dict(fn.bwd_route_launches) == before, (kind, dtype, t, width)
         assert all(torch.isfinite(x.grad.float()).all() for x in xs)
+
+
+# ---------------------------------------------------------------------------
+# the SSM scans' step forwards
+# ---------------------------------------------------------------------------
+
+#: T on and off the step forwards' runs (RWKV-6 stages 8 tokens at a time,
+#: Mamba 16)
+STEP_FWD_T = (1, 2, 7, 8, 9, 15, 16, 17, 33, 65)
+
+
+def _step_fwd_fns(kind):
+    from repro_torch.kernels import scan
+    return ((scan.rwkv6_scan, ref.rwkv6_scan, scan.rwkv6_scan_fwd,
+             ref.rwkv6_scan_step) if kind == "rwkv" else
+            (scan.mamba_scan, ref.mamba_scan, scan.mamba_scan_fwd,
+             ref.mamba_scan_step))
+
+
+def _step_fwd_check(cuda, kind, n, hd, t, dtype, offset, regime="model",
+                    seed=90):
+    """The step forward's entry on one case, twice: one launch each by
+    the step route, bitwise the same; the last state the loop's bit for
+    bit, y within SCAN_TOL of the loop's and bit for bit the plain version
+    that sums in the kernel's order (RWKV-6 at T >= 2: T = 1 is the decode
+    kernel's, another order)."""
+    fn, plain, entry, order = _step_fwd_fns(kind)
+    g = torch.Generator().manual_seed(seed + t + n)
+    if kind == "rwkv":
+        args = _scan_case(kind, cuda, dtype, 2, t, hd, seed=seed + t,
+                          heads=n)
+    else:
+        args = _scan_case(kind, cuda, dtype, 2, t, n, seed=seed + t)
+    args = _regime(args, kind, regime, g)
+    if offset:
+        args = [_off(a) for a in args]
+    n0 = fn.route_launches["step"]
+    got = entry(*args)
+    again = entry(*args)
+    torch.cuda.synchronize()
+    assert fn.route_launches["step"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ws, wy = plain(*args)
+    s, y = got
+    assert s.dtype == torch.float32 and y.dtype == dtype
+    assert torch.equal(s, ws)
+    tol = SCAN_TOL[dtype]
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol,
+                               atol=tol * wy.float().abs().max().item())
+    if kind == "mamba" or t > 1:
+        assert torch.equal(y, order(*args)[1])
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", STEP_FWD_T)
+@pytest.mark.parametrize("kind,n,hd", STEP_BWD_SHAPES)
+def test_cuda_scan_step_fwd_matches_the_loop(cuda, kind, n, hd, t, dtype,
+                                             offset):
+    """The step forwards (T = 1, unaligned tensors, Mamba's ragged widths;
+    RWKV-6's kernel of T >= 2 and its decode kernel behind one entry) at T
+    on and off their runs, every head width, ragged Mamba widths, aligned
+    and one element off the 16-byte boundary: see ``_step_fwd_check``."""
+    _step_fwd_check(cuda, kind, n, hd, t, dtype, offset)
+
+
+@pytest.mark.parametrize("regime", ["near0", "near1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,n,hd,t", [("rwkv", 2, 64, 17),
+                                         ("rwkv", 1, 16, 33),
+                                         ("mamba", 300, 16, 17),
+                                         ("mamba", 30, 16, 33)])
+def test_cuda_scan_step_fwd_decay_regimes(cuda, kind, n, hd, t, dtype,
+                                          regime):
+    """The step forwards with decays near 0 (w exactly 0 in a fifth of
+    RWKV-6's channels) and near 1, unaligned: see ``_step_fwd_check``."""
+    _step_fwd_check(cuda, kind, n, hd, t, dtype, True, regime)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,n,hd", [("rwkv", 2, 64), ("mamba", 300, 16)])
+def test_cuda_scan_step_fwd_long(cuda, kind, n, hd, dtype):
+    """The step forwards at T = 2048, unaligned: see ``_step_fwd_check``."""
+    _step_fwd_check(cuda, kind, n, hd, 2048, dtype, True)
+
+
+def test_cuda_scan_step_fwd_takes_unaligned_and_ragged(cuda):
+    """Through the scan, what the chunked routes refuse at T >= 2 takes
+    the step route, one launch a call: an unaligned RWKV-6 r in both
+    dtypes, Mamba's D = 30 and an unaligned u; and Mamba at T = 1 with an
+    unaligned state (the decode route takes aligned ones)."""
+    for kind, dtype, t, width, which in (
+            ("rwkv", torch.bfloat16, 9, 64, 0),
+            ("rwkv", torch.float32, 33, 64, 0),
+            ("mamba", torch.bfloat16, 9, 30, None),
+            ("mamba", torch.float32, 17, 64, 0),
+            ("mamba", torch.bfloat16, 1, 64, 5)):
+        fn, plain, _, _ = _step_fwd_fns(kind)
+        args = _scan_case(kind, cuda, dtype, 2, t, width)
+        if which is not None:
+            args[which] = _off(args[which])
+        before = dict(fn.route_launches)
+        s, y = fn(*args)
+        torch.cuda.synchronize()
+        before["step"] += 1
+        assert dict(fn.route_launches) == before, (kind, dtype, t, width)
+        assert torch.equal(s, plain(*args)[0])
 
 
 # ---------------------------------------------------------------------------
