@@ -164,13 +164,23 @@ optimizer byte bounds, and a profiled step split into forward, backward
 and optimizer by kind of kernel; every training phase counts the
 chunked-attention launches (forward twice a layer a step with the
 checkpoint's recompute, backward once) and fails if the plain loop ran
-on a CUDA tensor; ``[train-ssm]`` trains RWKV-6-7B at its
-published width with 8 of its 32 layers (AdamW, as the whole model
-takes it), 2 sequences of 1024 tokens a step, the same lines plus the
+on a CUDA tensor; ``[train-kimi]`` trains one Kimi-K2 group at full
+width with 128 of its 384 experts (Adafactor, as the whole model takes
+it, ``TRAIN``'s 8 x 256 tokens) and fails unless every chunked-attention
+launch took the tile route at head width 112; ``[train-ssm]`` trains
+RWKV-6-7B at its published width with 8 of its 32 layers (AdamW, as the
+whole model takes it), 2 sequences of 1024 tokens a step, the same lines
+plus the
 scan backward's device time in the profiled step, and fails unless the
 backward took the chunked route once a layer a step and no plain loop
 was reached; then Jamba's smoke config in bf16 trains 3 steps on the
-card through the Mamba chunk backward; ``[train-stablelm]`` trains
+card through the Mamba chunk backward; ``[train-jamba]`` trains one
+Jamba group (7 Mamba and 1 attention layers) at full width with 4 of
+its 16 experts (Adafactor, 2 x 1024 tokens a step) and fails unless
+every Mamba forward and backward took the chunk route, the step pair
+never launched and every attention launch took the tile route at head
+width 128, printing the scans' device time in the profiled step;
+``[train-stablelm]`` trains
 StableLM-12B at its published width with 8 of its 40 layers (AdamW,
 ``TRAIN``'s 8 x 256 tokens) and fails unless every chunked-attention
 launch, forward and backward, took the tile route at head width 160,
@@ -178,7 +188,8 @@ printing the attention's device time in the profiled step's forward and
 backward ranges; ``[train-ckpt]`` saves a bf16 smoke
 run on the card asynchronously, restores it bitwise and continues it
 through a fresh ``train()``.
-Phases print as they finish; the last lines are one
+Phases print as they finish, each with a ``[time]`` line of its
+seconds; the last lines are one
 ``{"kernels": [...]}`` JSON object, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
 last line is printed.  Without a CUDA device, or outside a checkout, it
@@ -255,6 +266,40 @@ def call_ms(fn, reps: int = 200, warm: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of one eager ``fn()`` in ms, for calls a CUDA graph
+    cannot capture: CUDA events around ``reps`` calls enqueued while the
+    stream waits behind a device-side sleep, so that the host's issue time
+    does not sit between their kernels.  The sleep's length, from the
+    host time of one call and the H100's 1.98 GHz boost clock, is only a
+    guess at a lower bound: what validates a reading is that the start
+    event is still pending once all calls are enqueued; else the sleep
+    grows and the calls run again.  Used for SDPA's backward, whose
+    cuDNN kernels the profiler does not see inside this script (why is
+    not known)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for grow in (4, 16, 64):
+        # cycles at the H100's 1.98 GHz: a slower clock sleeps longer
+        torch.cuda._sleep(int(max(0.02, grow * reps * host) * 1.98e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(stop) / reps
+    fail(f"queued_ms: {reps} calls not enqueued within the sleep")
 
 
 def device_ms(fn, reps: int = 200, replays: int = 5) -> float:
@@ -1991,18 +2036,20 @@ def _bwd_main_shape(kind) -> tuple:
             cbase.smoke(cbase.get("jamba_1_5_large_398b")).d_model)
 
 
-def _bwd_sweep(kind, k, gen) -> dict:
-    """The new backward route through autograd at B = 2, full width, T in
-    :data:`SCAN_SWEEP_T`, and at its main path's shape
-    (:func:`_bwd_main_shape`), in every decay regime, with and without a
+def _bwd_sweep(kind, k, gen, shapes=None) -> dict:
+    """The new backward route through autograd at ``shapes`` (B, T,
+    width), by default B = 2, full width, T in :data:`SCAN_SWEEP_T`, and
+    its main path's shape (:func:`_bwd_main_shape`), in every decay
+    regime, with and without a
     cotangent of the last state: all six gradients finite, within
     ``SCAN_GRAD_TOL`` of autograd through the bf16 loop and
     ``SCAN_GRAD_F32_TOL`` of the loop in float32 on the same values (as a
     share of the largest).  Returns the worst shares by regime."""
     bf16, worst = torch.bfloat16, {}
     route = k["bwd_route"]
-    shapes = [(2, t, k["width"]) for t in SCAN_SWEEP_T]
-    shapes.append(_bwd_main_shape(kind))
+    if shapes is None:
+        shapes = [(2, t, k["width"]) for t in SCAN_SWEEP_T]
+        shapes.append(_bwd_main_shape(kind))
     for regime in SCAN_REGIMES:
         w_loop = w_f32 = 0.0
         for b, t, width in shapes:
@@ -2045,6 +2092,34 @@ def _bwd_sweep(kind, k, gen) -> dict:
         worst[regime] = (w_loop, w_f32)
         _free()
     return worst
+
+
+def _train_jamba_scan(k) -> dict:
+    """The Mamba chunk route, forward and backward, at ``[train-jamba]``'s
+    shape (:data:`TRAIN_JAMBA`'s B and T, Jamba's d_model), bf16, in every
+    decay regime: the forward (the plan takes ``chunk``) with state and y
+    no further from the loop in float32 than the bf16 loop is, the
+    gradients as :func:`_bwd_sweep` holds them.  Draws from a generator of
+    its own (seed 31), so the sweeps draw the inputs they drew before.
+    Returns the forward's errors and the backward's worst shares by
+    regime."""
+    from repro_torch.configs import base as cbase
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    b, t = TRAIN_JAMBA["batch"], TRAIN_JAMBA["seq_len"]
+    width = cbase.get("jamba_1_5_large_398b").d_model
+    fwd = {}
+    for regime in SCAN_REGIMES:
+        args = _scan_args("mamba", b, t, width, torch.bfloat16, gen, regime)
+        if k["plan"](*args) != k["route"]:
+            fail(f"scan mamba [train-jamba] shape {regime}: plan "
+                 f"{k['plan'](*args)}, want {k['route']}")
+        fwd[regime] = _against_float32(
+            f"scan mamba {k['route']} [train-jamba] shape {regime}",
+            k["new"](*args), args, k["plain"])
+        del args
+    _free()
+    bwd = _bwd_sweep("mamba", k, gen, [(b, t, width)])
+    return {"shape": [b, t, width], "fwd_err": fwd, "bwd_worst_share": bwd}
 
 
 def _scan_backward(kind, k, gen, clock, dtype=torch.bfloat16) -> dict:
@@ -2717,6 +2792,26 @@ def phase_scan() -> list:
               f"largest, y against the loop: " + "; ".join(
                   f"{d} {w:.3g}" for d, w in fwd_edges["worst_y_share"].items())
               + f" ({time.perf_counter() - t1:.1f} s)")
+        if kind == "mamba":
+            t1 = time.perf_counter()
+            jamba = _train_jamba_scan(k)
+            new["train_jamba_shape"] = back[k["bwd_route"]][
+                "train_jamba_shape"] = jamba
+            print(f"[scan] {name} {k['route']} forward and backward at "
+                  f"[train-jamba]'s shape (B, T, width {jamba['shape']}, "
+                  f"bf16, three decay regimes): the plans take chunk; state "
+                  f"and y no further from the loop in float32 than the bf16 "
+                  f"loop, state / y (the bf16 loop's own): " + "; ".join(
+                      f"{r} {e['state'][0]:.3g} ({e['state'][1]:.3g}) / "
+                      f"{e['y'][0]:.3g} ({e['y'][1]:.3g})"
+                      for r, e in jamba["fwd_err"].items())
+                  + f"; all six gradients within {SCAN_GRAD_TOL[bf16]} of "
+                  f"autograd through the bf16 loop and {SCAN_GRAD_F32_TOL} "
+                  f"of the loop in float32, with and without a cotangent of "
+                  f"the last state, worst shares (bf16 loop / float32 loop): "
+                  + "; ".join(f"{r} {a:.3g} / {c:.3g}" for r, (a, c) in
+                              jamba["bwd_worst_share"].items())
+                  + f" ({time.perf_counter() - t1:.1f} s)")
         src = "rwkv6_scan.cu" if kind == "rwkv" else "mamba_scan.cu"
         step.update(edge_sweep=fwd_edges, **_step_fwd_floor(
             kind, bf16, step["shape"], clock))
@@ -2774,7 +2869,8 @@ ATTN_MASKS = ((False, 0), (False, 37), (True, 0), (True, 37))
 ATTN_F32_TOL = {"out": 1e-5, "grad": 1e-4}
 #: the main paths' shapes, bf16: B, H, Tq, Tk, d, causal, backward too
 #: (Kimi-K2 and StableLM-12B train at head widths 112 and 160, on the tile
-#: routes since their widths are padded to whole chunks; Jamba's smoke
+#: routes since their widths are padded to whole chunks; Jamba at full
+#: width, [train-jamba], at d 128 over 2 x 1024 tokens; Jamba's smoke
 #: config in bf16, [train-ssm]'s second run, at d 16 on the head route)
 ATTN_PATHS = {
     "whisper-encoder": (8, 16, 1500, 1500, 64, False, False),
@@ -2786,6 +2882,7 @@ ATTN_PATHS = {
     "grok-train": (8, 48, 256, 256, 128, True, True),
     "kimi-train": (8, 64, 256, 256, 112, True, True),
     "stablelm-train": (8, 32, 256, 256, 160, True, True),
+    "jamba-train": (2, 64, 1024, 1024, 128, True, True),
     "jamba-smoke-train": (2, 4, 64, 64, 16, True, True),
 }
 #: the split / tile threshold's sweep: the two cross-attention shapes
@@ -2825,7 +2922,8 @@ ATTN_RECORDS = {
                       "whisper-encoder", ["whisper-cross-prefill",
                                           "llama-cross-prefill",
                                           "phi4-train", "grok-train",
-                                          "kimi-train", "stablelm-train"]),
+                                          "kimi-train", "stablelm-train",
+                                          "jamba-train"]),
     ("fwd", "split"): ("chunked_attention_fwd_split_bf16", "sm90",
                        "whisper-cross-decode", ["llama-cross-decode"]),
     ("fwd", "mma"): ("chunked_attention_fwd_mma_bf16", "",
@@ -2833,7 +2931,7 @@ ATTN_RECORDS = {
     ("fwd", "simt"): ("chunked_attention_fwd_f32", "", "smoke", []),
     ("bwd", "tile"): ("chunked_attention_bwd_tile_bf16", "bwd_sm90",
                       "phi4-train", ["grok-train", "kimi-train",
-                                     "stablelm-train"]),
+                                     "stablelm-train", "jamba-train"]),
     ("bwd", "mma"): ("chunked_attention_bwd_mma_bf16", "",
                      "jamba-smoke-train", []),
     ("bwd", "simt"): ("chunked_attention_bwd_f32", "", "smoke", []),
@@ -3020,9 +3118,8 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
     (``fwd_route``), the ``mma`` route on the same inputs, the plain
     loop, and ``scaled_dot_product_attention`` on the same inputs (the
     library column only); with ``bwd`` the same for the backward (the
-    plain backward ``ref.chunked_attention_bwd``, SDPA's backward as the
-    profiler's device time of the kernels its forward and backward call
-    launches and its forward call does not)."""
+    plain backward ``ref.chunked_attention_bwd``, SDPA's backward as
+    autograd's backward of one SDPA forward, by :func:`queued_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import chunked_attention as ca
     from repro_torch.kernels import ref
@@ -3054,21 +3151,14 @@ def _attn_times(q, k, v, dout, causal, bwd) -> dict:
         q, k, v, out, dout, lse, causal=causal), reps=max(2, reps // 5),
         replays=2)
     xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_both():
-        o = F.scaled_dot_product_attention(*xs, is_causal=is_causal)
-        torch.autograd.grad(o, xs, dout)
-
-    # SDPA's backward: the device time of the kernels a forward and
-    # backward call launches that a forward call (on the same inputs,
-    # recording for autograd) does not (the profiler's mean a launch of
-    # each, summed).  Subtracting the forward's sum went negative at the
-    # smoke shapes, where a trace that lost a kernel outweighed the
-    # backward
-    fwd_names = set(_kernel_ms(
-        lambda: F.scaled_dot_product_attention(*xs, is_causal=is_causal)))
-    r["bwd_library_ms"] = sum(ms for name, ms in _kernel_ms(
-        sdpa_both).items() if name not in fwd_names)
+    # SDPA's backward: autograd's backward of one SDPA forward (run once,
+    # before), queued behind a device sleep.  Within this script the
+    # profiler shows none of its bf16 kernels (cuDNN's), and a CUDA graph
+    # cannot capture it at every shape
+    o = F.scaled_dot_product_attention(*xs, is_causal=is_causal)
+    r["bwd_library_ms"] = queued_ms(lambda: torch.autograd.grad(
+        o, xs, dout, retain_graph=True))
+    del o
 
     def loop_both():
         o = ref.chunked_attention(*xs, causal=causal)
@@ -3282,8 +3372,8 @@ def phase_attn() -> list:
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "library_ms": r[f"{way}_library_ms"],
                 "library": "torch.nn.functional.scaled_dot_product_attention"
-                           + (" (its backward kernels' device time)"
-                              if way == "bwd" else ""),
+                           + (" (autograd's backward of it, queued behind "
+                              "a device sleep)" if way == "bwd" else ""),
                 "mma_route_ms": r.get(f"{way}_mma_ms"),
                 "launch_floor_ms": r.get("floor_ms"),
                 "shape": r["shape"], "at": main,
@@ -5239,7 +5329,9 @@ def _train_full(tag, cfg, cut, opt, dispatch="spec", opt_cfg=None,
     return {"step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3,
             "losses": losses, "peak_bytes": peak, "flop_ms": flop_ms,
             "opt_ms": opt_ms, "profile": prof, "scans": scans,
-            "steps": len(losses), "attn": attn_routes}
+            "steps": len(losses), "attn": attn_routes,
+            "n_attn": _n_sublayers(state.params, "attn"),
+            "n_mamba": _n_sublayers(state.params, "mamba")}
 
 
 def _train_poison(tag, model, params, batch) -> None:
@@ -5299,6 +5391,104 @@ def phase_train_moe() -> tuple:
                       f"experts top-{cfg.top_k}", "adafactor", opt_cfg=full)
     _free()
     return res["attn"]
+
+
+#: [train-kimi]'s cut of Kimi-K2 (61 layers, 384 experts): one [attn, moe]
+#: group with 128 experts (top-8 and the shared expert kept), 32.6 GB of
+#: bf16 weights and gradients beside Adafactor's float32 copies of the
+#: 1.88e9-element expert leaf (7.5 GB each); with all 384 the weights and
+#: gradients alone are 77.7 GB
+TRAIN_KIMI = dict(n_layers=1, n_experts=128)
+#: [train-jamba]'s cut of Jamba-1.5-Large (72 layers, 16 experts): one
+#: group of 8 layers (7 Mamba, 1 attention, 4 MoE, 4 MLP) with 4 experts
+#: (top-2 kept; 2 would route every token to both), 14.7e9 parameters,
+#: 59 GB of bf16 weights and gradients; 2 sequences of 1024 tokens a step,
+#: as TRAIN_SSM (SSMs train at long contexts)
+TRAIN_JAMBA = dict(n_layers=8, n_experts=4, batch=2, seq_len=1024)
+
+
+def train_cut(arch: str, cut: dict):
+    """The published config of ``arch`` and its cut for one card:
+    ``cut``'s ``n_layers`` and ``n_experts`` replaced, every other field
+    the published one (``batch`` and ``seq_len`` are the step's, not the
+    config's)."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    full = cbase.get(arch)
+    return full, dataclasses.replace(full, n_layers=cut["n_layers"],
+                                     n_experts=cut["n_experts"])
+
+
+def _check_attn_tile(tag, res, cfg, d) -> str:
+    """Fails unless ``cfg``'s head width is ``d`` and every
+    chunked-attention launch of ``_train_full``'s result ``res`` was by
+    the tile route (forward twice a layer a step with the checkpoint's
+    recompute, backward once).  Returns the counts as words."""
+    if cfg.hd != d:
+        fail(f"{tag}: head width {cfg.hd}, want {d}")
+    fwd, bwd = res["attn"]
+    n = res["n_attn"] * res["steps"]
+    if fwd != {**dict.fromkeys(fwd, 0), "tile": 2 * n} or \
+            bwd != {**dict.fromkeys(bwd, 0), "tile": n}:
+        fail(f"{tag}: chunked attention by route forward {fwd}, backward "
+             f"{bwd}; want every launch tile ({2 * n} forward, {n} "
+             f"backward)")
+    return (f"{2 * n} forward and {n} backward launches over the "
+            f"{res['steps']} steps, all tile at d {d}")
+
+
+def _attn_split(res) -> dict:
+    parts = res["profile"]["parts"]
+    return {p: parts[p].get("attention", 0.0) for p in ("forward",
+                                                       "backward")}
+
+
+def phase_train_kimi() -> tuple:
+    """Kimi-K2 at its published width (d_model 7168, 64 heads of 112, 8
+    KV heads, expert d_ff 2048, top-8, one shared expert, vocab 163840,
+    bf16) cut by :data:`TRAIN_KIMI`, Adafactor as
+    ``make_optimizer(get("kimi_k2_1t_a32b"))`` picks for the whole model,
+    ``dispatch="spec"``, ``TRAIN``'s 8 x 256 tokens a step through
+    :func:`_train_full`: every chunked-attention launch on the tile route
+    at d 112 (the width's only training path) and the plain loop never
+    reached.  Prints the profiled step's attention device ms in the
+    forward and backward ranges.  Returns the chunked-attention launches
+    by route (forward, backward) and the step's numbers."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    full, cfg = train_cut("kimi_k2_1t_a32b", TRAIN_KIMI)
+    group = cbase.param_count(dataclasses.replace(
+        cfg, n_experts=full.n_experts))[0]
+    cut = (f"n_layers {full.n_layers} cut to {cfg.n_layers}, one [attn, "
+           f"moe] group, experts {full.n_experts} cut to {cfg.n_experts} "
+           f"top-{cfg.top_k} with {cfg.n_shared_experts} shared "
+           f"({cbase.param_count(cfg)[0] / 1e9:.2f}e9 parameters kept; a "
+           f"group with all {full.n_experts} holds {group / 1e9:.2f}e9, "
+           f"{4 * group / 1e9:.1f} GB of bf16 weights and gradients); "
+           f"{TRAIN['batch']} x {TRAIN['seq_len']} tokens a step, not cut")
+    print(f"[train-kimi] optimizer from make_optimizer(get("
+          f"'kimi_k2_1t_a32b')): {cbase.param_count(full)[0] / 1e9:.1f}e9 "
+          f"parameters pick adafactor; {cut}")
+    res = _train_full("train-kimi", cfg, cut, "adafactor", opt_cfg=full)
+    words = _check_attn_tile("train-kimi", res, cfg, 112)
+    att = _attn_split(res)
+    print(f"[train-kimi] chunked attention: {words}; in the profiled step "
+          f"forward range {att['forward']:.3f} ms ({cfg.n_layers} forward "
+          f"launches), backward range {att['backward']:.3f} ms "
+          f"({cfg.n_layers} forward launches of the checkpoint's recompute, "
+          f"{cfg.n_layers} backward) ({smi()})")
+    _free()
+    return res["attn"], _train_numbers(res)
+
+
+def _train_numbers(res) -> dict:
+    """The numbers of a ``_train_full`` result the result line keeps."""
+    prof = res["profile"]
+    return {k: res[k] for k in ("step_ms", "tokens_s", "losses",
+                                "peak_bytes", "flop_ms", "opt_ms")} | {
+        "window_ms": prof["window_ms"], "busy_ms": prof["busy_ms"],
+        "idle_share": prof["idle_share"],
+        "parts_ms": {p: sum(k.values()) for p, k in prof["parts"].items()}}
 
 
 #: [train-ssm]: RWKV-6-7B's layers kept, and the tokens of a step (2
@@ -5446,6 +5636,69 @@ def phase_train_ssm() -> dict:
     return out
 
 
+def phase_train_jamba() -> tuple:
+    """Jamba-1.5-Large at its published width (d_model 8192, 64 heads of
+    128, 8 KV heads, d_ff 24576, top-2, Mamba d_state 16, vocab 65536,
+    bf16) cut by :data:`TRAIN_JAMBA`, Adafactor as
+    ``make_optimizer(get("jamba_1_5_large_398b"))`` picks for the whole
+    model, ``dispatch="spec"``, through :func:`_train_full`: every Mamba
+    forward by the chunk route (twice a layer a step, with the
+    checkpoint's recompute) and every backward by the chunk route (once),
+    the step pair never, every chunked-attention launch on the tile route
+    at d 128, and no plain loop reached.  Prints the profiled step's scan
+    backward and forward device ms and its attention's.  Returns the
+    Mamba backward launches by route, the chunked-attention launches by
+    route (forward, backward) and the step's numbers."""
+    import dataclasses
+    from repro_torch.configs import base as cbase
+    full, cfg = train_cut("jamba_1_5_large_398b", TRAIN_JAMBA)
+    b, t = TRAIN_JAMBA["batch"], TRAIN_JAMBA["seq_len"]
+    group = cbase.param_count(dataclasses.replace(
+        cfg, n_experts=full.n_experts))[0]
+    cut = (f"n_layers {full.n_layers} cut to {cfg.n_layers}, one group (7 "
+           f"Mamba, 1 attention; 4 MoE, 4 MLP), experts {full.n_experts} "
+           f"cut to {cfg.n_experts} top-{cfg.top_k} "
+           f"({cbase.param_count(cfg)[0] / 1e9:.2f}e9 parameters kept; a "
+           f"group with all {full.n_experts} holds {group / 1e9:.2f}e9, "
+           f"{4 * group / 1e9:.1f} GB of bf16 weights and gradients); "
+           f"{b} x {t} tokens a step, not cut")
+    print(f"[train-jamba] optimizer from make_optimizer(get("
+          f"'jamba_1_5_large_398b')): {cbase.param_count(full)[0] / 1e9:.1f}"
+          f"e9 parameters pick adafactor; {cut}")
+    with _no_plain_scans():
+        res = _train_full("train-jamba", cfg, cut, "adafactor", opt_cfg=full,
+                          batch=b, seq_len=t)
+    words = _check_attn_tile("train-jamba", res, cfg, 128)
+    (launches, fwd, bwd), steps = res["scans"], res["steps"]
+    n = res["n_mamba"]
+    want = {"rwkv6_scan": (0, 0), "mamba_scan": (2 * n * steps, n * steps)}
+    if launches != want or \
+            fwd["mamba_scan"] != {**dict.fromkeys(fwd["mamba_scan"], 0),
+                                  "chunk": 2 * n * steps} or \
+            bwd["mamba_scan"] != {**dict.fromkeys(bwd["mamba_scan"], 0),
+                                  "chunk": n * steps}:
+        fail(f"train-jamba: scan launches {launches}, forward by route {fwd}, "
+             f"backward by route {bwd}; want {want}, every forward and "
+             f"backward by the chunk route and the step pair never")
+    by_name = res["profile"]["by_name"]
+    bwd_ms = _scan_bwd_ms(by_name, SCAN_BWD_KERNELS)
+    fwd_ms = _scan_bwd_ms(by_name, ("mamba_chunk_kernel",))
+    att = _attn_split(res)
+    print(f"[train-jamba] the Mamba scans (D {cfg.d_model}, N "
+          f"{cfg.ssm_d_state}) in the profiled step: backward {bwd_ms:.3f} ms "
+          f"of device time by the chunk route ({n} launches), forward "
+          f"{fwd_ms:.3f} ms (chunk route, {2 * n} launches with the "
+          f"checkpoint's recompute); over the {steps} steps the forward "
+          f"launched {fwd['mamba_scan']} by route and the backward "
+          f"{bwd['mamba_scan']}; chunked attention: {words}, forward range "
+          f"{att['forward']:.3f} ms, backward range {att['backward']:.3f} "
+          f"ms; no plain loop reached ({smi()})")
+    _free()
+    return (dict(bwd["mamba_scan"]), res["attn"],
+            _train_numbers(res) | {"scan_bwd_ms": bwd_ms,
+                                   "scan_fwd_ms": fwd_ms})
+
+
 #: [train-stablelm]'s cut: StableLM-12B's layers kept (of 40)
 TRAIN_STABLELM = dict(n_layers=8)
 
@@ -5474,24 +5727,15 @@ def phase_train_stablelm() -> tuple:
           f"'stablelm_12b')): {cbase.param_count(full)[0] / 1e9:.2f}e9 "
           f"parameters pick adamw; {cut}")
     res = _train_full("train-stablelm", cfg, cut, "adamw", opt_cfg=full)
-    fwd, bwd = res["attn"]
-    n = cfg.n_layers * res["steps"]
-    if fwd != {**dict.fromkeys(fwd, 0), "tile": 2 * n} or \
-            bwd != {**dict.fromkeys(bwd, 0), "tile": n}:
-        fail(f"train-stablelm: chunked attention by route forward {fwd}, "
-             f"backward {bwd}; want every launch tile ({2 * n} forward, "
-             f"{n} backward)")
-    parts = res["profile"]["parts"]
-    att = {p: parts[p].get("attention", 0.0) for p in ("forward",
-                                                       "backward")}
-    print(f"[train-stablelm] chunked attention (tile route, d 160) in the "
-          f"profiled step: forward range {att['forward']:.3f} ms "
-          f"({cfg.n_layers} forward launches), backward range "
-          f"{att['backward']:.3f} ms ({cfg.n_layers} forward launches of "
-          f"the checkpoint's recompute, {cfg.n_layers} backward); step "
-          f"{res['step_ms']:.1f} ms against a {res['flop_ms']:.2f} ms FLOP "
-          f"bound ({res['flop_ms'] / res['step_ms']:.1%}); over the "
-          f"{res['steps']} steps forward {fwd}, backward {bwd} ({smi()})")
+    words = _check_attn_tile("train-stablelm", res, cfg, 160)
+    att = _attn_split(res)
+    print(f"[train-stablelm] chunked attention: {words}; in the profiled "
+          f"step forward range {att['forward']:.3f} ms ({cfg.n_layers} "
+          f"forward launches), backward range {att['backward']:.3f} ms "
+          f"({cfg.n_layers} forward launches of the checkpoint's recompute, "
+          f"{cfg.n_layers} backward); step {res['step_ms']:.1f} ms against "
+          f"a {res['flop_ms']:.2f} ms FLOP bound "
+          f"({res['flop_ms'] / res['step_ms']:.1%}) ({smi()})")
     _free()
     return res["attn"]
 
@@ -5548,56 +5792,74 @@ def phase_train_ckpt() -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, printing its seconds."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     """Run every phase; print the result lines only if all passed."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     t0 = time.perf_counter()
-    phase_build()
-    phase_kernels()
-    phase_parity()
-    phase_sim()
-    line = phase_line(*phase_full())
-    phase_kernels_dense()
-    line["kernels"] += phase_api_full()
-    scans = phase_scan()
+    _timed("build", phase_build)
+    _timed("kernels", phase_kernels)
+    _timed("parity", phase_parity)
+    _timed("sim", phase_sim)
+    line = _timed("full, epoch, line",
+                  lambda: phase_line(*phase_full()))
+    _timed("kernels-dense", phase_kernels_dense)
+    line["kernels"] += _timed("api", phase_api_full)
+    scans = _timed("scan", phase_scan)
     line["kernels"] += scans
-    attn = phase_attn()
+    attn = _timed("attn", phase_attn)
     line["kernels"] += attn
-    line["kernels"] += phase_serve_full()
-    grok = phase_mesh_shards_grok()
+    line["kernels"] += _timed("serve, mesh", phase_serve_full)
+    grok = _timed("mesh-shards grok", phase_mesh_shards_grok)
     for rec in line["kernels"]:
         if "mesh" in rec:  # the two bf16 entries
             rec["mesh"]["shards"]["tp2_grok"] = grok[
                 rec["name"].removesuffix("_bf16")]
-    line["mesh_attn"] = phase_mesh_attn()
-    dry = phase_dryrun()
-    line["dryrun"] = dry
-    ssm = phase_ssm()
-    hybrid = phase_hybrid()
+    line["mesh_attn"] = _timed("mesh-attn", phase_mesh_attn)
+    line["dryrun"] = _timed("dryrun", phase_dryrun)
+    ssm = _timed("ssm", phase_ssm)
+    hybrid = _timed("hybrid", phase_hybrid)
     for rec in line["kernels"]:
         if rec["name"] in hybrid:
             rec["jamba"] = hybrid[rec["name"]]
-    cross = phase_cross()
-    train = phase_train_small()
-    dense = phase_train_dense()
-    moe = phase_train_moe()
-    ssm_train = phase_train_ssm()
-    stablelm = phase_train_stablelm()
+    cross = _timed("cross", phase_cross)
+    train = _timed("train-small", phase_train_small)
+    dense = _timed("train-dense", phase_train_dense)
+    moe = _timed("train-moe", phase_train_moe)
+    kimi, kimi_train = _timed("train-kimi", phase_train_kimi)
+    ssm_train = _timed("train-ssm", phase_train_ssm)
+    jamba_bwd, jamba_attn, jamba_train = _timed("train-jamba",
+                                                phase_train_jamba)
+    stablelm = _timed("train-stablelm", phase_train_stablelm)
+    line["train_full_width"] = {"train-kimi": kimi_train,
+                                "train-jamba": jamba_train}
     # the scans' launches by route on their main paths: the bf16 forward
     # routes in one served wave ([ssm], [hybrid]); the float32 chunked
     # routes, forward and backward, in [train-small]; the bf16 chunked
     # backward routes in [train-ssm] (RWKV-6-7B at full width; Jamba's
-    # smoke config in bf16).  A step route no main path takes (Mamba's at
-    # T >= 2, both backward step pairs, the float32 forward step routes:
-    # the timing baseline, and the route of T = 1 and of tensors the
-    # chunked routes cannot take) is listed apart, under "scan_baselines"
+    # smoke config in bf16) and [train-jamba] (Mamba at D 8192).  A step
+    # route no main path takes (Mamba's at T >= 2, both backward step
+    # pairs, the float32 forward step routes: the timing baseline, and the
+    # route of T = 1 and of tensors the chunked routes cannot take) is
+    # listed apart, under "scan_baselines"
     small = "[train-small] smoke configs (float32), 3 steps"
     served = {"rwkv6_scan": (ssm, "[ssm] RWKV-6-7B wave"),
               "mamba_scan": (hybrid["mamba_scan"], "[hybrid] Jamba wave")}
     trained = {"rwkv6_scan": f"[train-ssm] RWKV-6-7B, {TRAIN_SSM['n_layers']} "
                              f"layers at full width, bf16",
                "mamba_scan": "[train-ssm] Jamba smoke config, bf16, 3 steps"}
+    jamba_path = (f"[train-jamba] Jamba one group at full width, "
+                  f"{TRAIN_JAMBA['n_experts']} experts, bf16")
+    kimi_path = (f"[train-kimi] Kimi-K2 one group at full width, "
+                 f"{TRAIN_KIMI['n_experts']} experts")
     baselines = []
     for rec in scans:
         name, route = rec["scan"], rec["scan_route"]
@@ -5623,6 +5885,13 @@ def main() -> None:
             rec["main_path"] = trained[name]
             if name == "rwkv6_scan":
                 rec["train_ssm"] = ssm_train["train"]
+            else:  # Jamba's one group at full width, beside its smoke run
+                paths = {jamba_path: jamba_bwd[route.removeprefix("bwd_")],
+                         trained[name]: rec["launches"]}
+                rec["main_path"] = jamba_path
+                rec["launches"] = sum(paths.values())
+                rec["launches_by_path"] = paths
+                rec["train_jamba"] = jamba_train
         else:
             rec["launches"], rec["main_path"] = wave["routes"][route], where
             rec["tokens_vs_plain"] = wave["tokens"]
@@ -5633,10 +5902,10 @@ def main() -> None:
     line["scan_baselines"] = baselines
     # chunked attention's launches by route and path: bf16 in [cross]
     # (prefill by tile, decode by split) and the full-width training
-    # phases (tile, d 128 and 160), Jamba's bf16 smoke run in [train-ssm]
-    # and float32 in [train-small] (d 16: head).  The routes no main path
-    # takes now (mma, simt: ATTN_BASELINES) are listed apart, under
-    # "attn_baselines", timed beside head on its main paths' inputs
+    # phases (tile, d 112, 128 and 160), Jamba's bf16 smoke run in
+    # [train-ssm] and float32 in [train-small] (d 16: head).  The routes
+    # no main path takes now (mma, simt: ATTN_BASELINES) are listed apart,
+    # under "attn_baselines", timed beside head on its main paths' inputs
     whisper = "[cross] Whisper-medium wave (encoder, cross)"
     llama = "[cross] Llama-3.2-Vision wave (cross)"
     jamba = "[train-ssm] Jamba smoke config, bf16"
@@ -5646,6 +5915,7 @@ def main() -> None:
             llama: cross["llama_3_2_vision_90b"]["tile"],
             "[train-dense] Phi-4-mini": dense[0]["tile"],
             "[train-moe] Grok-1 group": moe[0]["tile"],
+            kimi_path: kimi[0]["tile"], jamba_path: jamba_attn[0]["tile"],
             "[train-stablelm] StableLM-12B, 8 layers": stablelm[0]["tile"]},
         ("fwd", "split"): {
             whisper: cross["whisper_medium"]["split"],
@@ -5657,6 +5927,7 @@ def main() -> None:
         ("bwd", "tile"): {
             "[train-dense] Phi-4-mini": dense[1]["tile"],
             "[train-moe] Grok-1 group": moe[1]["tile"],
+            kimi_path: kimi[1]["tile"], jamba_path: jamba_attn[1]["tile"],
             "[train-stablelm] StableLM-12B, 8 layers": stablelm[1]["tile"]},
         ("bwd", "head"): {small: train["attn_routes"][1]["head"],
                           jamba: ssm_train["attn"][1]["head"]},

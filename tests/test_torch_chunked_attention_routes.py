@@ -204,6 +204,7 @@ PATH_ROUTES = {
     "grok-train": ((8, 48, 256, 256, 128, True), "tile", "tile"),
     "kimi-train": ((8, 64, 256, 256, 112, True), "tile", "tile"),
     "stablelm-train": ((8, 32, 256, 256, 160, True), "tile", "tile"),
+    "jamba-train": ((2, 64, 1024, 1024, 128, True), "tile", "tile"),
     "jamba-smoke-train": ((2, 4, 64, 64, 16, True), "head", "head"),
 }
 

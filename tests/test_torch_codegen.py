@@ -369,30 +369,41 @@ def test_armed_gather_rows_descends_like_reference(cu_mode):
 
 
 def test_import_boundary_no_jax_no_repro():
+    """Every module under ``src/repro_torch/`` and ``chip_smoke.py`` import
+    without loading jax or the reference package (the source scan below
+    misses an import reached only at run time)."""
     code = (
-        "import sys\n"
-        "import repro_torch.codegen, repro_torch.bench_irregular, "
-        "repro_torch.kernels\n"
-        "import repro_torch.kernels.spec_gather, "
-        "repro_torch.kernels.spec_scatter, repro_torch.frontend\n"
-        "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
-        "import repro_torch.configs, repro_torch.models.model, "
-        "repro_torch.models.convert\n"
-        "import repro_torch.serve.engine, repro_torch.serve.traffic, "
-        "repro_torch.launch.serve\n"
-        "import repro_torch.core.machine, repro_torch.core.sim, "
-        "repro_torch.verify, repro_torch.verify.__main__, "
-        "repro_torch.frontend.cache\n"
-        "import repro_torch.data.pipeline, repro_torch.optim, "
-        "repro_torch.train.trainer, repro_torch.launch.train\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 100 else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["repro_torch.launch.train", "--arch", "phi4-mini-3.8b", "--smoke",
+     "--steps", "1"],
+    ["repro_torch.launch.serve", "--arch", "kimi-k2-1t-a32b"]])
+def test_entry_points_refuse_the_cpu_unasked(argv):
+    """Without a visible card and without ``--device cpu``, the launchers
+    raise instead of running on the CPU."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr, out.stderr[-2000:]
 
 
 def test_source_scan_no_jax_no_repro_import():

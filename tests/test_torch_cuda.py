@@ -92,6 +92,7 @@ port is installed::
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -793,6 +794,77 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
     for a, b in zip(cpu[1], card[1], strict=True):
         assert a.dtype == b.dtype
         torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+#: the narrow Kimi-K2-shaped model of the card's training step at d 112:
+#: two layers of Kimi-K2's 64 heads of 112 (8 KV heads), two experts
+#: routed top-2 (every token to both, so no routing choice can flip between
+#: the card and the CPU), bf16; B and T of its batch (T past the split
+#: route's one query: the tile route, forward and backward)
+WIDE_KIMI = dict(n_layers=2, d_model=256, n_heads=64, n_kv_heads=8,
+                 head_dim=112, n_experts=2, top_k=2, moe_d_ff=128,
+                 d_ff=128, dtype="bfloat16")
+WIDE_KIMI_BT = (2, 128)
+#: the card's bf16 loss and gradients against the same step run in
+#: float32 on the CPU on the same bf16 weights: no farther from it than
+#: the CPU's bf16 step through the plain versions is, plus this share of
+#: the largest (the kernels and cuBLAS sum in other orders than the CPU,
+#: and each side rounds the activations to bf16 after its own sums)
+WIDE_KIMI_TOL = 2.0 ** -6
+
+
+def test_cuda_train_wide_head_step_matches_cpu(cuda):
+    """One training step (loss and every gradient) of a narrow
+    Kimi-K2-shaped model (:data:`WIDE_KIMI`) on the card through the tile
+    route at d 112, forward and backward, held to the same step on the
+    CPU through the plain versions (see :data:`WIDE_KIMI_TOL`)."""
+    import dataclasses
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs import base
+    from repro_torch.kernels import chunked_attention as ca
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import value_and_grad
+    cfg = dataclasses.replace(base.smoke(base.get("kimi_k2_1t_a32b")),
+                              **WIDE_KIMI)
+    b, t = WIDE_KIMI_BT
+    q = torch.zeros((b, cfg.n_heads, t, cfg.hd), dtype=torch.bfloat16,
+                    device=cuda)
+    assert ca.attn_plan(q, q, q, True) == "tile"
+    assert ca.attn_bwd_plan(q, q, q, q, q, True) == "tile"
+    model = build_model(cfg, "spec")
+    params = model.init(torch.Generator().manual_seed(5), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (b, t)).astype(np.int32))
+    fwd0 = dict(ca.chunked_attention.route_launches)
+    bwd0 = dict(ca.chunked_attention.bwd_route_launches)
+    card = value_and_grad(model, tree_map(lambda x: x.to(cuda), params),
+                          {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    fwd = {r: n - fwd0[r]
+           for r, n in ca.chunked_attention.route_launches.items()}
+    bwd = {r: n - bwd0[r]
+           for r, n in ca.chunked_attention.bwd_route_launches.items()}
+    # the group checkpoint runs each forward twice
+    assert fwd == {**dict.fromkeys(fwd, 0), "tile": 2 * cfg.n_layers}
+    assert bwd == {**dict.fromkeys(bwd, 0), "tile": cfg.n_layers}
+    cpu = value_and_grad(model, params, {"tokens": tokens})
+    wide = value_and_grad(
+        build_model(dataclasses.replace(cfg, dtype="float32"), "spec"),
+        tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                 params), {"tokens": tokens})
+    got, own, want = (float(r[0]) for r in (card, cpu, wide))
+    assert abs(got - want) <= abs(own - want) + 2.0 ** -8 * abs(want), (
+        got, own, want)
+    leaves = [tree_leaves(r[1]) for r in (card, cpu, wide)]
+    assert len(leaves[0]) == len(leaves[1]) == len(leaves[2])
+    for i, (g, c, w) in enumerate(zip(*leaves)):
+        assert g.dtype == c.dtype and g.shape == c.shape == w.shape, i
+        g, c = g.cpu().float(), c.float()
+        assert torch.isfinite(g).all(), i
+        err = (g - w).abs().max().item()
+        base_err = (c - w).abs().max().item()
+        assert err <= base_err + WIDE_KIMI_TOL * w.abs().max().item(), (
+            i, tuple(w.shape), err, base_err)
 
 
 def test_cuda_kernels_refuse_a_gradient(cuda):
@@ -1541,6 +1613,100 @@ def test_cuda_scan_step_bwd_takes_unaligned_and_ragged_by_step(cuda):
         before["step"] += 1
         assert dict(fn.bwd_route_launches) == before, (kind, dtype, t, width)
         assert all(torch.isfinite(x.grad.float()).all() for x in xs)
+
+
+#: the Mamba step pair's float32 du at T = 1 against the loop in float64:
+#: seeds of the sweep, in each decay regime; B, T and width of
+#: chip_smoke.py's STEP_BWD_EDGES T = 1 case (Jamba's 8192 channels)
+DU_F64_SEEDS = range(64)
+DU_F64_SHAPE = (2, 1, 8192)
+#: the margin past the float32 loop's own distance from float64, as a
+#: share of max|du| (SCAN_GRAD_TOL's float32 share)
+DU_F64_MARGIN = 1e-4
+
+
+def _du_case(dev, regime, seed):
+    """Seeded float32 Mamba inputs at :data:`DU_F64_SHAPE` in one decay
+    regime, and seeded cotangents of the last state and of y."""
+    b, t, width = DU_F64_SHAPE
+    g = torch.Generator().manual_seed(seed + 50_000)
+    args = _regime(_scan_case("mamba", dev, torch.float32, b, t, width,
+                              seed=seed), "mamba", regime, g)
+    w_s = torch.randn((b, width, 16), generator=g).to(dev)
+    w_y = torch.randn((b, t, width), generator=g).to(dev)
+    return args, w_s, w_y
+
+
+def _du(fn, args, w_s, w_y):
+    """du of ``fn``'s scan through autograd, given the cotangents of the
+    last state (None: none) and of y, in the inputs' dtype."""
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    s, y = fn(*xs)
+    outs, cots = ([s, y], [w_s.to(s.dtype), w_y.to(y.dtype)]) \
+        if w_s is not None else ([y], [w_y.to(y.dtype)])
+    return torch.autograd.grad(outs, xs[0], cots)[0]
+
+
+def du_f64_distances(args, w_s, w_y) -> dict:
+    """The step pair's du (through autograd, the ``step`` backward route)
+    and the float32 loop's du, each against the loop's in float64: their
+    max abs distances, max|du| in float64, and the plain order version's
+    (``ref.mamba_scan_bwd_step``) distance."""
+    from repro_torch.kernels import scan
+    n0 = scan.mamba_scan.bwd_route_launches["step"]
+    got = _du(scan.mamba_scan, args, w_s, w_y)
+    assert scan.mamba_scan.bwd_route_launches["step"] == n0 + 1
+    loop = _du(ref.mamba_scan, args, w_s, w_y)
+    wide = _du(ref.mamba_scan, [a.double() for a in args], w_s, w_y)
+    plain = ref.mamba_scan_bwd_step(*args, w_s, w_y)[0]
+    assert torch.isfinite(got).all()
+    return {"kernel": (got.double() - wide).abs().max().item(),
+            "loop": (loop.double() - wide).abs().max().item(),
+            "plain": (plain.double() - wide).abs().max().item(),
+            "max_du": wide.abs().max().item()}
+
+
+def _du_held(d, tag):
+    assert d["kernel"] <= d["loop"] + DU_F64_MARGIN * d["max_du"], (tag, d)
+
+
+@pytest.mark.parametrize("last", [True, False])
+@pytest.mark.parametrize("regime", ["model", "near0", "near1"])
+def test_cuda_scan_step_du_f64(cuda, regime, last):
+    """The Mamba step pair's float32 du at T = 1 (B 2, 8192 channels),
+    over 64 seeds: no farther from the loop in float64 than the float32
+    loop is, plus 1e-4 of max|du| (where B·C cancels, du is a cancelled
+    sum and a share of its largest is a few of its terms' ulps)."""
+    worst = {"kernel": 0.0, "loop": 0.0, "plain": 0.0}
+    for seed in DU_F64_SEEDS:
+        args, w_s, w_y = _du_case(cuda, regime, 100 + seed)
+        d = du_f64_distances(args, w_s if last else None, w_y)
+        _du_held(d, (regime, last, seed))
+        for k in worst:
+            worst[k] = max(worst[k], d[k] / max(d["max_du"], 1e-300))
+    print(f"[du-f64] {regime} {'with' if last else 'without'} ds, "
+          f"{len(DU_F64_SEEDS)} seeds: worst distances from float64 as "
+          f"shares of max|du|: kernel {worst['kernel']:.3g}, float32 loop "
+          f"{worst['loop']:.3g}, plain order version {worst['plain']:.3g}")
+
+
+def test_cuda_scan_step_du_f64_cancelling_draw(cuda):
+    """The draw on which chip_smoke.py's step-pair sweep once failed
+    (``tests/data/mamba_du_t1_draw.npz``: the pair's du against the
+    float32 loop's, 1.48e-06 past 1e-4 of max|du| = 8.67e-07, where B·C
+    cancels), held to the loop in float64 as the seeded draws are: the
+    pair no farther from it than the float32 loop is, plus 1e-4 of
+    max|du|."""
+    z = np.load(os.path.join(os.path.dirname(__file__), "data",
+                             "mamba_du_t1_draw.npz"))
+    args = [torch.from_numpy(z[k]).to(cuda)
+            for k in ("u", "delta", "bmat", "cmat", "a", "s0")]
+    d = du_f64_distances(args, None, torch.from_numpy(z["dy"]).to(cuda))
+    np.testing.assert_allclose(d["max_du"], 8.6665e-3, rtol=1e-4)
+    _du_held(d, "cancelling draw")
+    print(f"[du-f64] the cancelling draw: distances from float64 kernel "
+          f"{d['kernel']:.4g}, float32 loop {d['loop']:.4g}, plain order "
+          f"version {d['plain']:.4g}; max|du| {d['max_du']:.6g}")
 
 
 # ---------------------------------------------------------------------------

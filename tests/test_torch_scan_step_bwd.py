@@ -30,6 +30,8 @@ through the loop are held to ``jax.grad`` of the reference's
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -271,3 +273,51 @@ def test_block_with_step_bwd_matches_reference_grad(kind, t, monkeypatch):
     for got, want in zip(tstate, jax.tree.leaves(gs)):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
                                    rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+#: a float32 Mamba draw at T = 1 (B 2, 8192 channels, the models' decay
+#: regime) on which chip_smoke.py's step-pair sweep once held the pair's
+#: du to the float32 loop at SCAN_GRAD_TOL's 1e-4 of max|du| and failed:
+#: phase_scan's seed-25 generator at Philox offset 12388 (``generator``),
+#: drawn with the step forward sweep sharing it, and y's cotangent from
+#: seed 8, without one of the last state.  B·C cancels in the first batch
+#: (9.4e-6 against 10.6 of its terms), so du there is a cancelled sum.
+DU_DRAW = os.path.join(os.path.dirname(__file__), "data",
+                       "mamba_du_t1_draw.npz")
+#: the share of max|du| by which the pair's du may lie farther from the
+#: loop in float64 than the float32 loop's (test_torch_cuda.py's
+#: DU_F64_MARGIN, the atol of SCAN_GRAD_TOL[float32])
+DU_F64_MARGIN = 1e-4
+
+
+def _du(fn, args, dy):
+    """du of ``fn``'s scan through autograd, given y's cotangent and none
+    of the last state, in the inputs' dtype."""
+    xs = [a.detach().clone().requires_grad_(True) for a in args]
+    _, y = fn(*xs)
+    return torch.autograd.grad([y], xs[0], [dy.to(y.dtype)])[0]
+
+
+def test_mamba_step_du_on_the_cancelling_draw_against_float64():
+    """The plain order version's du (``ref.mamba_scan_bwd_step``, the step
+    pair's algorithm) on the saved draw is no farther from the loop in
+    float64 than the float32 loop's is, plus 1e-4 of max|du| (the relation
+    the card test holds the pair to).  Prints both distances: the float32
+    loop's own lies near 1e-4 of max|du| on this draw, a rounding of the
+    CPU's float32 sums, so it is a reading and not a check."""
+    z = np.load(DU_DRAW)
+    args = [torch.from_numpy(z[k]) for k in ("u", "delta", "bmat", "cmat",
+                                              "a", "s0")]
+    dy = torch.from_numpy(z["dy"])
+    bc = (z["bmat"] * z["cmat"]).sum(-1).ravel()
+    assert abs(bc[0]) < 1e-5 * np.abs(z["bmat"] * z["cmat"]).sum(-1)[0, 0]
+    wide = _du(ref.mamba_scan, [a.double() for a in args], dy)
+    loop = _du(ref.mamba_scan, args, dy)
+    plain = ref.mamba_scan_bwd_step(*args, None, dy)[0]
+    big = wide.abs().max().item()
+    np.testing.assert_allclose(big, 8.6665e-3, rtol=1e-4)
+    d_loop = (loop.double() - wide).abs().max().item()
+    d_plain = (plain.double() - wide).abs().max().item()
+    print(f"du against float64: plain order {d_plain:.4g}, float32 loop "
+          f"{d_loop:.4g}, 1e-4 of max|du| {DU_F64_MARGIN * big:.4g}")
+    assert d_plain <= d_loop + DU_F64_MARGIN * big, (d_plain, d_loop, big)
