@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import spans
 from ..kernels import chunked_attention as attention
 from .sharding import (constrain, current_mesh, data_axes, is_dtensor,
                        local, local_call, reduce, shard_span, unshard)
@@ -264,6 +265,9 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
     """
     b, t, dm = x.shape
     rep = n_heads // n_kv_heads
+    # spans (repro_torch.spans) of the serving path: a plain KV cache
+    sp = spans.ON and kv_cache is not None and not is_dtensor(
+        kv_cache[0]) and spans.open("attn.qkv", mark=True)
     if cross_kv is None:
         q, k, v = _self_qkv(params, x, n_heads, n_kv_heads, head_dim, theta,
                             pos_offset, pad_len)
@@ -284,10 +288,16 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
             out = _sharded_cache_attention(q, k, v, ck, cv, cache_len,
                                            pad_len)
         else:
+            if sp:
+                sp = spans.swap(sp, "attn.cache")
             ck[:, :, cache_len:cache_len + t] = k.to(ck.dtype)
             cv[:, :, cache_len:cache_len + t] = v.to(cv.dtype)
+            if sp:
+                sp = spans.swap(sp, "attn.expand")
             cke = ck.repeat_interleave(rep, dim=1) if rep > 1 else ck
             cve = cv.repeat_interleave(rep, dim=1) if rep > 1 else cv
+            if sp:
+                sp = spans.swap(sp, "attn.core")
             out = _decode_attention(q, cke, cve, cache_len + t,
                                     pad_len=pad_len)
         out = out.reshape(b, t, n_heads * head_dim)
@@ -297,8 +307,13 @@ def gqa_attention(params: Dict, x: torch.Tensor, *, n_heads: int,
             v = constrain(_expand(v, rep), "dp", "model", None, None)
         out = chunked_attention(q, k, v, causal=causal, q_offset=pos_offset)
         out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
+    if sp:
+        sp = spans.swap(sp, "attn.out")
     out = constrain(out, "dp", None, "model")
-    return reduce(out @ weight(params["wo"]), "dp", None, None), new_cache
+    out = reduce(out @ weight(params["wo"]), "dp", None, None)
+    if sp:
+        spans.close(sp)
+    return out, new_cache
 
 
 def _attend(q: torch.Tensor, ck: torch.Tensor, k_pos: torch.Tensor,

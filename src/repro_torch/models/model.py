@@ -42,6 +42,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import moe as moe_mod
@@ -190,6 +191,8 @@ class Model(NamedTuple):
                   cache_len: int = 0, state=None, pad_lens=None,
                   moe_stats: bool = False):
         cfg = self.cfg
+        sp = spans.ON and kind == "attn" and spans.open("model.attn",
+                                                        mark=True)
         # the sublayer's input stays replicated over ``model``: its
         # gradient, a partial sum of the tensor-parallel products, is
         # all-reduced here (the reference's constraint on the cotangent)
@@ -241,7 +244,10 @@ class Model(NamedTuple):
             out, new_state = res if state is not None else (res, None)
         else:
             raise ValueError(kind)
-        return x + out, new_cache, new_state, poison
+        x = x + out
+        if sp:
+            spans.close(sp)
+        return x, new_cache, new_state, poison
 
     def _run_groups(self, params: Dict, x: torch.Tensor, *,
                     pos_offset: int = 0, cross_kv=None, caches=None,
@@ -366,8 +372,12 @@ class Model(NamedTuple):
 
     def _head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """Logits of the last position, ``(B, vocab)``."""
+        sp = spans.ON and spans.open("model.head", mark=True)
         x = L.rms_norm(x[:, -1:], params["ln_f"])
-        return (x @ L.weight(params["lm_head"]))[:, -1]
+        logits = (x @ L.weight(params["lm_head"]))[:, -1]
+        if sp:
+            spans.close(sp)
+        return logits
 
     @staticmethod
     def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -426,9 +436,13 @@ class Model(NamedTuple):
         attention, with RoPE positions counting real tokens only.
         ``return_stats=True`` appends ``{"moe_poison": n}`` (poisoned MoE
         dispatch requests this step, an int32 scalar tensor)."""
-        return self._forward(params, tokens, cache, cache_len,
-                             self._make_cross(params, memory), pad_lens,
-                             return_stats)
+        sp = spans.ON and spans.open("model.decode_step", mark=True)
+        out = self._forward(params, tokens, cache, cache_len,
+                            self._make_cross(params, memory), pad_lens,
+                            return_stats)
+        if sp:
+            spans.close(sp)
+        return out
 
     def prefill(self, params: Dict, tokens: torch.Tensor, max_len: int,
                 memory=None, *, pad_lens=None,
@@ -437,13 +451,17 @@ class Model(NamedTuple):
         position's logits and the cache.  The enc-dec family encodes
         ``memory`` (stub frames) first.  See :meth:`decode_step` for
         ``pad_lens`` / ``return_stats``."""
+        sp = spans.ON and spans.open("model.prefill", mark=True)
         b, _ = tokens.shape
         cache = self.init_cache(b, max_len, device=params["embed"].device)
         if self.cfg.family == "encdec" and memory is not None:
             memory = self._encode(params, memory)
-        return self._forward(params, tokens, cache, 0,
-                             self._make_cross(params, memory), pad_lens,
-                             return_stats)
+        out = self._forward(params, tokens, cache, 0,
+                            self._make_cross(params, memory), pad_lens,
+                            return_stats)
+        if sp:
+            spans.close(sp)
+        return out
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,15 @@ model shard dispatches the same tokens).
 
 ``stats=True`` also returns the number of poisoned dispatch requests as
 an int32 scalar tensor.
+
+While :mod:`repro_torch.spans` records, :func:`moe_spec` is a
+``moe.layer`` span with the call's ``rows``, dispatch ``requests``
+(rows x top-k) and ``experts_read`` (the experts whose weights the FFN
+reads: all of them, the batched product runs over every expert's
+capacity rows); the flat path adds ``poisoned`` and ``experts_touched``
+(the distinct experts its routing chose, counted on the device) and
+splits the layer into ``moe.route``, ``moe.dispatch``, ``moe.ffn``,
+``moe.combine`` and ``moe.shared``.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import spans
 from ..kernels.spec_gather import spec_gather
 from ..kernels.spec_scatter import spec_scatter_add
 from .layers import swiglu
@@ -134,23 +144,30 @@ def moe_spec(params: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     the int32 count of poisoned dispatch requests out of ``N * top_k``
     (the same on every variant).  Under an ambient mesh it runs the
     reference's expert- or tensor-parallel variant (module docstring)."""
+    sp = spans.ON and spans.open(
+        "moe.layer", mark=True, rows=x.shape[0],
+        requests=x.shape[0] * top_k, experts_read=n_experts)
     mesh = current_mesh()
     ff = params["w_gate"].shape[-1]
+    kw = dict(n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor, kernel=kernel, stats=stats)
+    variant = None
     if (mesh is not None and "model" in mesh.mesh_dim_names
             and x.shape[0] % data_size(mesh) == 0):
         model_n = axis_sizes(mesh)["model"]
-        kw = dict(n_experts=n_experts, top_k=top_k,
-                  capacity_factor=capacity_factor, mesh=mesh,
-                  kernel=kernel, stats=stats)
         if n_experts % model_n == 0:
-            return _moe_spec_ep(params, x, **kw)
-        if ff % model_n == 0:
+            variant = _moe_spec_ep
+        elif ff % model_n == 0:
             # few experts (Grok-1: 8 < 16 shards): replicate experts, TP
             # the expert FFN width, dispatch locally on every rank
-            return _moe_spec_tp(params, x, **kw)
-    return _moe_spec_flat(params, x, n_experts=n_experts, top_k=top_k,
-                          capacity_factor=capacity_factor, kernel=kernel,
-                          stats=stats)
+            variant = _moe_spec_tp
+    if variant is None:
+        out = _moe_spec_flat(params, x, layer=sp, **kw)
+    else:
+        out = variant(params, x, mesh=mesh, **kw)
+    if sp:
+        spans.close(sp)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +222,46 @@ def _combine(h: torch.Tensor, flat_slot: torch.Tensor, gates: torch.Tensor,
 
 def _moe_spec_flat(params: Dict, x: torch.Tensor, *, n_experts: int,
                    top_k: int, capacity_factor: float, kernel: bool = False,
-                   stats: bool = False):
-    """Single-device / meshless speculative dispatch (the reference)."""
+                   stats: bool = False, layer=None):
+    """Single-device / meshless speculative dispatch (the reference).
+    ``layer``: the call's ``moe.layer`` span while the recorder is on,
+    which takes the poisoned and touched counts."""
     n = x.shape[0]
+    sp = layer and spans.open("moe.route", mark=True)
     _, gates, experts = _route(params, x, top_k)
     capacity = round_capacity(n, n_experts, top_k, capacity_factor)
+    if sp:
+        sp = spans.swap(sp, "moe.dispatch")
     slot, gates = spec_dispatch_indices(gates, experts, capacity, n_experts)
     flat_slot = slot.reshape(-1)
+    if sp:
+        sp = spans.swap(sp, "moe.ffn")
     h = _expert_ffn(x, flat_slot, params["w_gate"], params["w_up"],
                     params["w_down"], capacity, top_k, kernel)
-    out = _shared(params, x, _combine(h, flat_slot, gates, kernel))
-    if stats:
-        return out, (flat_slot < 0).sum(dtype=torch.int32)
-    return out
+    if sp:
+        sp = spans.swap(sp, "moe.combine")
+    out = _combine(h, flat_slot, gates, kernel)
+    if sp:
+        sp = spans.swap(sp, "moe.shared")
+    out = _shared(params, x, out)
+    if sp:
+        spans.close(sp)
+    if not (stats or layer):
+        return out
+    poisoned = (flat_slot < 0).sum(dtype=torch.int32)
+    if layer:
+        spans.put(layer, poisoned=poisoned,
+                  experts_touched=experts_touched(experts, n_experts))
+    return (out, poisoned) if stats else out
+
+
+def experts_touched(experts: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The number of distinct experts in ``experts`` (int32 scalar), on
+    its device and without a synchronise (``unique`` would wait for the
+    count)."""
+    hit = torch.zeros((n_experts,), dtype=torch.int32,
+                      device=experts.device)
+    return hit.index_fill_(0, experts.reshape(-1), 1).sum(dtype=torch.int32)
 
 
 def _ep_local(router: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -11,7 +11,11 @@ and recorded as a ``serve.truncate``
 :class:`~repro_torch.resilience.ladder.FailureEvent`, never a silent cut.
 Every successful wave appends a :class:`WaveStats` (wall time, committed
 tokens, MoE poison counts) to ``Engine.wave_stats``, the feed of
-:mod:`repro_torch.serve.traffic`.
+:mod:`repro_torch.serve.traffic`.  The poison count stays on the device
+through the wave and is read once, after the wave's final synchronise.
+While :mod:`repro_torch.spans` records, a wave is an ``engine.wave`` span
+(on the same pair of clock readings as ``WaveStats.wall_s``) and each
+decode step's host work an ``engine.commit`` span.
 
 Failure semantics: a request that raises during a wave does not lose the
 whole wave.  The wave's partial tokens are discarded (a torn wave never
@@ -40,6 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..configs.base import ArchConfig
 from ..kernels.dispatch import resolve_device
 from ..models.model import build_model, group_count, group_pattern
@@ -88,6 +93,7 @@ class Engine:
         self.wave_retries = wave_retries
         self.events: List[FailureEvent] = []
         self.wave_stats: List[WaveStats] = []
+        self.waves_begun = 0
         # MoE dispatch requests issued per token position (for poison rates)
         pattern = group_pattern(cfg)
         self._moe_per_tok = (pattern.count("moe") * group_count(cfg)
@@ -130,9 +136,14 @@ class Engine:
         partial tokens are discarded, the culprit (or the requests out of
         retries) fail, the survivors go back onto ``queue``, and None is
         returned: a torn wave never commits and never produces stats."""
+        ws = spans.wave_begin(self.device, wave=self.waves_begun,
+                              batch=len(wave))
+        self.waves_begun += 1
         try:
-            stats = self._run_wave(wave)
+            stats = self._run_wave(wave, ws)
         except Exception as e:  # noqa: BLE001 — degrade, don't crash
+            if ws:
+                spans.wave_end(ws, time.perf_counter_ns(), failed=1)
             rid = getattr(e, "rid", None)
             site = getattr(e, "site", "")
             for r in wave:
@@ -167,7 +178,9 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_wave(self, wave: List[Request]) -> WaveStats:
+    def _run_wave(self, wave: List[Request], ws) -> WaveStats:
+        """One wave; ``ws`` is its ``engine.wave`` span, or None while
+        the recorder is off."""
         if faults.ACTIVE:
             for r in wave:
                 if faults.fire("serve.slot"):
@@ -175,7 +188,7 @@ class Engine:
                         "serve.slot", f"slot died serving request {r.rid}",
                         rid=r.rid)
         b = len(wave)
-        t0 = time.perf_counter()
+        t0 = ws.t0 if ws else time.perf_counter_ns()
         plen = max(len(r.prompt) for r in wave)
         toks = np.zeros((b, plen), np.int32)
         pads = np.zeros((b,), np.int32)
@@ -189,7 +202,8 @@ class Engine:
         logits, cache, pstats = self.model.prefill(
             self.params, torch.from_numpy(toks).to(self.device),
             max_len=self.max_len, pad_lens=pad_lens, return_stats=True)
-        poison = int(pstats["moe_poison"])
+        # summed on the device, read once after the wave's synchronise
+        poison = pstats["moe_poison"]
         moe_reqs = b * plen * self._moe_per_tok
         pos = plen
         cur = logits.argmax(-1)[:, None].to(torch.int32)
@@ -197,6 +211,10 @@ class Engine:
         tokens = 0
         for step in range(max_new):
             faults.inject("serve.decode")
+            cs = None
+            if ws:
+                spans.set_step(step)
+                cs = spans.open("engine.commit")
             host = cur[:, 0].tolist()
             for i, r in enumerate(wave):
                 if step < r.max_new:
@@ -216,18 +234,28 @@ class Engine:
                                        f"{r.max_new - step - 1} tokens "
                                        "unserved"),
                                 retries=r.retries, outcome="truncated"))
+                if cs:
+                    spans.close(cs)
                 break
+            if cs:
+                # the rows this step computes, and those whose request
+                # still needs the token it computes
+                spans.close(cs, rows=b, live_rows=sum(
+                    step + 1 < r.max_new for r in wave))
             logits, cache, dstats = self.model.decode_step(
                 self.params, cache, cur, pos, pad_lens=pad_lens,
                 return_stats=True)
-            poison += int(dstats["moe_poison"])
+            poison = poison + dstats["moe_poison"]
             moe_reqs += b * self._moe_per_tok
             cur = logits.argmax(-1)[:, None].to(torch.int32)
             pos += 1
         self._sync()
+        poison = int(poison)
+        t1 = time.perf_counter_ns()
+        if ws:
+            spans.wave_end(ws, t1, tokens=tokens)
         for r in wave:
             r.done = True
-        return WaveStats(batch=b, wall_s=time.perf_counter() - t0,
-                         tokens=tokens,
+        return WaveStats(batch=b, wall_s=(t1 - t0) / 1e9, tokens=tokens,
                          moe_poison=poison, moe_requests=moe_reqs,
                          truncated=sum(r.truncated for r in wave))

@@ -23,6 +23,7 @@ from repro.serve.engine import Request as RRequest
 from repro.serve.traffic import TrafficConfig as RTrafficConfig
 from repro.serve.traffic import make_requests as rmake_requests
 from repro.serve.traffic import run_traffic as rrun_traffic
+from repro_torch import spans
 from repro_torch.configs import base
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.convert import params_from_numpy
@@ -95,6 +96,33 @@ def test_engine_tokens_match_reference(engine_reference):
     assert any(r["truncated"])
     if cfg.family == "moe" and r["dispatch"] != "dense":
         assert sum(s[2] for s in r["stats"]) > 0, "no capacity race"
+
+
+def test_span_counters_match_reference(engine_reference):
+    """With the span recorder on, the same tokens and wave stats as the
+    reference, and each wave's ``moe.layer`` poisoned counts sum to its
+    ``WaveStats.moe_poison``."""
+    r = engine_reference
+    cfg = base.smoke(base.get(r["cfg"].name))
+    cfg = dataclasses.replace(cfg, capacity_factor=r["cfg"].capacity_factor)
+    eng = _engine(cfg, params=params_from_numpy(r["params"]), slots=3,
+                  max_len=20, dispatch=r["dispatch"])
+    reqs = [Request(rid=i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(zip(r["prompts"], r["max_new"]))]
+    spans.enable(True)
+    spans.reset()
+    try:
+        assert eng.run(reqs) == r["results"]
+        recs = spans.records()
+    finally:
+        spans.enable(None)
+        spans.reset()
+    assert _stats(eng.wave_stats) == r["stats"]
+    waves = sorted({s.wave for s in recs})
+    assert len(waves) == len(eng.wave_stats)
+    for w, st in zip(waves, eng.wave_stats):
+        assert sum(s.attrs["poisoned"] for s in recs if s.wave == w
+                   and s.name == "moe.layer") == st.moe_poison
 
 
 def test_traffic_matches_reference():
